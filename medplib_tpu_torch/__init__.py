@@ -1,0 +1,18 @@
+"""medplib_tpu_torch — the PyTorch + CUDA port of medplib_tpu for NVIDIA Hopper.
+
+The JAX package `medplib_tpu` is the reference; this package mirrors its
+layout and function names so each counterpart is easy to find:
+
+  config          the model dataclasses (equal to medplib_tpu's) + the
+                  flagship configuration
+  ops             norms / rope / attention / splice / moe (plain torch)
+  ops/cuda        wrappers of the hand-written Hopper kernels (csrc/*.cu),
+                  each with its plain PyTorch version beside it
+  models          llama / moe_llama / clip / projector / sam_med2d / medplib
+  train/lora      the inference linears (dequant, W8A8)
+  utils           weight bridge (convert) and quantization
+
+It imports torch and numpy, never jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,1 @@
+"""models of the medplib_tpu_torch port."""

@@ -1,0 +1,225 @@
+"""Dense LLaMA decoder (medplib_tpu/models/llama.py) in plain PyTorch.
+
+Params are nested dicts with the JAX key paths and layouts: per-layer
+tensors stacked on a leading [L] axis, q/k/v kernels stored [out, in], the
+rest [in, out]. A layer's view (`layer_params`) is free in torch, so the
+layer stack is a Python loop.
+
+The MLP is pluggable (`mlp_apply(layer_params, h) -> (y, aux)`): the MoE
+variant (models/moe_llama.py) reuses these blocks.
+
+KV cache: prefill and decode write the cache IN PLACE (the JAX package
+returns a new cache), so a decode loop never copies it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from medplib_tpu_torch.config import LlamaConfig
+from medplib_tpu_torch.ops.moe import _silu
+from medplib_tpu_torch.ops.attention import causal_attention, decode_attention
+from medplib_tpu_torch.ops.initializers import dense_init, embed_init
+from medplib_tpu_torch.ops.norms import rms_norm
+from medplib_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from medplib_tpu_torch.train.lora import linear, linear_t
+
+Params = Dict[str, Any]
+
+
+@dataclass
+class KVCache:
+    """k/v [L, B, MAX, KV_HEADS, D]; length [B] int32 (valid entries)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    @staticmethod
+    def init(cfg: LlamaConfig, batch: int, max_len: int,
+             dtype=torch.bfloat16, device="cpu") -> "KVCache":
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device),
+                       length=torch.zeros((batch,), dtype=torch.int32,
+                                          device=device))
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, cfg: LlamaConfig, dtype, device, lead=()) -> Params:
+    h, m = cfg.hidden_size, cfg.intermediate_size
+    return {"gate_proj": {"kernel": dense_init(gen, h, m, dtype, device,
+                                               lead)},
+            "up_proj": {"kernel": dense_init(gen, h, m, dtype, device, lead)},
+            "down_proj": {"kernel": dense_init(gen, m, h, dtype, device,
+                                               lead)}}
+
+
+def init_llama(gen: torch.Generator, cfg: LlamaConfig, dtype=torch.float32,
+               vocab_size: Optional[int] = None, device="cpu") -> Params:
+    """Random params with the stacked [L, ...] layout."""
+    vocab = vocab_size or cfg.vocab_size
+    h, L = cfg.hidden_size, cfg.num_layers
+    q_dim, kv_dim = cfg.num_heads * cfg.head_dim, \
+        cfg.num_kv_heads * cfg.head_dim
+    t = lambda a: a.transpose(-1, -2).contiguous()  # noqa: E731 [out, in]
+    layers = {
+        "input_layernorm": {"weight": torch.ones((L, h), dtype=dtype,
+                                                 device=device)},
+        "attn": {
+            "q_proj": {"kernel": t(dense_init(gen, h, q_dim, dtype, device,
+                                              (L,)))},
+            "k_proj": {"kernel": t(dense_init(gen, h, kv_dim, dtype, device,
+                                              (L,)))},
+            "v_proj": {"kernel": t(dense_init(gen, h, kv_dim, dtype, device,
+                                              (L,)))},
+            "o_proj": {"kernel": dense_init(gen, q_dim, h, dtype, device,
+                                            (L,))},
+        },
+        "post_attention_layernorm": {"weight": torch.ones(
+            (L, h), dtype=dtype, device=device)},
+        "mlp": init_mlp(gen, cfg, dtype, device, (L,)),
+    }
+    return {
+        "embed_tokens": {"embedding": embed_init(gen, vocab, h, dtype,
+                                                 device)},
+        "layers": layers,
+        "norm": {"weight": torch.ones((h,), dtype=dtype, device=device)},
+        "lm_head": {"kernel": dense_init(gen, h, vocab, dtype, device)},
+    }
+
+
+def layer_params(tree: Any, i: int) -> Any:
+    """Layer i's view of a stacked [L, ...] subtree (no copy)."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def dense_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    return linear(p["down_proj"], _silu(linear(p["gate_proj"], x))
+                  * linear(p["up_proj"], x))
+
+
+def dense_mlp_layer(layer_p: Params, x: torch.Tensor):
+    return dense_mlp(layer_p["mlp"], x), torch.zeros((), device=x.device)
+
+
+MlpApply = Callable[[Params, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: LlamaConfig, cos, sin):
+    b, t, _ = x.shape
+    q = linear_t(p["q_proj"], x).reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = linear_t(p["k_proj"], x).reshape(b, t, cfg.num_kv_heads,
+                                         cfg.head_dim)
+    v = linear_t(p["v_proj"], x).reshape(b, t, cfg.num_kv_heads,
+                                         cfg.head_dim)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: LlamaConfig,
+                          cos, sin, attn_mask: Optional[torch.Tensor],
+                          mlp_apply: MlpApply):
+    """-> (x', (k, v), aux)."""
+    h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
+    q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
+    attn = causal_attention(q, k, v, attn_mask)
+    b, t = x.shape[:2]
+    x = x + linear(p["attn"]["o_proj"], attn.reshape(b, t, -1))
+    h = rms_norm(x, p["post_attention_layernorm"]["weight"],
+                 cfg.rms_norm_eps)
+    y, aux = mlp_apply(p, h)
+    return x + y, (k, v), aux
+
+
+def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: LlamaConfig,
+                         cos, sin, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, length: torch.Tensor,
+                         mlp_apply: MlpApply) -> torch.Tensor:
+    """x [B, 1, H]. Writes this token's k/v at row position `length` of the
+    layer's cache views (in place) and attends to the first length+1."""
+    h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
+    q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
+    b = x.shape[0]
+    bidx = torch.arange(b, device=x.device)
+    pos = length.long()
+    k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+    attn = decode_attention(q, k_cache, v_cache, length + 1)
+    x = x + linear(p["attn"]["o_proj"], attn.reshape(b, 1, -1))
+    h = rms_norm(x, p["post_attention_layernorm"]["weight"],
+                 cfg.rms_norm_eps)
+    y, _ = mlp_apply(p, h)
+    return x + y
+
+
+def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
+            attn_mask: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            mlp_apply: MlpApply = dense_mlp_layer,
+            cache: Optional[KVCache] = None):
+    """Prefill over the layer stack. input_embeds [B, T, H].
+    -> (hidden_post_norm [B, T, H], cache|None, aux_loss). With a cache,
+    K/V land at positions [0, T) and cache.length is set from the
+    attn_mask row sums (left-aligned sequences)."""
+    b, t, _ = input_embeds.shape
+    dev = input_embeds.device
+    if positions is None:
+        positions = torch.arange(t, device=dev)[None].expand(b, t)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    x = input_embeds
+    aux = torch.zeros((), device=dev)
+    for i in range(cfg.num_layers):
+        x, (k, v), a = decoder_layer_prefill(
+            layer_params(params["layers"], i), x, cfg, cos, sin, attn_mask,
+            mlp_apply)
+        aux = aux + a
+        if cache is not None:
+            cache.k[i, :, :t] = k.to(cache.k.dtype)
+            cache.v[i, :, :t] = v.to(cache.v.dtype)
+    x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
+    if cache is not None:
+        cache.length = (attn_mask.int().sum(-1).to(torch.int32)
+                        if attn_mask is not None else
+                        torch.full((b,), t, dtype=torch.int32, device=dev))
+    return x, cache, aux
+
+
+def forward_decode(params: Params, cfg: LlamaConfig,
+                   input_embeds: torch.Tensor, cache: KVCache,
+                   mlp_apply: MlpApply = dense_mlp_layer):
+    """One decode step. input_embeds [B, 1, H] -> (hidden [B, 1, H],
+    cache with length + 1; K/V written in place)."""
+    cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim,
+                            cfg.rope_theta)
+    x = input_embeds
+    for i in range(cfg.num_layers):
+        x = decoder_layer_decode(layer_params(params["layers"], i), x, cfg,
+                                 cos, sin, cache.k[i], cache.v[i],
+                                 cache.length, mlp_apply)
+    x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
+    cache.length = cache.length + 1
+    return x, cache
+
+
+def embed(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+    """Token ids -> embeddings; negative sentinel ids clamp to 0 (their
+    slots are overwritten by the splice)."""
+    return params["embed_tokens"]["embedding"][input_ids.clamp(min=0).long()]
+
+
+def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    return linear(params["lm_head"], hidden).float()

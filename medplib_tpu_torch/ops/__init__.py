@@ -1,0 +1,1 @@
+"""ops of the medplib_tpu_torch port."""

@@ -1,0 +1,93 @@
+"""Attention: batched causal prefill + single-step cached decode
+(medplib_tpu/ops/attention.py). Public layout [B, T, H, D], as in JAX.
+
+Scores are formed in float32 (the JAX einsums ask for f32 accumulation);
+softmax probabilities are cast back to the activation dtype before the
+value product, as there.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -2.3819763e38  # ~ -max bf16, the JAX package's mask value
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, KV, D] -> [B, S, KV*n_rep, D] (GQA head replication)."""
+    if n_rep == 1:
+        return x
+    b, s, kv, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, kv, n_rep, d).reshape(
+        b, s, kv * n_rep, d)
+
+
+def _plain_attention(q, k, v, bias):
+    """q:[B,T,H,D] k,v:[B,S,H,D] bias:[B,1,T,S] additive or None."""
+    d = q.shape[-1]
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    logits = logits * (d ** -0.5)
+    if bias is not None:
+        logits = logits + bias
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def make_causal_bias(attn_mask: Optional[torch.Tensor], q_len: int,
+                     kv_len: int, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """Additive bias [B,1,T,S]: causality (queries occupy the last q_len
+    slots of the kv axis) combined with an optional [B,S] padding mask."""
+    if attn_mask is not None:
+        device = attn_mask.device
+    offset = kv_len - q_len
+    qi = torch.arange(q_len, device=device)[:, None] + offset
+    ki = torch.arange(kv_len, device=device)[None, :]
+    allowed = (qi >= ki)[None, None]
+    if attn_mask is not None:
+        allowed = allowed & attn_mask[:, None, None, :].bool()
+    zero = torch.zeros((), dtype=dtype, device=device)
+    neg = torch.full((), NEG_INF, dtype=dtype, device=device)
+    return torch.where(allowed, zero, neg)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill attention. q [B, T, H, D]; k, v [B, S, KV, D] with S >= T;
+    attn_mask optional [B, S] 1=keep.
+
+    The JAX package routes prompts of >= 1024 tokens (head_dim % 128 == 0)
+    on its accelerator to the Pallas flash-attention kernel; on a CUDA
+    tensor that case raises until the kernel is ported, rather than
+    silently taking the plain path."""
+    if (q.is_cuda and q.shape[1] >= 1024 and q.shape[-1] % 128 == 0):
+        raise NotImplementedError(
+            "prompts of >= 1024 tokens need the flash-attention kernel "
+            "(medplib_tpu/ops/pallas/flash_attention.py:flash_attention), "
+            "which is not ported to CUDA yet")
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    bias = make_causal_bias(attn_mask, q.shape[1], k.shape[1],
+                            device=q.device)
+    return _plain_attention(q, k, v, bias)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """One decode step: q [B, 1, H, D] vs cache [B, MAX, KV, D]; positions
+    >= cache_len (per row) are masked out."""
+    n_rep = q.shape[2] // k_cache.shape[2]
+    k = _repeat_kv(k_cache, n_rep)
+    v = _repeat_kv(v_cache, n_rep)
+    d = q.shape[-1]
+    logits = torch.einsum("bthd,bshd->bhts", q.float(),
+                          k.float()) * (d ** -0.5)
+    pos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    valid = pos < cache_len.reshape(-1, 1, 1, 1)
+    logits = logits.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)

@@ -1,0 +1,1 @@
+"""ops/cuda of the medplib_tpu_torch port."""

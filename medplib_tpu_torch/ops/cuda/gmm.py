@@ -1,0 +1,180 @@
+"""Grouped matmul over int4 interleaved-pairs expert weights (kernel K1),
+with the group-aligned row layout it consumes.
+
+Counterpart of medplib_tpu/ops/pallas/gmm.py: `gmm_int4h` (the CUDA
+kernel csrc/gmm_int4h.cu, replacing the Pallas `_kernel_int4h`),
+`align_groups`, `quantize_rows` and `unpack_pairs` (plain torch).
+
+On a CPU tensor `gmm_int4h` runs its plain PyTorch version,
+`gmm_int4h_plain`. On a CUDA tensor it launches the kernel or raises.
+
+What bounds the kernel on the H100, and what the design does about it, is
+noted at the top of csrc/gmm_int4h.cu (compute bound at the flagship
+prefill; a first __dp4a version from shared-memory tiles).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 activation quant: [..., K] -> (int8 [..., K],
+    f32 scales [..., 1]). torch.round rounds half to even, like jnp.round;
+    the 1e-12 floor and the +-127 clip are the reference's. The scale is
+    amax * f32(1/127): XLA compiles the reference's `/ 127.0` so."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12) * (1 / 127)
+    return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
+
+
+def unpack_pairs(p: torch.Tensor) -> torch.Tensor:
+    """Packed int8 [..., R, C] -> int8 [..., 2R, C] in natural logical row
+    order: row 2r is the low nibble of packed row r, row 2r+1 the high
+    nibble, both sign-extended (shifts in int16, never on int8)."""
+    p16 = p.to(torch.int16)
+    lo = ((p16 << 12) >> 12).to(torch.int8)
+    hi = (p16 >> 4).to(torch.int8)
+    w = torch.stack([lo, hi], dim=-2)            # [..., R, 2, C]
+    return w.reshape(p.shape[:-2] + (2 * p.shape[-2], p.shape[-1]))
+
+
+def align_groups(xs: torch.Tensor, expert_idx: torch.Tensor,
+                 num_experts: int, block_m: int):
+    """Scatter top-1-routed rows into a group-ALIGNED buffer: every m-tile
+    of `block_m` rows belongs to one expert, gap rows stay zero.
+    xs [S, K]; expert_idx [S] -> (x_al [Sp, K], dest [S] row of each token,
+    tile_gid [Sp // block_m] int32).
+
+    E = 2 packs two-ended as the reference does: group 0 grows from row 0,
+    group 1 descends from row Sp-1, with Sp = (ceil(S / bm) + 1) * bm, and a
+    tile belongs to group 1 iff tile_end > Sp - n1."""
+    s = xs.shape[0]
+    dev = xs.device
+    idx = expert_idx.long()
+    csum = torch.cumsum(F.one_hot(idx, num_experts), dim=0)      # [S, E]
+    ranks = torch.gather(csum, 1, idx[:, None])[:, 0] - 1
+    group_sizes = csum[-1]
+    if num_experts == 2:
+        sp = ((s + block_m - 1) // block_m + 1) * block_m
+        dest = torch.where(idx == 0, ranks, sp - 1 - ranks)
+        x_al = xs.new_zeros((sp, xs.shape[1]))
+        x_al[dest] = xs
+        tile_end = (torch.arange(sp // block_m, device=dev) + 1) * block_m
+        tile_gid = (tile_end > sp - group_sizes[1]).to(torch.int32)
+        return x_al, dest, tile_gid
+    sp = (s // block_m + num_experts) * block_m
+    aligned = (group_sizes + block_m - 1) // block_m * block_m
+    ends = torch.cumsum(aligned, dim=0)
+    offs = ends - aligned
+    dest = offs[idx] + ranks
+    x_al = xs.new_zeros((sp, xs.shape[1]))
+    x_al[dest] = xs
+    tile_start = torch.arange(sp // block_m, device=dev) * block_m
+    tile_gid = (tile_start[:, None] >= ends[None, :]).sum(1)
+    tile_gid = tile_gid.clamp(max=num_experts - 1).to(torch.int32)
+    return x_al, dest, tile_gid
+
+
+def gmm_int4h_plain(x: torch.Tensor, packed: torch.Tensor,
+                    scale: torch.Tensor, tile_gid: torch.Tensor,
+                    a_scale: torch.Tensor | None = None,
+                    block_m: int = 512) -> torch.Tensor:
+    """Plain PyTorch version of K1, any device. A8 (int8 x): the two
+    half-K products are integer sums below 2^24 (127 * 8 * K/2 for
+    K/2 <= 16384), so float32 products of the integer operands are exact
+    (TF32 must be off on a GPU). bf16 mode: x rounded to bf16, exact
+    products, f32 sums. Epilogue order as the kernel:
+    (lo * s0 + hi * s1) * a_scale."""
+    sp, k = x.shape
+    e, _, n = packed.shape
+    half = k // 2
+    int8_x = x.dtype == torch.int8
+    xf = x.float() if int8_x else x.to(torch.bfloat16).float()
+    rows_gid = tile_gid.long().repeat_interleave(block_m)
+    out = torch.zeros((sp, n), dtype=torch.float32, device=x.device)
+    for g in range(e):
+        sel = rows_gid == g
+        if not bool(sel.any()):
+            continue
+        w = unpack_pairs(packed[g]).float()                  # [K, N]
+        xg = xf[sel]
+        lo = xg[:, :half] @ w[:half]
+        hi = xg[:, half:] @ w[half:]
+        y = lo * scale[g, 0].float() + hi * scale[g, 1].float()
+        if int8_x:
+            y = y * a_scale[sel].float()
+        out[sel] = y
+    return out.to(torch.bfloat16 if int8_x else x.dtype)
+
+
+def _check_cuda(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def gmm_int4h(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+              tile_gid: torch.Tensor, a_scale: torch.Tensor | None = None,
+              block_m: int = 512) -> torch.Tensor:
+    """Grouped matmul over int4h expert weights (kernel K1).
+
+    x [Sp, K] group-aligned rows: int8 with a_scale [Sp, 1] f32 (W4A8), or
+    float (rounded to bf16 for the products, f32 accumulation); packed
+    [E, K/2, N] int8 pairs layout; scale [E, 2, 1, N] f32 per-half scales;
+    tile_gid [Sp // block_m] int32. -> [Sp, N], bf16 for W4A8, else x.dtype.
+    """
+    sp, k = x.shape
+    e, k2, n = packed.shape
+    if 2 * k2 != k or tuple(scale.shape) != (e, 2, 1, n):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)}, scale {tuple(scale.shape)}")
+    if k2 % 128:
+        raise ValueError("int4h gmm needs K/2 % 128 == 0")
+    if sp % block_m or tuple(tile_gid.shape) != (sp // block_m,):
+        raise ValueError(f"Sp={sp} must be a multiple of block_m={block_m} "
+                         f"with one tile_gid per tile")
+    int8_x = x.dtype == torch.int8
+    if int8_x and a_scale is None:
+        raise ValueError("int8 x needs a_scale [Sp, 1]")
+    if x.device.type == "cpu":
+        return gmm_int4h_plain(x, packed, scale, tile_gid, a_scale, block_m)
+    if not x.is_cuda:
+        raise ValueError(f"gmm_int4h: unsupported device {x.device}")
+
+    from medplib_tpu_torch.ops.cuda._build import check, load_library
+    dev = x.device
+    if n % 64 or block_m % 16:
+        raise ValueError(f"the CUDA kernel needs N % 64 == 0 and "
+                         f"block_m % 16 == 0 (N={n}, block_m={block_m})")
+    xk = x if int8_x else x.to(torch.bfloat16)
+    _check_cuda("x", xk, xk.dtype, (sp, k), dev)
+    _check_cuda("packed", packed, torch.int8, (e, k2, n), dev)
+    _check_cuda("scale", scale, torch.float32, (e, 2, 1, n), dev)
+    _check_cuda("tile_gid", tile_gid, torch.int32, (sp // block_m,), dev)
+    if int8_x:
+        _check_cuda("a_scale", a_scale, torch.float32, (sp, 1), dev)
+    out = torch.empty((sp, n), device=dev,
+                      dtype=torch.bfloat16 if int8_x else torch.float32)
+    tm = 64 if block_m % 64 == 0 else 32 if block_m % 32 == 0 else 16
+    lib = load_library()
+    err = lib.gmm_int4h_launch(
+        xk.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+        tile_gid.data_ptr(), a_scale.data_ptr() if int8_x else None,
+        out.data_ptr(), sp, k, n, block_m, tm, int(int8_x),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "gmm_int4h")
+    gmm_int4h.launches += 1
+    return out if int8_x else out.to(x.dtype)
+
+
+gmm_int4h.launches = 0

@@ -1,0 +1,216 @@
+"""Mixture-of-Experts MLP: top-k router with DeepSpeed capacity semantics
+and its dispatches (medplib_tpu/ops/moe.py).
+
+- "sort": capacity dispatch by a stable sort of tokens by expert (exact
+  DeepSpeed slot order; tokens beyond capacity are dropped);
+- "gmm": the zero-drop grouped-matmul dispatch, top-1 only: rows in a
+  group-aligned buffer through kernel K1 (gate, up, down), or at decode
+  the fused kernel K2; exactly equivalent to "sort" when capacity >= S;
+- "auto": gmm for inference, top-1, capacity >= S and S >= 1024 tokens,
+  else sort (the JAX gates, moe.py:481-486).
+
+The int8-expert and dense-weight grouped matmuls (the JAX `gmm` kernel)
+are not ported yet; those layouts raise on the gmm dispatch.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from medplib_tpu_torch.config import MoeConfig
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu's exact op sequence, x * (1 / (1 + exp(-x))), each op
+    rounded in x.dtype (F.silu rounds once, which flips bf16 results)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def capacity_for(num_tokens: int, num_experts: int, capacity_factor: float,
+                 min_capacity: int) -> int:
+    return max(math.ceil(num_tokens / num_experts * capacity_factor),
+               min_capacity)
+
+
+class SortDispatch(NamedTuple):
+    slot_token: torch.Tensor   # [E*C] source token (S for empty slots)
+    token_slot: torch.Tensor   # [S*k] destination slot (E*C if dropped)
+    token_prob: torch.Tensor   # [S*k] combine weight (0 if dropped)
+    token_src: torch.Tensor    # [S*k] original token id
+    aux_loss: torch.Tensor
+
+
+def _aux_loss(gates: torch.Tensor, idx: torch.Tensor, e: int):
+    me = gates.mean(0)
+    ce = F.one_hot(idx, e).float().mean(0)
+    return (me * ce).sum() * e
+
+
+def sort_dispatch(logits: torch.Tensor, k: int, capacity: int) -> SortDispatch:
+    """DeepSpeed-equivalent routing via a stable sort: entries laid out
+    [all 1st choices in token order, then 2nd choices], stably sorted by
+    expert, ranked within expert, dropped at rank >= capacity."""
+    s, e = logits.shape
+    dev = logits.device
+    gates = torch.softmax(logits.float(), dim=-1)
+    experts, probs = [], []
+    masked = gates
+    for _ in range(k):
+        idx = torch.argmax(masked, dim=-1)
+        experts.append(idx)
+        probs.append(torch.gather(gates, 1, idx[:, None])[:, 0])
+        masked = masked.masked_fill(F.one_hot(idx, e).bool(), -math.inf)
+    flat_expert = torch.cat(experts)
+    flat_prob = torch.cat(probs)
+    flat_token = torch.arange(s, device=dev).repeat(k)
+    aux = _aux_loss(gates, experts[0], e)
+
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    group_start = torch.searchsorted(sorted_expert, sorted_expert,
+                                     right=False)
+    rank = torch.arange(s * k, device=dev) - group_start
+    keep = rank < capacity
+    slot_of_sorted = torch.where(keep, sorted_expert * capacity + rank,
+                                 torch.full_like(rank, e * capacity))
+    token_slot = torch.empty_like(slot_of_sorted)
+    token_slot[order] = slot_of_sorted
+    token_prob = torch.where(token_slot < e * capacity, flat_prob,
+                             torch.zeros_like(flat_prob))
+    if k == 2:
+        # top2gating normalizes after capacity dropping
+        p1, p2 = token_prob[:s], token_prob[s:]
+        denom = (p1 + p2).clamp(min=1e-9)
+        token_prob = torch.cat([p1 / denom, p2 / denom])
+        token_prob = torch.where(token_slot < e * capacity, token_prob,
+                                 torch.zeros_like(token_prob))
+    slot_token = torch.full((e * capacity + 1,), s, dtype=torch.long,
+                            device=dev)
+    slot_token[slot_of_sorted] = flat_token[order]   # dropped -> extra slot
+    return SortDispatch(slot_token=slot_token[:-1], token_slot=token_slot,
+                        token_prob=token_prob, token_src=flat_token,
+                        aux_loss=aux)
+
+
+def _route_top1(logits: torch.Tensor):
+    """softmax in f32, first-maximum argmax, the top prob as the gate."""
+    e = logits.shape[-1]
+    gates = torch.softmax(logits.float(), dim=-1)
+    idx = torch.argmax(gates, dim=-1)
+    gate_s = torch.gather(gates, 1, idx[:, None])[:, 0]
+    return idx, gate_s, _aux_loss(gates, idx, e)
+
+
+def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
+             block_m: int = 512, stacked: bool = False):
+    """Top-1 expert MLP via the grouped matmul (kernel K1) over a
+    group-aligned buffer, or, for decode tiles (block_m <= 64) on the
+    whole-stack path, the fused decode kernel K2 in A8 mode."""
+    from medplib_tpu_torch.ops.cuda.gmm import align_groups
+    from medplib_tpu_torch.ops.cuda.moe_decode import (
+        fused_decode_eligible, moe_ffn_decode_int4h)
+
+    e = logits.shape[-1]
+    idx, gate_s, aux = _route_top1(logits)
+    if stacked and block_m <= 64 and fused_decode_eligible(experts, e):
+        y = moe_ffn_decode_int4h(xs, experts, idx.to(torch.int32), gate_s,
+                                 e, int8_x=True)
+        return y.to(dtype), aux
+    x_al, dest, tile_gid = align_groups(xs, idx, e, block_m)
+    out_al = _gmm_ffn(x_al, tile_gid, experts, dtype, block_m)
+    # gate rounded to out_al's dtype, product unrounded (as compiled)
+    y = (out_al[dest].float()
+         * gate_s[:, None].to(out_al.dtype).float()).to(dtype)
+    return y, aux
+
+
+def _gmm_ffn(x_al: torch.Tensor, tile_gid: torch.Tensor, experts, dtype,
+             block_m: int) -> torch.Tensor:
+    """SwiGLU over a group-aligned buffer: three K1 calls (gate, up, down),
+    W4A8 under dynamic_act_quant. -> out_al [Sp, H]."""
+    from medplib_tpu_torch.ops.cuda.gmm import gmm_int4h, quantize_rows
+    from medplib_tpu_torch.utils.quantize import act_quant_enabled
+
+    for n in ("gate_proj", "up_proj", "down_proj"):
+        node = experts[n]
+        if not ("scale4h" in node and node["scale4h"].shape[-3] == 2
+                and node["kernel"].shape[-2] % 128 == 0):
+            raise NotImplementedError(
+                "grouped matmul over int8 or float expert weights needs the "
+                "gmm kernel (medplib_tpu/ops/pallas/gmm.py:gmm), which is "
+                "not ported yet")
+    actq = act_quant_enabled()
+
+    def mm(xv, node):
+        if actq:
+            xq, xsc = quantize_rows(xv)
+            return gmm_int4h(xq, node["kernel"], node["scale4h"], tile_gid,
+                             a_scale=xsc, block_m=block_m)
+        return gmm_int4h(xv, node["kernel"], node["scale4h"], tile_gid,
+                         block_m=block_m)
+
+    h1 = mm(x_al, experts["gate_proj"])
+    h2 = mm(x_al, experts["up_proj"])
+    g = _silu(h1)
+    # under act-quant the compiled reference keeps this product unrounded
+    # (f32) where it feeds the activation quant; bf16 x bf16 is exact in f32
+    act = g.float() * h2.float() if actq else g * h2
+    return mm(act, experts["down_proj"])
+
+
+def _expert_mm(node, xin: torch.Tensor) -> torch.Tensor:
+    """einsum('ech,ehm->ecm') for the sort dispatch: int4h experts through
+    the nibble-plane products, int8 / float through a dequantized copy."""
+    if "scale4h" in node and node["kernel"].dim() == 3:
+        from medplib_tpu_torch.utils.quantize import int4h_expert_einsum
+        return int4h_expert_einsum(xin, node["kernel"], node["scale4h"])
+    from medplib_tpu_torch.train.lora import dequant_kernel
+    return torch.bmm(xin, dequant_kernel(node, xin.dtype))
+
+
+def moe_mlp(moe_params, x: torch.Tensor, cfg: MoeConfig, train: bool = False,
+            dispatch_mode: str = "auto", block_m: int = 512,
+            stacked: bool = False):
+    """SwiGLU MoE MLP of one layer.
+
+    moe_params: {"router": {"kernel": [H, E]}, "experts": {gate_proj|up_proj:
+    {"kernel": [E, H, M] (or int4h [E, H/2, M] + scale4h)}, down_proj: ...}}
+    x [B, T, H] -> ([B, T, H], aux_loss). `stacked` marks the whole-stack
+    eligibility of models/moe_llama (it enables the fused decode kernel)."""
+    if "residual_mlp" in moe_params:
+        raise NotImplementedError("Residual-MoE is not ported yet")
+    b, t, h = x.shape
+    s = b * t
+    xs = x.reshape(s, h)
+    e = moe_params["router"]["kernel"].shape[-1]
+    cf = cfg.capacity_factor if train else cfg.eval_capacity_factor
+    capacity = capacity_for(s, e, cf, cfg.min_capacity)
+    logits = xs.float() @ moe_params["router"]["kernel"].float()
+
+    if dispatch_mode == "auto":
+        zero_drop = (not train) and cfg.top_k == 1 and capacity >= s
+        dispatch_mode = "gmm" if zero_drop and s >= 1024 else "sort"
+
+    if dispatch_mode == "gmm":
+        y, aux = _gmm_moe(xs, logits, moe_params["experts"], x.dtype,
+                          block_m=block_m, stacked=stacked)
+        return y.reshape(b, t, h), aux
+    if dispatch_mode != "sort":
+        raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
+
+    d = sort_dispatch(logits, cfg.top_k, capacity)
+    xs_pad = torch.cat([xs, xs.new_zeros((1, h))])
+    expert_in = xs_pad[d.slot_token].reshape(e, capacity, h)
+    ek = moe_params["experts"]
+    h1 = _expert_mm(ek["gate_proj"], expert_in)
+    h2 = _expert_mm(ek["up_proj"], expert_in)
+    out_e = _expert_mm(ek["down_proj"], _silu(h1) * h2)
+    flat_out = torch.cat([out_e.reshape(e * capacity, h),
+                          out_e.new_zeros((1, h))])
+    contrib = flat_out[d.token_slot] * d.token_prob[:, None].to(out_e.dtype)
+    y = x.new_zeros((s, h)).index_add_(0, d.token_src, contrib.to(x.dtype))
+    return y.reshape(b, t, h), d.aux_loss

@@ -1,0 +1,1 @@
+"""train of the medplib_tpu_torch port."""
