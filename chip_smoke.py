@@ -6,19 +6,30 @@
 1. Requires a CUDA device (exits non-zero otherwise) and prints the card's
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from medplib_tpu_torch/csrc with nvcc.
-3. Kernel phases: each kernel at the flagship shapes, in A8 and bf16-x
-   modes, against its plain PyTorch version on the same card (TF32 off),
-   with the tolerance stated; both timed with CUDA events.
-4. Small-input check: the slice at a tiny width on the card (kernels)
-   against the same slice on the CPU (plain versions).
-5. Main path: MedPLIB-7b-2e at full width (32 layers x 2 experts, int8
-   attention / lm_head / projector, int4h experts), random weights from a
-   seed, answering a batch of 16 grounding requests (T_in=48, 10 new
+3. Kernel phases: each kernel at the shapes its main path gives it (K1,
+   K2 in A8 and bf16-x modes at the flagship serving shapes; K4, K5, K6 at
+   the stage-3 training shape) against its plain PyTorch version on the
+   same card (TF32 off), with the tolerance stated; timed with CUDA events
+   beside the plain version, the least time the card could take (bound_ms)
+   and, for flash attention, torch's scaled_dot_product_attention.
+4. Small-input checks, card (kernels) against CPU (plain versions): the
+   generate slice at a tiny width, and two QLoRA train steps of a tiny
+   model with head_dim 128 and a 1039-token spliced row (flash route).
+5. Serving main path: MedPLIB-7b-2e at full width (32 layers x 2 experts,
+   int8 attention / lm_head / projector, int4h experts), random weights
+   from a seed, answering a batch of 16 grounding requests (T_in=48, 10 new
    tokens, W8A8 / W4A8 prefill) and one single request; checks the launch
-   counts of each kernel, the outputs, and repeatability; prints masks/s
-   and peak memory.
+   counts of K1 / K2, the outputs, and repeatability; prints masks/s and
+   peak memory.
+6. Training main path: the stage-3 QLoRA step at full width (dense
+   LLaMA-7B, int8 base, LoRA q/v r=8, B=8 x 1087 spliced tokens, remat),
+   one warm-up step and three timed ones; checks finite losses, the frozen
+   int8 base unchanged, LoRA moved, the K4 / K5 / K6 launch counts and
+   that SDPA never ran; prints tokens/s and peak memory, then profiles
+   one more step (device time by kernel, idle share).
 
-Any failed phase raises; the last stdout line, printed only on success, is
+Any failed phase raises; the line before the last is the card's name and
+power limit, the last stdout line, printed only on success, is
 {"ok": true, "device": {...}}.
 """
 
@@ -124,8 +135,14 @@ def k1_phase(gen, dev, results):
             if not ok:
                 raise AssertionError(f"K1 {name} {mode} disagrees with plain")
             if mode == "A8" and name == "gate/up":
-                results["gmm_int4h"] = dict(max_abs_err=err, ms=ms,
-                                            plain_ms=pms)
+                # the routed rows' products; bytes of every operand
+                bms, by = bound(nbytes(xin, packed, scale, tile_gid, a_s,
+                                       got), 2 * s * k * n, INT8_OPS)
+                results["gmm_int4h"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+                log(f"[K1 gmm_int4h] bound {bms:.4f} ms ({by}), one "
+                    f"PyTorch call for the same function: none")
 
 
 def k2_phase(gen, dev, results):
@@ -163,8 +180,158 @@ def k2_phase(gen, dev, results):
         if not ok:
             raise AssertionError(f"K2 {mode} disagrees with plain")
         if mode == "A8":
-            results["moe_ffn_decode_int4h"] = dict(max_abs_err=err, ms=ms,
-                                                   plain_ms=pms)
+            # the weights of the experts this batch routes to, read once
+            used = [int(u) for u in torch.unique(idx).tolist()]
+            wbytes = sum(nbytes(node["kernel"][used], node["scale4h"][used])
+                         for node in experts.values())
+            bms, by = bound(wbytes + nbytes(x, idx, gate, got),
+                            2 * b * 3 * h * m, INT8_OPS)
+            results["moe_ffn_decode_int4h"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+            log(f"[K2 moe_ffn_decode_int4h] bound {bms:.4f} ms ({by}: "
+                f"{len(used)} experts' weights), one PyTorch call for the "
+                f"same function: none")
+
+
+# peak rates of one H100 SXM (dense, NVIDIA's data sheet) for bound_ms
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+
+
+def bound(n_bytes: float, ops: float, rate: float):
+    """-> (least ms the card could take, "bytes" or "operations")."""
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _flash_inputs(gen, dev, b, t, s, h, d):
+    import torch
+    bf = torch.bfloat16
+    q = torch.randn((b, t, h, d), generator=gen, device=dev).to(bf)
+    k = torch.randn((b, s, h, d), generator=gen, device=dev).to(bf)
+    v = torch.randn((b, s, h, d), generator=gen, device=dev).to(bf)
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    for i in range(b):          # padded tails of 0..70 keys
+        mask[i, s - 10 * i:] = 0
+    if t == s:
+        mask[1, :5] = 0         # row 1's first 5 queries keep no key
+    dout = torch.randn((b, t, h, d), generator=gen, device=dev).to(bf)
+    return q, k, v, mask, dout
+
+
+def flash_phase(gen, dev, results):
+    """K4 / K5 / K6 at the training shape: B=8, T=S=1087 (the spliced
+    stage-3 row), H=32, D=128, bf16, with padded key tails and, at T=S, a
+    row whose first queries keep no key; then once with T < S. Each kernel
+    against its plain version on the same inputs (the backward ones from
+    the kernel's lse and delta), timed with CUDA events beside the plain
+    version and torch's scaled_dot_product_attention (boolean causal+keep
+    mask) forward and backward.
+
+    Tolerances: out, dq, dk, dv are bf16 results of f32 sums taken in
+    another order, so at most a rare one-ulp rounding flip: relative
+    Frobenius error <= 1e-3. lse is f32: max abs error <= 1e-4. Rows that
+    keep no key are checked for finiteness only (their forward output
+    depends on the tile schedule)."""
+    import torch
+    import torch.nn.functional as F
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    b, h, d = 8, 32, 128
+    for t, s in ((1087, 1087), (1000, 1087)):
+        q, k, v, mask, dout = _flash_inputs(gen, dev, b, t, s, h, d)
+        keep = FA._keep(mask, t, s)                       # [B, 1, T, S]
+        live = keep.any(-1)[:, 0]                         # [B, T]
+        pairs = float(keep.sum()) * h                     # kept (q, k) pairs
+        out, lse = FA.flash_forward(q, k, v, mask)
+        want_out, want_lse = FA.flash_forward_plain(q, k, v, mask)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        dq = FA.flash_dq(q, k, v, mask, dout, lse, delta)
+        dk, dv = FA.flash_dkv(q, k, v, mask, dout, lse, delta)
+        want_dq = FA.flash_dq_plain(q, k, v, mask, dout, lse, delta)
+        want_dk, want_dv = FA.flash_dkv_plain(q, k, v, mask, dout, lse, delta)
+        torch.cuda.synchronize()
+        lv = live[..., None].expand(-1, -1, h)            # [B, T, H]
+        errs = {
+            "out": (rel_err(out[lv], want_out[lv]),
+                    float((out[lv].float() - want_out[lv].float()).abs()
+                          .max())),
+            "lse": (None, float((lse.transpose(1, 2)[lv]
+                                 - want_lse.transpose(1, 2)[lv]).abs()
+                                .max())),
+            "dq": (rel_err(dq, want_dq),
+                   float((dq.float() - want_dq.float()).abs().max())),
+            "dk": (rel_err(dk, want_dk),
+                   float((dk.float() - want_dk.float()).abs().max())),
+            "dv": (rel_err(dv, want_dv),
+                   float((dv.float() - want_dv.float()).abs().max())),
+        }
+        finite = all(bool(torch.isfinite(x.float()).all())
+                     for x in (out, lse, dq, dk, dv))
+        ok = finite and errs["lse"][1] <= 1e-4 and all(
+            r <= 1e-3 for n, (r, _) in errs.items() if n != "lse")
+        log(f"[flash T={t} S={s}] " + ", ".join(
+            f"{n} max_abs_err={a:.3e}" + ("" if r is None else f" rel={r:.3e}")
+            for n, (r, a) in errs.items())
+            + f"; {int((~live).sum())} rows keep no key (finite: {finite})"
+            " (rel Frobenius <= 1e-3, lse max abs <= 1e-4)")
+        if not ok:
+            raise AssertionError(f"flash kernels disagree with plain at "
+                                 f"T={t} S={s}")
+        if t != s:
+            continue
+        # timings, at T = S only
+        sq, sk, sv = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            sq, sk, sv, attn_mask=keep)
+        qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        gout = dout.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+            torch.autograd.grad(o, (qg, kg, vg), gout)
+
+        fwd_lib = cuda_time(sdpa)
+        bwd_lib = cuda_time(sdpa_fwd_bwd) - fwd_lib
+        rows = nbytes(lse, delta)
+        specs = {
+            "flash_fwd": (
+                lambda: FA.flash_forward(q, k, v, mask),
+                lambda: FA.flash_forward_plain(q, k, v, mask),
+                nbytes(q, k, v, mask, out, lse), 4 * d * pairs, fwd_lib,
+                max(errs["out"][1], errs["lse"][1])),
+            "flash_bwd_dq": (
+                lambda: FA.flash_dq(q, k, v, mask, dout, lse, delta),
+                lambda: FA.flash_dq_plain(q, k, v, mask, dout, lse, delta),
+                nbytes(q, k, v, mask, dout, dq) + rows, 6 * d * pairs,
+                bwd_lib, errs["dq"][1]),
+            "flash_bwd_dkv": (
+                lambda: FA.flash_dkv(q, k, v, mask, dout, lse, delta),
+                lambda: FA.flash_dkv_plain(q, k, v, mask, dout, lse, delta),
+                nbytes(q, k, v, mask, dout, dk, dv) + rows, 8 * d * pairs,
+                bwd_lib, max(errs["dk"][1], errs["dv"][1])),
+        }
+        for name, (kern, plain, nb, ops, lib_ms, err) in specs.items():
+            lib = "fwd" if name == "flash_fwd" else "bwd (dq, dk, dv)"
+            ms = cuda_time(kern)
+            pms = cuda_time(plain, warmup=1, iters=2)
+            bms, by = bound(nb, ops, BF16_FLOPS)
+            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                 bound_ms=bms, bound_by=by,
+                                 library_ms=lib_ms)
+            log(f"[{name}] B={b} T=S={t} H={h} D={d}: kernel {ms:.3f} ms, "
+                f"plain {pms:.3f} ms, SDPA {lib} {lib_ms:.3f} ms, bound "
+                f"{bms:.4f} ms ({by}: {nb / 1e6:.1f} MB, "
+                f"{ops / 1e9:.1f} GFLOP)")
+        del sq, sk, sv, qg, kg, vg
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +341,8 @@ def k2_phase(gen, dev, results):
 def make_batch(cfg, b, t, rng, dev):
     """The bench batch (__graft_entry__._make_batch): random ids with BOS,
     an <image> sentinel at 2 and <SEG> at T-3; CLIP pixels N(0,1); SAM
-    pixels raw 0..255 floats."""
+    pixels raw 0..255 floats; one random binary ground-truth mask per row
+    at the SAM frame, valid."""
     import torch
     from medplib_tpu_torch.config import IMAGE_TOKEN_INDEX
     from medplib_tpu_torch.models.medplib import Batch
@@ -188,12 +356,15 @@ def make_batch(cfg, b, t, rng, dev):
     labels[:, : t // 2] = -100
     clip_px = rng.normal(size=(b, 1, vs, vs, 3)).astype(np.float32)
     sam_px = rng.uniform(0, 255, size=(b, ss, ss, 3)).astype(np.float32)
+    gt = (rng.uniform(size=(b, 1, ss, ss)) > 0.5).astype(np.float32)
     td = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
-    return Batch(
+    return Batch.make(
         input_ids=td(ids), input_mask=td(np.ones((b, t), np.int32)),
         labels=td(labels), images_clip=td(clip_px), images_sam=td(sam_px),
         image_token_lengths=td(np.full((b, 1), cfg.vision.num_patches,
-                                       np.int32)))
+                                       np.int32)),
+        gt_masks=td(gt), mask_valid=td(np.ones((b, 1), bool)),
+        sam_frame=ss)
 
 
 def init_flagship(cfg, gen, dev):
@@ -290,6 +461,242 @@ def small_check(dev):
         raise AssertionError("small-input slice disagrees with the CPU")
 
 
+def flash_counts():
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    return (FA.flash_forward.launches, FA.flash_dq.launches,
+            FA.flash_dkv.launches)
+
+
+def reset_flash_counts():
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    FA.flash_forward.launches = FA.flash_dq.launches = 0
+    FA.flash_dkv.launches = 0
+
+
+def qlora_params(cfg, gen, dtype, dev, lora_b_scale=0.0):
+    """The stage-3 QLoRA tree (benchmarks/run_all.py bench_train): init in
+    `dtype`, the LLM int8-quantized, LoRA r=8 on q_proj / v_proj; with
+    lora_b_scale > 0 a random lora_b, so the adapters are live."""
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.ops.initializers import normal
+    from medplib_tpu_torch.train import lora
+    from medplib_tpu_torch.utils import quantize as qz
+    params = medplib.init_medplib(gen, cfg, dtype, dev)
+    params["llm"] = qz.quantize_tree(params["llm"])
+    params["llm"] = lora.inject(gen, params["llm"], ("q_proj", "v_proj"),
+                                r=8)
+    if lora_b_scale:
+        for n in ("q_proj", "v_proj"):
+            node = params["llm"]["layers"]["attn"][n]
+            node["lora_b"] = normal(gen, node["lora_b"].shape,
+                                    node["lora_b"].dtype, dev, lora_b_scale)
+    return params
+
+
+def train_check(dev):
+    """Two make_train_step steps of a tiny QLoRA model on the card (flash
+    kernels, since head_dim is 128 and the spliced row has 1039 >= 1024
+    tokens) and on the CPU (plain attention), from the same f32 params
+    and batch, LoRA dropout 0. Losses agree within 1e-4 relative (f32 sums
+    in another order, flash vs plain softmax); the LoRA updates of step 2
+    within 1e-2 relative Frobenius (Adam's normalized step amplifies the
+    noise of near-zero gradients; the bf16 adapters round it)."""
+    import torch
+    from medplib_tpu_torch import config as C
+    from medplib_tpu_torch.models.medplib import Batch
+    from medplib_tpu_torch.train import trainer
+    from medplib_tpu_torch.utils import tree as tree_util
+    llm = C.LlamaConfig(vocab_size=512, hidden_size=256,
+                        intermediate_size=512, num_layers=2, num_heads=2,
+                        num_kv_heads=2, head_dim=128)
+    cfg = C.MedplibConfig(
+        llm=llm,
+        vision=C.ClipVisionConfig(image_size=56, patch_size=14,
+                                  hidden_size=64, intermediate_size=128,
+                                  num_layers=3, num_heads=4),
+        sam=C.SamConfig(image_size=64, patch_size=16, encoder_embed_dim=64,
+                        encoder_depth=2, encoder_num_heads=2,
+                        encoder_global_attn_indexes=(1,), window_size=2,
+                        prompt_embed_dim=32, mask_in_chans=4,
+                        decoder_mlp_dim=64, decoder_num_heads=2,
+                        iou_head_hidden_dim=32),
+        projector=C.ProjectorConfig(mm_hidden_size=64, hidden_size=256),
+        seg=C.SegConfig(out_dim=32), seg_token_idx=500,
+        vocab_size_padded=512)
+    tcfg = C.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                         lora_dropout=0.0)
+    host = qlora_params(cfg, torch.Generator().manual_seed(3), torch.float32,
+                        "cpu", 0.02)
+    runs = {}
+    for where in ("cpu", dev):
+        params = tree_util.unflatten(
+            host, [x.to(where) for x in tree_util.leaves(host)])
+        b = make_batch(cfg, 2, 1024, np.random.default_rng(5), where)
+        state, tx = trainer.create_state(params, tcfg)
+        step = trainer.make_train_step(cfg, tcfg, tx)
+        batches = Batch(*[x[None] for x in b])
+        reset_flash_counts()
+        losses = []
+        for _ in range(2):
+            state, m = step(state, batches)
+            losses.append(float(m["loss"]))
+        runs[str(where)] = (losses, flash_counts(), params, state.params)
+    (lc, nc, p0, pc), (lg, ng, _, pg) = runs["cpu"], runs[str(dev)]
+    num = den = 0.0
+    for (path, a), o, g in zip(tree_util.leaves_with_paths(pc),
+                               tree_util.leaves(p0), tree_util.leaves(pg)):
+        if path[-1] in ("lora_a", "lora_b"):
+            da, dg = (a - o).float(), (g.cpu() - o).float()
+            num += float(((dg - da) ** 2).sum())
+            den += float((da ** 2).sum())
+    lrel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    urel = (num / den) ** 0.5 if den else float("inf")
+    want = (2 * 2 * 2, 2 * 2, 2 * 2)    # layers x (fwd + remat) x steps
+    log(f"[train check] tiny QLoRA, B=2 x 1039 tokens, 2 steps, card vs "
+        f"CPU: losses {lg} vs {lc} (max rel {lrel:.2e} <= 1e-4), LoRA "
+        f"update rel {urel:.2e} (<= 1e-2); flash launches {ng} (want "
+        f"{want}), CPU {nc}")
+    if lrel > 1e-4 or urel > 1e-2 or ng != want or nc != (0, 0, 0):
+        raise AssertionError("tiny train step disagrees with the CPU")
+
+
+def _int8_fingerprint(params):
+    """-> [(path, int64 sum of the leaf's bytes read as int32 words)] over
+    every int8 leaf, 64 MiB at a time."""
+    import torch
+    from medplib_tpu_torch.utils import tree as tree_util
+    out = []
+    for path, x in tree_util.leaves_with_paths(params):
+        if x.dtype == torch.int8:
+            words = x.reshape(-1).view(torch.int32)
+            out.append((path, sum(int(c.sum(dtype=torch.int64))
+                                  for c in words.split(1 << 24))))
+    return out
+
+
+def profile_step(fn, top: int = 14) -> None:
+    """One call of `fn` under torch.profiler (CPU + CUDA): prints the wall
+    time, the summed time of the device's kernels (on one stream they do
+    not overlap, so 1 - sum / wall is the device's idle share) and the
+    kernels that take the most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    from torch.autograd import DeviceType
+    rows, stalls = [], 0.0
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if e.device_type != DeviceType.CUDA or us <= 0:
+            continue           # host ops (their kernels are listed apart)
+        if e.key == "Command Buffer Full":
+            stalls += us / 1e6
+        else:
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"[profile] wall {wall:.3f} s under the profiler, kernels "
+        f"{busy:.3f} s (idle share {max(0.0, 1 - busy / wall):.3f}; "
+        f"'Command Buffer Full' {stalls:.3f} s); top kernels:")
+    for us, n, key in rows[:top]:
+        log(f"[profile]   {us / 1e3:9.1f} ms {100 * us / 1e6 / busy:5.1f}% "
+            f"{n:6d} x  {key[:110]}")
+
+
+def train_phase(dev, results, card):
+    """The stage-3 QLoRA train step at full width (bench_train's config):
+    dense LLaMA-7B + CLIP ViT-L/14-336 + SAM-Med2D ViT-B, bf16 init on the
+    card from a seeded generator, the LLM int8, LoRA q/v r=8 with dropout
+    0.05, B=8 x T_in=512 (1087 spliced tokens), remat; one warm-up step
+    and three timed ones (host clock ending in a synchronize)."""
+    import torch
+    import torch.nn.functional as F
+    from medplib_tpu_torch.config import TrainConfig, flagship_cfg
+    from medplib_tpu_torch.models.medplib import Batch
+    from medplib_tpu_torch.train import trainer
+
+    cfg = flagship_cfg(32, moe=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = qlora_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    log(f"[train] dense 7B QLoRA initialized in {time.time() - t0:.1f} s; "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, T = 8, 512
+    b = make_batch(cfg, B, T, np.random.default_rng(0), dev)
+    batches = Batch(*[x[None] for x in b])
+    spliced = T - 1 + cfg.vision.num_patches
+    tcfg = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=100)
+    state, tx = trainer.create_state(params, tcfg)
+    step = trainer.make_train_step(cfg, tcfg, tx)
+    before = _int8_fingerprint(state.params)
+    lora_b0 = state.params["llm"]["layers"]["attn"]["q_proj"]["lora_b"]
+
+    sdpa_calls = []
+    real_sdpa = F.scaled_dot_product_attention
+
+    def counting_sdpa(*a, **k):
+        sdpa_calls.append(1)
+        return real_sdpa(*a, **k)
+
+    F.scaled_dot_product_attention = counting_sdpa
+    try:
+        reset_flash_counts()
+        t0 = time.time()
+        state, m = step(state, batches)
+        loss = float(m["loss"])
+        t_warm = time.time() - t0
+        per_step = flash_counts()
+        losses, times = [loss], []
+        for _ in range(3):
+            t0 = time.time()
+            state, m = step(state, batches)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            losses.append(float(m["loss"]))
+        counts = flash_counts()
+    finally:
+        F.scaled_dot_product_attention = real_sdpa
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dt = sum(times) / len(times)
+    L = cfg.llm.num_layers
+    want = (2 * L, L, L)
+    lora_b = state.params["llm"]["layers"]["attn"]["q_proj"]["lora_b"]
+    frozen_ok = _int8_fingerprint(state.params) == before
+    log(f"[train] B={B} x {spliced} tokens: warm-up step {t_warm:.2f} s, "
+        f"steps {', '.join(f'{t:.3f}' for t in times)} s -> "
+        f"{B * spliced / dt:.1f} tokens/s; peak allocated {peak:.2f} GiB on "
+        f"{card}")
+    log(f"[train] losses {losses}; flash launches per step {per_step} "
+        f"(want {want}), over 4 steps {counts}; int8 base unchanged "
+        f"{frozen_ok}; LoRA lora_b moved {bool(lora_b.any())} (was "
+        f"{bool(lora_b0.any())}); SDPA calls {len(sdpa_calls)}")
+    if not all(np.isfinite(x) for x in losses):
+        raise AssertionError("non-finite training loss")
+    if per_step != want or counts != tuple(4 * w for w in want):
+        raise AssertionError("the train step did not run the flash kernels "
+                             "as expected")
+    if not frozen_ok or not bool(lora_b.any()) or sdpa_calls:
+        raise AssertionError("frozen base changed, LoRA did not move, or "
+                             "SDPA ran on the path")
+    for name, n in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                       counts):
+        results[name]["launches"] = n
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batches)
+
+    profile_step(one_step)
+    return B * spliced / dt, peak
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -370,6 +777,20 @@ def main_path(dev, results, card):
     return B / dt, peak
 
 
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "gmm_int4h": ("medplib_tpu_torch/csrc/gmm_int4h.cu",
+                  "medplib_tpu/ops/pallas/gmm.py:348"),
+    "moe_ffn_decode_int4h": ("medplib_tpu_torch/csrc/moe_decode_int4h.cu",
+                             "medplib_tpu/ops/pallas/moe_decode.py:258"),
+    "flash_fwd": ("medplib_tpu_torch/csrc/flash_attention.cu",
+                  "medplib_tpu/ops/pallas/flash_attention.py:138"),
+    "flash_bwd_dq": ("medplib_tpu_torch/csrc/flash_attention.cu",
+                     "medplib_tpu/ops/pallas/flash_attention.py:306"),
+    "flash_bwd_dkv": ("medplib_tpu_torch/csrc/flash_attention.cu",
+                      "medplib_tpu/ops/pallas/flash_attention.py:333"),
+}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -394,24 +815,23 @@ def main() -> int:
     results = {}
     k1_phase(gen, dev, results)
     k2_phase(gen, dev, results)
+    flash_phase(gen, dev, results)
     torch.cuda.empty_cache()
     small_check(dev)
+    train_check(dev)
     masks_per_s, peak = main_path(dev, results, card)
+    torch.cuda.empty_cache()
+    tokens_per_s, train_peak = train_phase(dev, results, card)
 
-    meta = {
-        "gmm_int4h": ("medplib_tpu_torch/csrc/gmm_int4h.cu",
-                      "medplib_tpu/ops/pallas/gmm.py:348"),
-        "moe_ffn_decode_int4h": ("medplib_tpu_torch/csrc/moe_decode_int4h.cu",
-                                 "medplib_tpu/ops/pallas/moe_decode.py:258"),
-    }
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
-                    launches=results[n]["launches"],
-                    max_abs_err=results[n]["max_abs_err"],
-                    ms=results[n]["ms"], plain_ms=results[n]["plain_ms"])
-               for n, (src, rep) in meta.items()]
+                    **{k: results[n][k] for k in keys})
+               for n, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(f"[result] {masks_per_s:.3f} masks/s, peak {peak:.2f} GiB, "
-          f"{card}", flush=True)
+    print(f"[result] serving {masks_per_s:.3f} masks/s, peak "
+          f"{peak:.2f} GiB; training {tokens_per_s:.1f} tokens/s, peak "
+          f"{train_peak:.2f} GiB; {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,14 +3,17 @@
 The JAX package `medplib_tpu` is the reference; this package mirrors its
 layout and function names so each counterpart is easy to find:
 
-  config          the model dataclasses (equal to medplib_tpu's) + the
-                  flagship configuration
+  config          the model and training dataclasses (equal to
+                  medplib_tpu's) + the flagship configuration
   ops             norms / rope / attention / splice / moe (plain torch)
   ops/cuda        wrappers of the hand-written Hopper kernels (csrc/*.cu),
                   each with its plain PyTorch version beside it
-  models          llama / moe_llama / clip / projector / sam_med2d / medplib
-  train/lora      the inference linears (dequant, W8A8)
-  utils           weight bridge (convert) and quantization
+  models          llama / moe_llama / clip / projector / sam_med2d /
+                  losses / medplib (generate, model_forward)
+  train           lora (linears, injection, dropout, trainable mask),
+                  optimizer (AdamW to optax's semantics), trainer
+  utils           weight bridge (convert), quantization, tree views,
+                  checkpoints, logging
 
 It imports torch and numpy, never jax.
 """

@@ -150,6 +150,41 @@ class MedplibConfig:
     max_icl_examples: int = 3
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the stage-3 recipe's defaults)."""
+
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.0
+    batch_size: int = 4
+    grad_accumulation_steps: int = 1
+    epochs: int = 1
+    steps_per_epoch: int = 500
+    precision: str = "bf16"
+    seed: int = 42
+    # LoRA
+    lora_enable: bool = True
+    lora_r: int = 8
+    lora_alpha: int = 16
+    lora_dropout: float = 0.05
+    lora_target_modules: Tuple[str, ...] = ("q_proj", "v_proj")
+    # modules whose full weights stay trainable alongside LoRA
+    sft_modules: Tuple[str, ...] = (
+        "text_hidden_fcs", "mask_decoder", "lm_head", "embed_tokens",
+        "region_fea_adapter",
+    )
+    save_steps: int = 500
+    log_steps: int = 10
+    # sequence budget (model_max_length)
+    max_seq_len: int = 1024
+
+
 def flagship_cfg(num_layers: int = 32, moe: bool = True) -> MedplibConfig:
     """MedPLIB-7b-2e: 32-layer LLaMA-7B, with moe=True 2 experts on every
     layer, top-1 routing, capacity 1.5 / eval 2.0; CLIP ViT-L/14-336;

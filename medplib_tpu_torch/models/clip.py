@@ -34,7 +34,7 @@ def _ln(dim, dtype, device, lead=()):
 
 
 def init_clip_vision(gen: torch.Generator, cfg: ClipVisionConfig,
-                     dtype=torch.float32, device="cpu") -> Params:
+                     dtype=torch.float32, device="cuda") -> Params:
     h, L = cfg.hidden_size, (cfg.num_layers,)
     p = cfg.patch_size
     return {

@@ -10,6 +10,12 @@ variant (models/moe_llama.py) reuses these blocks.
 
 KV cache: prefill and decode write the cache IN PLACE (the JAX package
 returns a new cache), so a decode loop never copies it.
+
+Training: `forward(..., remat=True)` runs each decoder layer under
+torch.utils.checkpoint (the counterpart of jax.checkpoint on the scan
+body): only the layer inputs stay alive, and each layer is recomputed in
+the backward. A layer re-enters the caller's LoRA-dropout and W8A8 state
+explicitly, so its recompute sees what its forward saw.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from medplib_tpu_torch.config import LlamaConfig
 from medplib_tpu_torch.ops.moe import _silu
@@ -25,7 +32,10 @@ from medplib_tpu_torch.ops.attention import causal_attention, decode_attention
 from medplib_tpu_torch.ops.initializers import dense_init, embed_init
 from medplib_tpu_torch.ops.norms import rms_norm
 from medplib_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from medplib_tpu_torch.train import lora
 from medplib_tpu_torch.train.lora import linear, linear_t
+from medplib_tpu_torch.utils.quantize import (act_quant_enabled,
+                                              dynamic_act_quant)
 
 Params = Dict[str, Any]
 
@@ -40,7 +50,7 @@ class KVCache:
 
     @staticmethod
     def init(cfg: LlamaConfig, batch: int, max_len: int,
-             dtype=torch.bfloat16, device="cpu") -> "KVCache":
+             dtype=torch.bfloat16, device="cuda") -> "KVCache":
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.head_dim)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -63,7 +73,7 @@ def init_mlp(gen, cfg: LlamaConfig, dtype, device, lead=()) -> Params:
 
 
 def init_llama(gen: torch.Generator, cfg: LlamaConfig, dtype=torch.float32,
-               vocab_size: Optional[int] = None, device="cpu") -> Params:
+               vocab_size: Optional[int] = None, device="cuda") -> Params:
     """Random params with the stacked [L, ...] layout."""
     vocab = vocab_size or cfg.vocab_size
     h, L = cfg.hidden_size, cfg.num_layers
@@ -170,26 +180,43 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             mlp_apply: MlpApply = dense_mlp_layer,
-            cache: Optional[KVCache] = None):
+            cache: Optional[KVCache] = None, remat: bool = False):
     """Prefill over the layer stack. input_embeds [B, T, H].
     -> (hidden_post_norm [B, T, H], cache|None, aux_loss). With a cache,
     K/V land at positions [0, T) and cache.length is set from the
-    attn_mask row sums (left-aligned sequences)."""
+    attn_mask row sums (left-aligned sequences). remat: checkpoint each
+    layer (training; no cache)."""
+    if remat and cache is not None:
+        raise ValueError("remat is for training, without a KV cache")
     b, t, _ = input_embeds.shape
     dev = input_embeds.device
     if positions is None:
         positions = torch.arange(t, device=dev)[None].expand(b, t)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    drop, act_quant = lora.dropout_state(), act_quant_enabled()
+
+    def layer(i, x):
+        with lora.dropout_scope(drop, i), dynamic_act_quant(act_quant):
+            return decoder_layer_prefill(
+                layer_params(params["layers"], i), x, cfg, cos, sin,
+                attn_mask, mlp_apply)
+
+    def remat_layer(i, x):
+        x, _, a = layer(i, x)
+        return x, a
+
     x = input_embeds
     aux = torch.zeros((), device=dev)
     for i in range(cfg.num_layers):
-        x, (k, v), a = decoder_layer_prefill(
-            layer_params(params["layers"], i), x, cfg, cos, sin, attn_mask,
-            mlp_apply)
+        if remat:
+            x, a = checkpoint(remat_layer, i, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, (k, v), a = layer(i, x)
+            if cache is not None:
+                cache.k[i, :, :t] = k.to(cache.k.dtype)
+                cache.v[i, :, :t] = v.to(cache.v.dtype)
         aux = aux + a
-        if cache is not None:
-            cache.k[i, :, :t] = k.to(cache.k.dtype)
-            cache.v[i, :, :t] = v.to(cache.v.dtype)
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     if cache is not None:
         cache.length = (attn_mask.int().sum(-1).to(torch.int32)

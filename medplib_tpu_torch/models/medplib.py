@@ -1,22 +1,23 @@
 """MedPLIB composite model: CLIP -> projector -> splice -> (MoE-)LLaMA ->
 <SEG> capture -> SAM-Med2D (medplib_tpu/models/medplib.py).
 
-The port covers the pixel-grounding `generate` path with greedy decoding:
-prefill into a KV cache, decode with the <SEG> hidden state captured
+The port covers the pixel-grounding `generate` path with greedy decoding
+(prefill into a KV cache, decode with the <SEG> hidden state captured
 inside the loop, then one batched SAM encode + mask decode over every SEG
-slot. Sampling, streaming, region / ICL inputs and training are not ported
-yet.
+slot) and the dense training forward `model_forward` (CE + mask losses,
+frozen CLIP and SAM encoders, per-layer remat). Sampling, streaming,
+region / ICL inputs and MoE training are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from medplib_tpu_torch.config import MedplibConfig
-from medplib_tpu_torch.models import (clip, llama, moe_llama, projector,
-                                      sam_med2d)
+from medplib_tpu_torch.models import (clip, llama, losses, moe_llama,
+                                      projector, sam_med2d)
 from medplib_tpu_torch.ops import splice as splice_ops
 from medplib_tpu_torch.ops.initializers import dense_init
 
@@ -25,8 +26,8 @@ Params = Dict[str, Any]
 
 class Batch(NamedTuple):
     """Static-shape batch: the fields of the JAX package's Batch that the
-    generate path reads (ICL, region and training fields come with their
-    slices)."""
+    generate and training paths read (ICL and region fields come with their
+    slices). generate reads no mask field, so they may stay None there."""
 
     input_ids: torch.Tensor          # [B, T_in] with sentinel ids
     input_mask: torch.Tensor         # [B, T_in]
@@ -34,10 +35,26 @@ class Batch(NamedTuple):
     images_clip: torch.Tensor        # [B, MAX_IMG, S, S, 3]
     images_sam: torch.Tensor         # [B, S', S', 3]
     image_token_lengths: torch.Tensor  # [B, MAX_IMG]
+    gt_masks: Optional[torch.Tensor] = None    # [B, MAX_SEG, Hm, Wm]
+    mask_valid: Optional[torch.Tensor] = None  # [B, MAX_SEG] bool
+
+    @staticmethod
+    def make(input_ids, input_mask, labels, images_clip, images_sam,
+             image_token_lengths, *, gt_masks=None, mask_valid=None,
+             sam_frame=256) -> "Batch":
+        """The JAX package's Batch.make: absent mask fields become one
+        all-zero, invalid slot per row."""
+        b, dev = input_ids.shape[0], input_ids.device
+        if gt_masks is None:
+            gt_masks = torch.zeros((b, 1, sam_frame, sam_frame), device=dev)
+        if mask_valid is None:
+            mask_valid = torch.zeros((b, 1), dtype=torch.bool, device=dev)
+        return Batch(input_ids, input_mask, labels, images_clip, images_sam,
+                     image_token_lengths, gt_masks, mask_valid)
 
 
 def init_medplib(gen: torch.Generator, cfg: MedplibConfig,
-                 dtype=torch.float32, device="cpu") -> Params:
+                 dtype=torch.float32, device="cuda") -> Params:
     h = cfg.llm.hidden_size
     if cfg.moe.enable:
         llm = moe_llama.init_moe_llama(gen, cfg.llm, cfg.moe, dtype,
@@ -72,13 +89,15 @@ def text_hidden_fcs(p: Params, hidden: torch.Tensor) -> torch.Tensor:
 def encode_images(params: Params, cfg: MedplibConfig,
                   images_clip: torch.Tensor):
     """images_clip [B, MAX_IMG, S, S, 3] -> (feature buffer
-    [B, MAX_IMG * L, H], L tokens per image)."""
+    [B, MAX_IMG * L, H], L tokens per image). The CLIP tower is frozen and
+    runs without autograd (stop_gradient in the JAX package)."""
     if cfg.projector.token_compress or cfg.projector.mask_encoder:
         raise NotImplementedError("ICL token compression / mask encoder "
                                   "are not ported yet")
     b, n_img = images_clip.shape[:2]
     flat = images_clip.reshape((b * n_img,) + images_clip.shape[2:])
-    raw = clip.forward_features(params["clip"], flat, cfg.vision)
+    with torch.no_grad():
+        raw = clip.forward_features(params["clip"], flat, cfg.vision)
     proj = projector.apply_projector(params["mm_projector"], raw)
     l_img = proj.shape[1]
     return proj.reshape(b, n_img * l_img, -1), l_img
@@ -102,12 +121,15 @@ def splice_batch(params: Params, cfg: MedplibConfig, batch: Batch):
     return embeds, labels_out, sm.attn_mask, seg_mask, sm
 
 
-def _llm_forward(params, cfg: MedplibConfig, embeds, attn_mask, cache=None):
+def _llm_forward(params, cfg: MedplibConfig, embeds, attn_mask, cache=None,
+                 train=True, remat=False):
     if cfg.moe.enable:
+        if train or remat:
+            raise NotImplementedError("MoE training is not ported yet")
         return moe_llama.forward(params["llm"], cfg.llm, cfg.moe, embeds,
                                  attn_mask, cache=cache, train=False)
     return llama.forward(params["llm"], cfg.llm, embeds, attn_mask,
-                         cache=cache)
+                         cache=cache, remat=remat)
 
 
 def _llm_decode(params, cfg: MedplibConfig, embeds, cache):
@@ -118,9 +140,11 @@ def _llm_decode(params, cfg: MedplibConfig, embeds, cache):
 
 
 def decode_seg_masks(params: Params, cfg: MedplibConfig,
-                     sam_embeddings: torch.Tensor, seg_embeds: torch.Tensor):
+                     sam_embeddings: torch.Tensor, seg_embeds: torch.Tensor,
+                     out_size: Optional[int] = None):
     """sam_embeddings [B, h, w, D]; seg_embeds [B, S, out_dim]
-    -> (mask logits [B, S, size, size] at the SAM input size, iou [B, S])."""
+    -> (mask logits [B, S, out, out], iou [B, S]); out_size defaults to
+    the SAM input size."""
     b, s, d = seg_embeds.shape
     sparse, dense = sam_med2d.encode_prompts(
         params["sam"]["prompt_encoder"], cfg.sam, b * s,
@@ -130,9 +154,70 @@ def decode_seg_masks(params: Params, cfg: MedplibConfig,
     low_res, iou = sam_med2d.decode_masks(
         params["sam"]["mask_decoder"], cfg.sam, img, pe, sparse, dense,
         multimask_output=False)
-    out_size = cfg.sam.image_size
+    out_size = out_size or cfg.sam.image_size
     masks = sam_med2d.postprocess_masks(low_res, out_size)
     return masks.reshape(b, s, out_size, out_size), iou.reshape(b, s)
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def model_forward(params: Params, cfg: MedplibConfig, batch: Batch,
+                  train: bool = True, seg_flag: bool = True,
+                  remat: bool = True, max_segs: Optional[int] = None):
+    """Teacher-forced forward -> dict of losses ("loss" is the total):
+    shifted CE over the spliced labels, and with seg_flag the mask losses
+    of every <SEG> slot decoded at gt_masks' size, valid where a SEG was
+    found and mask_valid holds. With train=False it also returns
+    pred_masks and seg_valid."""
+    embeds, labels_out, attn_mask, seg_mask, _ = splice_batch(params, cfg,
+                                                              batch)
+    hidden, _, aux = _llm_forward(params, cfg, embeds, attn_mask,
+                                  train=train, remat=remat)
+    logits = llama.logits(params["llm"], hidden)
+    ce = losses.cross_entropy_loss(logits, labels_out) * cfg.seg.ce_loss_weight
+    if cfg.moe.enable:
+        ce = ce + cfg.moe.router_aux_loss_coef * aux
+    out = {"ce_loss": ce}
+    if not seg_flag:
+        zero = torch.zeros((), device=ce.device)
+        out.update(loss=ce, mask_bce_loss=zero, mask_dice_loss=zero,
+                   mask_loss=zero)
+        return out
+
+    with torch.no_grad():       # frozen encoder (stop_gradient in JAX)
+        sam_emb = sam_med2d.encode_image(params["sam"]["image_encoder"],
+                                         batch.images_sam, cfg.sam)
+    s_max = max_segs or batch.gt_masks.shape[1]
+    proj_hidden = text_hidden_fcs(params["text_hidden_fcs"], hidden)
+    seg_embeds, seg_valid, _ = splice_ops.gather_seg_embeddings(
+        proj_hidden, seg_mask, s_max)
+    pred_masks, pred_iou = decode_seg_masks(params, cfg, sam_emb, seg_embeds,
+                                            batch.gt_masks.shape[-1])
+
+    valid = (seg_valid & batch.mask_valid.bool()).reshape(-1)
+    pm = pred_masks.reshape((-1,) + pred_masks.shape[2:])
+    gm = batch.gt_masks.reshape((-1,) + batch.gt_masks.shape[2:])
+    bce = losses.sigmoid_ce_loss(pm, gm, valid)
+    dice = losses.dice_loss(pm, gm, valid)
+    iou_l = losses.mask_iou_loss(pm, gm, pred_iou.reshape(-1), valid)
+    focal = losses.focal_loss(pm, gm, valid)
+    sc = cfg.seg
+    mask_loss = (sc.bce_loss_weight * bce + sc.dice_loss_weight * dice
+                 + sc.iou_loss_weight * iou_l + sc.focal_loss_weight * focal)
+    out.update(
+        loss=ce + mask_loss,
+        mask_bce_loss=sc.bce_loss_weight * bce,
+        mask_dice_loss=sc.dice_loss_weight * dice,
+        mask_loss=mask_loss,
+        unscale_mask_bce_loss=bce, unscale_mask_dice_loss=dice,
+        unscale_mask_iou_loss=iou_l, unscale_mask_focal_loss=focal,
+    )
+    if not train:
+        out["pred_masks"] = pred_masks
+        out["seg_valid"] = seg_valid
+    return out
 
 
 class GenerateResult(NamedTuple):
@@ -169,7 +254,8 @@ def generate(params: Params, cfg: MedplibConfig, batch: Batch,
                                                             batch)
     cache = llama.KVCache.init(cfg.llm, b, embeds.shape[1] + max_new_tokens,
                                dtype=embeds.dtype, device=dev)
-    hidden, cache, _ = _llm_forward(params, cfg, embeds, attn_mask, cache)
+    hidden, cache, _ = _llm_forward(params, cfg, embeds, attn_mask, cache,
+                                    train=False)
     last_idx = (attn_mask.sum(-1) - 1).clamp(min=0).long()
     last_hidden = torch.gather(
         hidden, 1, last_idx[:, None, None].expand(-1, 1, hidden.shape[-1]))

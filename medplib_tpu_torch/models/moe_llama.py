@@ -42,7 +42,7 @@ def init_experts(gen, cfg: LlamaConfig, moe_cfg: MoeConfig, dtype, device,
 
 def init_moe_llama(gen: torch.Generator, cfg: LlamaConfig, moe_cfg: MoeConfig,
                    dtype=torch.float32, vocab_size: Optional[int] = None,
-                   device="cpu") -> Params:
+                   device="cuda") -> Params:
     params = llama.init_llama(gen, cfg, dtype, vocab_size, device)
     L, h, e = cfg.num_layers, cfg.hidden_size, moe_cfg.num_experts
     if moe_cfg.use_residual:

@@ -26,7 +26,7 @@ def _init_linear(gen, din, dout, dtype, device):
 
 
 def init_projector(gen: torch.Generator, cfg: ProjectorConfig,
-                   dtype=torch.float32, device="cpu") -> Params:
+                   dtype=torch.float32, device="cuda") -> Params:
     m = re.match(r"^mlp(\d+)x_gelu$", cfg.projector_type)
     if cfg.projector_type == "linear":
         depth = 1
@@ -51,5 +51,5 @@ def apply_projector(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_region_adapter(gen: torch.Generator, mm_hidden: int, hidden: int,
-                        dtype=torch.float32, device="cpu") -> Params:
+                        dtype=torch.float32, device="cuda") -> Params:
     return _init_linear(gen, mm_hidden, hidden, dtype, device)

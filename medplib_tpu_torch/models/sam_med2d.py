@@ -53,7 +53,7 @@ def _convt(x: torch.Tensor, w_torch: torch.Tensor, stride: int, padding: int,
 # ---------------------------------------------------------------------------
 
 def init_sam(gen: torch.Generator, cfg: SamConfig, dtype=torch.float32,
-             device="cpu") -> Params:
+             device="cuda") -> Params:
     def lin(din, dout, bias=True, lead=()):
         d = {"kernel": dense_init(gen, din, dout, dtype, device, lead)}
         if bias:

@@ -58,18 +58,16 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Prefill attention. q [B, T, H, D]; k, v [B, S, KV, D] with S >= T;
     attn_mask optional [B, S] 1=keep.
 
-    The JAX package routes prompts of >= 1024 tokens (head_dim % 128 == 0)
-    on its accelerator to the Pallas flash-attention kernel; on a CUDA
-    tensor that case raises until the kernel is ported, rather than
-    silently taking the plain path."""
-    if (q.is_cuda and q.shape[1] >= 1024 and q.shape[-1] % 128 == 0):
-        raise NotImplementedError(
-            "prompts of >= 1024 tokens need the flash-attention kernel "
-            "(medplib_tpu/ops/pallas/flash_attention.py:flash_attention), "
-            "which is not ported to CUDA yet")
+    As in the JAX package, prompts of >= 1024 tokens with head_dim % 128
+    == 0 on the accelerator (here: a CUDA tensor) take flash attention
+    (ops/cuda/flash_attention.py, kernels K4-K6); everything else takes the
+    plain path."""
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
+    if q.is_cuda and q.shape[1] >= 1024 and q.shape[-1] % 128 == 0:
+        from medplib_tpu_torch.ops.cuda.flash_attention import flash_attention
+        return flash_attention(q, k, v, attn_mask=attn_mask, causal=True)
     bias = make_causal_bias(attn_mask, q.shape[1], k.shape[1],
                             device=q.device)
     return _plain_attention(q, k, v, bias)

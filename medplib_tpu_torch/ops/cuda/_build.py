@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (medplib_tpu_torch/csrc/*.cu).
 
-The sources are compiled with nvcc into one shared library with a plain C
-interface and loaded with ctypes, at first use: nothing is built or loaded
-when a module is imported, and the CPU paths never call this. The library
-lands in `build/medplib_tpu_torch/` at the root of the checkout, under a
-name that carries a hash of the sources, so an edited source rebuilds.
+Each source is compiled by its own nvcc process, all started together, and
+the objects are linked into one shared library with a plain C interface,
+loaded with ctypes, at first use: nothing is built or loaded when a module
+is imported, and the CPU paths never call this. The library lands in
+`build/medplib_tpu_torch/` at the root of the checkout, under a name that
+carries a hash of the sources, so an edited source rebuilds.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build" / "medplib_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_log = ""   # nvcc's output of the build this process ran ("" if cached)
@@ -57,6 +58,13 @@ def _declare(lib):
     lib.gmm_int4h_launch.restype = i
     lib.moe_decode_int4h_launch.argtypes = [vp] * 14 + [i] * 6 + [vp]
     lib.moe_decode_int4h_launch.restype = i
+    f = ctypes.c_float
+    lib.flash_fwd_launch.argtypes = [vp] * 6 + [i] * 5 + [f, vp]
+    lib.flash_fwd_launch.restype = i
+    lib.flash_bwd_dq_launch.argtypes = [vp] * 8 + [i] * 5 + [f, vp]
+    lib.flash_bwd_dq_launch.restype = i
+    lib.flash_bwd_dkv_launch.argtypes = [vp] * 9 + [i] * 5 + [f, vp]
+    lib.flash_bwd_dkv_launch.restype = i
     return lib
 
 
@@ -69,16 +77,27 @@ def load_library():
     if not path.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         cu, _ = _sources()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, path)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+            objs = [os.path.join(tmp, c.stem + ".o") for c in cu]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(c)]
+                    for c, o in zip(cu, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for c in cmds]
+            outs = [p.communicate()[0] for p in procs]
+            lib = os.path.join(tmp, "lib.so")
+            link = [nvcc, "-shared", "-o", lib, *objs]
+            logs = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+            rcs = [p.returncode for p in procs]
+            if not any(rcs):
+                proc = subprocess.run(link, capture_output=True, text=True)
+                logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+                rcs.append(proc.returncode)
+            build_log = "\n".join(logs)
+            if any(rcs):
+                raise RuntimeError(f"nvcc failed (rcs={rcs}):\n{build_log}")
+            os.replace(lib, path)
     _lib = _declare(ctypes.CDLL(str(path)))
     return _lib
 

@@ -14,7 +14,7 @@ def normal(gen: torch.Generator, shape, dtype, device, scale=1.0):
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
-               dtype=torch.float32, device="cpu", lead=()):
+               dtype=torch.float32, device="cuda", lead=()):
     """Kernel [*lead, in_dim, out_dim], truncated normal in [-2, 2] scaled
     by in_dim ** -0.5."""
     t = torch.empty(tuple(lead) + (in_dim, out_dim), dtype=torch.float32,
@@ -24,5 +24,5 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
-               dtype=torch.float32, device="cpu", scale=0.02):
+               dtype=torch.float32, device="cuda", scale=0.02):
     return normal(gen, (vocab, dim), dtype, device, scale)

@@ -1,22 +1,177 @@
-"""Inference linears of medplib_tpu/train/lora.py: dequant and the W8A8
-switch. LoRA injection and training are not ported yet.
+"""LoRA adapters and the linears (medplib_tpu/train/lora.py): dequant, the
+W8A8 switch, LoRA injection, the adapter branch with its dropout, and the
+trainable mask. `merge` (the export path) is not ported yet.
 
 A linear node is {"kernel", optional "scale" (int8) / "scale4h" (int4h),
-optional "bias"}; kernels are [in, out], or [out, in] for the names in
-TRANSPOSED_KERNELS (linear_t).
+optional "bias", optional "lora_a" [in, r] / "lora_b" [r, out]}; kernels
+are [in, out], or [out, in] for the names in TRANSPOSED_KERNELS (linear_t).
+With adapters the node computes y = x W + dropout(x) A B * scale.
+
+LoRA dropout. The JAX package folds a trace-time call counter into the
+step key, so its masks are fixed by the program. Here a mask is drawn from
+a fresh torch.Generator seeded with (step seed, scope, call index within the
+scope), where llama.forward opens one scope per decoder layer. A layer that
+torch.utils.checkpoint recomputes during the backward therefore draws the
+masks its forward drew, whichever thread autograd recomputes it on: the
+scope carries its state explicitly (`dropout_state` / `dropout_scope`)
+instead of relying on the RNG state that checkpoint restores.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import contextlib
+import threading
+from typing import Any, Dict, Optional, Sequence
 
 import torch
+
+from medplib_tpu_torch.ops.initializers import normal
 
 Params = Dict[str, Any]
 
 # kernels stored [out, in] instead of [in, out]
 TRANSPOSED_KERNELS = ("q_proj", "k_proj", "v_proj", "qkv_proj")
+_QUANT_KEYS = ("scale", "scale4", "scale4h")
 
+# ---------------------------------------------------------------------------
+# LoRA dropout
+# ---------------------------------------------------------------------------
+
+_LORA_DROPOUT = threading.local()
+
+
+def dropout_state() -> Optional[Dict[str, Any]]:
+    """The active dropout state (None outside lora_dropout_ctx)."""
+    return getattr(_LORA_DROPOUT, "state", None)
+
+
+@contextlib.contextmanager
+def _set_state(state):
+    prev = dropout_state()
+    _LORA_DROPOUT.state = state
+    try:
+        yield
+    finally:
+        _LORA_DROPOUT.state = prev
+
+
+def lora_dropout_ctx(seed: int, rate: float):
+    """Enable dropout (rate `rate`) on the adapter input of every LoRA
+    linear called inside this context, with masks derived from `seed`."""
+    return _set_state({"seed": int(seed), "rate": float(rate), "scope": -1,
+                       "n": 0})
+
+
+def dropout_scope(state: Optional[Dict[str, Any]], scope: int):
+    """Run under a captured dropout `state` with the call counter reset for
+    `scope` (a decoder layer index)."""
+    return _set_state(None if state is None
+                      else dict(state, scope=int(scope), n=0))
+
+
+def mix_seed(*xs: int) -> int:
+    """A 63-bit seed from a tuple of ints (FNV-style mixing)."""
+    h = 0x9E3779B97F4A7C15
+    for x in xs:
+        h = ((h ^ (x & 0xFFFFFFFFFFFFFFFF)) * 0x100000001B3) % (1 << 63)
+    return h
+
+
+def _lora_input(x: torch.Tensor) -> torch.Tensor:
+    """Dropout on the adapter input inside lora_dropout_ctx."""
+    st = dropout_state()
+    if not st or st["rate"] <= 0.0:
+        return x
+    st["n"] += 1
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(mix_seed(st["seed"], st["scope"], st["n"]))
+    keep = 1.0 - st["rate"]
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# injection and the trainable mask
+# ---------------------------------------------------------------------------
+
+def _iter_linear_paths(tree: Params, prefix=()):
+    if isinstance(tree, dict):
+        if "kernel" in tree:
+            yield prefix, tree
+        for k, v in tree.items():
+            if k != "kernel":
+                yield from _iter_linear_paths(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _iter_linear_paths(v, prefix + (str(i),))
+
+
+def _copy_containers(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_containers(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_containers(v) for v in tree]
+    return tree
+
+
+def inject(gen: torch.Generator, params: Params,
+           target_modules: Sequence[str], r: int,
+           exclude: Sequence[str] = ("clip", "sam", "mask_encoder",
+                                     "mm_token_compressor")) -> Params:
+    """Add lora_a (normal / r) and lora_b (zeros) beside every kernel whose
+    path ends in a target module name and is not under an excluded subtree.
+    Returns a new tree of containers sharing the tensors of `params`.
+    Adapters keep a float kernel's dtype and are bf16 beside a quantized
+    one; packed int4 kernels hold half their reduction rows."""
+    params = _copy_containers(params)
+    n = 0
+    for path, node in _iter_linear_paths(params):
+        if any(e in path for e in exclude):
+            continue
+        if not path or path[-1] not in target_modules:
+            continue
+        kern = node["kernel"]
+        *lead, din, dout = kern.shape
+        transposed = path[-1] in TRANSPOSED_KERNELS
+        if "scale4" in node or "scale4h" in node:
+            if transposed:
+                dout *= 2
+            else:
+                din *= 2
+        if transposed:
+            din, dout = dout, din
+        adtype = kern.dtype if kern.is_floating_point() else torch.bfloat16
+        node["lora_a"] = normal(gen, tuple(lead) + (din, r), adtype,
+                                kern.device, 1.0 / r)
+        node["lora_b"] = torch.zeros(tuple(lead) + (r, dout), dtype=adtype,
+                                     device=kern.device)
+        n += 1
+    if n == 0:
+        raise ValueError(f"no modules matched {target_modules}")
+    return params
+
+
+def trainable_mask(params: Params, sft_modules: Sequence[str]) -> Params:
+    """Boolean tree: True for LoRA leaves and for leaves under an sft
+    module, except that a quantized node (scale / scale4 / scale4h) is
+    frozen apart from its adapters."""
+    def rec(node, path, in_quant):
+        if isinstance(node, dict):
+            q = in_quant or any(s in node for s in _QUANT_KEYS)
+            return {k: rec(v, path + (k,), q) for k, v in node.items()}
+        if isinstance(node, list):
+            return [rec(v, path + (str(i),), in_quant)
+                    for i, v in enumerate(node)]
+        is_lora = bool(path) and path[-1] in ("lora_a", "lora_b")
+        in_sft = any(m in path for m in sft_modules)
+        return bool(is_lora or (in_sft and not in_quant))
+    return rec(params, (), False)
+
+
+# ---------------------------------------------------------------------------
+# linears
+# ---------------------------------------------------------------------------
 
 def dequant_kernel(p: Params, dtype) -> torch.Tensor:
     """The kernel as `dtype`: int8 nodes multiply by their per-channel
@@ -32,8 +187,9 @@ def dequant_kernel(p: Params, dtype) -> torch.Tensor:
 
 
 def _use_w8a8(p: Params, x: torch.Tensor) -> bool:
-    """W8A8 engages under dynamic_act_quant() for 2D int8 nodes when the
-    call has >= 512 rows (prefill); decode stays weight-only."""
+    """W8A8 engages under dynamic_act_quant() for 2D int8 nodes without
+    adapters when the call has >= 512 rows (prefill); decode stays
+    weight-only."""
     if "scale" not in p or p["kernel"].dtype != torch.int8 \
             or p["kernel"].dim() != 2 or "lora_a" in p:
         return False
@@ -46,25 +202,35 @@ def _use_w8a8(p: Params, x: torch.Tensor) -> bool:
     return rows >= 512
 
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ kernel (+ bias)."""
+def _lora_and_bias(p: Params, x: torch.Tensor, y: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    if "lora_a" in p:
+        # bf16 adapters beside a quantized kernel meet f32 activations in
+        # the small configs: promote as JAX does
+        dt = torch.promote_types(x.dtype, p["lora_a"].dtype)
+        xa = _lora_input(x).to(dt) @ p["lora_a"].to(dt)
+        y = y + (xa @ p["lora_b"].to(dt)) * scale
+    if "bias" in p:
+        y = y + p["bias"]
+    return y
+
+
+def linear(p: Params, x: torch.Tensor, scale: float = 2.0) -> torch.Tensor:
+    """x @ kernel (+ LoRA branch, `scale` = alpha / r) (+ bias)."""
     if _use_w8a8(p, x):
         from medplib_tpu_torch.utils.quantize import int8_dyn_matmul
         y = int8_dyn_matmul(x, p["kernel"], p["scale"], transposed=False)
     else:
         y = x @ dequant_kernel(p, x.dtype)
-    if "bias" in p:
-        y = y + p["bias"]
-    return y
+    return _lora_and_bias(p, x, y, scale)
 
 
-def linear_t(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Linear with a transposed [out, in] kernel (q/k/v storage)."""
+def linear_t(p: Params, x: torch.Tensor, scale: float = 2.0) -> torch.Tensor:
+    """Linear with a transposed [out, in] kernel (q/k/v storage); adapters
+    keep their [in, r] / [r, out] shapes."""
     if _use_w8a8(p, x):
         from medplib_tpu_torch.utils.quantize import int8_dyn_matmul
         y = int8_dyn_matmul(x, p["kernel"], p["scale"], transposed=True)
     else:
         y = x @ dequant_kernel(p, x.dtype).t()
-    if "bias" in p:
-        y = y + p["bias"]
-    return y
+    return _lora_and_bias(p, x, y, scale)

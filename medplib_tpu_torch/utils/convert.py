@@ -23,7 +23,7 @@ def _leaf(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def tree_from_numpy(tree: Any, device="cpu") -> Any:
+def tree_from_numpy(tree: Any, device="cuda") -> Any:
     """Nested dicts / lists of numpy arrays -> the same nesting of torch
     tensors on `device`. Non-array leaves (None, ints) pass through."""
     if isinstance(tree, dict):

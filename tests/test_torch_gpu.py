@@ -77,8 +77,96 @@ def test_moe_decode_kernel_matches_plain(dev, b, a8):
                  / want.float().norm()) < 1e-3
 
 
-def test_long_prompt_attention_raises_until_flash_is_ported(dev):
-    from medplib_tpu_torch.ops.attention import causal_attention
-    q = torch.zeros((1, 1024, 2, 128), device=dev)
-    with pytest.raises(NotImplementedError, match="flash"):
-        causal_attention(q, q, q)
+def test_long_prompt_attention_takes_flash(dev):
+    """A >= 1024-token prompt with head_dim 128 on the card goes through
+    K4 (one launch) and matches the plain attention path (bf16 out: rel
+    1e-2, the plain path rounds the probabilities to bf16, flash does
+    not)."""
+    from medplib_tpu_torch.ops import attention as A
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn((2, 1030, 4, 128), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones((2, 1030), dtype=torch.int32, device=dev)
+    mask[1, 1000:] = 0
+    n0 = FA.flash_forward.launches
+    got = A.causal_attention(q, k, v, mask)
+    assert FA.flash_forward.launches == n0 + 1
+    bias = A.make_causal_bias(mask, 1030, 1030, device=dev)
+    want = A._plain_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).norm()
+                 / want.float().norm()) < 1e-2
+
+
+@pytest.mark.parametrize("t,s,dtype", [(70, 70, torch.float32),
+                                       (1087, 1087, torch.bfloat16),
+                                       (50, 130, torch.bfloat16)])
+def test_flash_kernels_match_plain(dev, t, s, dtype):
+    """K4 / K5 / K6 against their plain versions (the backward ones from
+    the kernel's lse and delta): out, dq, dk, dv within rel Frobenius 1e-3
+    (f32 sums in another order, then the output dtype's rounding), lse
+    within 1e-4; rows that keep no key finite. Ragged T, T < S, padded key
+    tails, a row whose first queries keep no key."""
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(t + s)
+    b, h, d = 3, 2, 128
+    q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    g = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    mask[0, s - 9:] = 0
+    mask[2, :4] = 0
+    n = (FA.flash_forward.launches, FA.flash_dq.launches,
+         FA.flash_dkv.launches)
+    out, lse = FA.flash_forward(q, k, v, mask)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = FA.flash_dq(q, k, v, mask, g, lse, delta)
+    dk, dv = FA.flash_dkv(q, k, v, mask, g, lse, delta)
+    torch.cuda.synchronize()
+    assert (FA.flash_forward.launches, FA.flash_dq.launches,
+            FA.flash_dkv.launches) == tuple(x + 1 for x in n)
+    want_out, want_lse = FA.flash_forward_plain(q, k, v, mask)
+    want = (FA.flash_dq_plain(q, k, v, mask, g, lse, delta),
+            *FA.flash_dkv_plain(q, k, v, mask, g, lse, delta))
+    live = FA._keep(mask, t, s).any(-1)[:, 0]
+    lv = live[..., None].expand(-1, -1, h)
+
+    def rel(a, w):
+        return float((a.float() - w.float()).norm() / w.float().norm())
+
+    assert rel(out[lv], want_out[lv]) < 1e-3
+    assert float((lse.transpose(1, 2)[lv]
+                  - want_lse.transpose(1, 2)[lv]).abs().max()) < 1e-4
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and rel(got, w) < 1e-3
+    for x in (out, lse, dq, dk, dv):
+        assert bool(torch.isfinite(x.float()).all())
+
+
+def test_flash_autograd_on_card(dev):
+    """flash_attention under torch.autograd on the card: the backward runs
+    K5 and K6 once each and matches autograd through the plain attention
+    in f32 (rel 1e-4)."""
+    from medplib_tpu_torch.ops import attention as A
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(2)
+    shape = (2, 100, 2, 128)
+    base = [torch.randn(shape, generator=gen, device=dev) for _ in range(4)]
+    grads = []
+    for fn in ("flash", "plain"):
+        q, k, v = (x.clone().requires_grad_(True) for x in base[:3])
+        if fn == "flash":
+            n = (FA.flash_dq.launches, FA.flash_dkv.launches)
+            out = FA.flash_attention(q, k, v)
+        else:
+            out = A._plain_attention(q, k, v,
+                                     A.make_causal_bias(None, 100, 100,
+                                                        device=dev))
+        grads.append(torch.autograd.grad(out, (q, k, v), base[3]))
+        if fn == "flash":
+            assert (FA.flash_dq.launches, FA.flash_dkv.launches) == (
+                n[0] + 1, n[1] + 1)
+    for a, w in zip(*grads):
+        assert float((a - w).norm() / w.norm()) < 1e-4

@@ -59,7 +59,7 @@ def snap(tree):
 
 
 def bridge(tree):
-    return convert.tree_from_numpy(snap(tree))
+    return convert.tree_from_numpy(snap(tree), device="cpu")
 
 
 def _t(a):
@@ -86,7 +86,7 @@ def randn(*shape, scale=1.0):
 @pytest.mark.parametrize("name", ["LlamaConfig", "MoeConfig",
                                   "ClipVisionConfig", "SamConfig",
                                   "ProjectorConfig", "SegConfig",
-                                  "MedplibConfig"])
+                                  "MedplibConfig", "TrainConfig"])
 def test_config_matches_reference(name):
     """Same fields with the same defaults as the JAX package's classes."""
     j, t = getattr(jc, name)(), getattr(tc, name)()
@@ -120,7 +120,10 @@ def test_port_imports_no_jax():
             "sys.modules['medplib_tpu'] = None; "
             "import medplib_tpu_torch.models.medplib, "
             "medplib_tpu_torch.ops.cuda.gmm, "
-            "medplib_tpu_torch.ops.cuda.moe_decode; print('ok')")
+            "medplib_tpu_torch.ops.cuda.moe_decode, "
+            "medplib_tpu_torch.ops.cuda.flash_attention, "
+            "medplib_tpu_torch.train.optimizer, "
+            "medplib_tpu_torch.train.trainer; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
@@ -255,7 +258,7 @@ def test_quantize_flagship_moe_tree_identical():
     float_tree = snap(tree)
     jt = snap(jq.quantize_flagship_moe(tree, 4, 8))
     tt = convert.tree_to_numpy(tq.quantize_flagship_moe(
-        convert.tree_from_numpy(float_tree), 4, 8))
+        convert.tree_from_numpy(float_tree, device="cpu"), 4, 8))
     lj = jax.tree_util.tree_flatten_with_path(jt)[0]
     lt = dict(jax.tree_util.tree_flatten_with_path(tt)[0])
     assert len(lj) == len(lt)
@@ -301,7 +304,7 @@ def test_linear_and_linear_t(rows, actq):
             with jq.dynamic_act_quant(actq):
                 want = jax.jit(lambda a, nn: jf(nn, a))(jnp.asarray(x), n)
             with tq.dynamic_act_quant(actq):
-                got = tf(convert.tree_from_numpy(n), _t(x))
+                got = tf(convert.tree_from_numpy(n, device="cpu"), _t(x))
             close(got, want)
 
 
@@ -405,7 +408,7 @@ def test_llama_prefill_and_decode():
     cache = jllama.KVCache.init(cfg, 2, 10, jnp.float32)
     hj, cj, _ = jllama.forward(p, cfg, jnp.asarray(x), jnp.asarray(mask),
                                cache=cache)
-    tcache = tllama.KVCache.init(tcfg, 2, 10, torch.float32)
+    tcache = tllama.KVCache.init(tcfg, 2, 10, torch.float32, device="cpu")
     ht, ct, _ = tllama.forward(tp, tcfg, _t(x), _t(mask), cache=tcache)
     close(ht, hj)
     close(ct.k, cj.k)

@@ -70,7 +70,7 @@ def build_model():
     p["llm"]["embed_tokens"]["embedding"] = emb * 50.0
     p = jq.quantize_flagship_moe(p, expert_bits=4, attn_bits=8)
     host = jax.tree_util.tree_map(np.asarray, p)
-    return cfg, p, convert.tree_from_numpy(host)
+    return cfg, p, convert.tree_from_numpy(host, device="cpu")
 
 
 @pytest.fixture(scope="module")
