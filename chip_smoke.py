@@ -7,20 +7,30 @@
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from medplib_tpu_torch/csrc with nvcc.
 3. Kernel phases: each kernel at the shapes its main path gives it (K1,
-   K2 in A8 and bf16-x modes at the flagship serving shapes; K4, K5, K6 at
-   the stage-3 training shape) against its plain PyTorch version on the
-   same card (TF32 off), with the tolerance stated; timed with CUDA events
-   beside the plain version, the least time the card could take (bound_ms)
-   and, for flash attention, torch's scaled_dot_product_attention.
+   K2 in A8 and bf16-x modes at the flagship serving shapes; K3 in W8A8
+   at the int8-expert flagship shapes, int8-w and float bf16 at the ICL
+   shapes, transposed at a small shape; K4, K5, K6 at the stage-3
+   training shape) against its plain PyTorch version on the same card
+   (TF32 off), with the tolerance stated; timed with CUDA events beside
+   the plain version, the least time the card could take (bound_ms) and
+   a library yardstick (SDPA for flash attention; torch._grouped_mm or
+   per-expert torch calls for K3).
 4. Small-input checks, card (kernels) against CPU (plain versions): the
-   generate slice at a tiny width, and two QLoRA train steps of a tiny
-   model with head_dim 128 and a 1039-token spliced row (flash route).
-5. Serving main path: MedPLIB-7b-2e at full width (32 layers x 2 experts,
-   int8 attention / lm_head / projector, int4h experts), random weights
-   from a seed, answering a batch of 16 grounding requests (T_in=48, 10 new
-   tokens, W8A8 / W4A8 prefill) and one single request; checks the launch
-   counts of K1 / K2, the outputs, and repeatability; prints masks/s and
-   peak memory.
+   generate slice at a tiny width with int4h experts (K1, K2) and with
+   int8 experts and the int8 KV cache (K3), and two QLoRA train steps of
+   a tiny model with head_dim 128 and a 1039-token spliced row (flash
+   route).
+5. Serving main paths, MedPLIB-7b-2e at full width (32 layers x 2
+   experts, int8 attention / lm_head / projector), random weights from a
+   seed: with int4h experts, a batch of 16 grounding requests (T_in=48,
+   10 new tokens, W8A8 / W4A8 prefill; K1 = 96, K2 = 320 launches) and one
+   single request (K2 only); with int8 experts, a batch of 8 (int8 KV
+   cache, W8A8 prefill; K3 = 96 launches), one profiled call and a single
+   request (no K3), then ICL config 5 on the same tree (B=4, three images
+   per row, 1789 spliced tokens, no activation quant; K3 = 96, K4 = 32).
+   Each path runs with every launch count set to 0 just before it and
+   read just after; each checks the outputs and repeatability and prints
+   masks/s or ms/sample and peak memory.
 6. Training main path: the stage-3 QLoRA step at full width (dense
    LLaMA-7B, int8 base, LoRA q/v r=8, B=8 x 1087 spliced tokens, remat),
    one warm-up step and three timed ones; checks finite losses, the frozen
@@ -192,6 +202,115 @@ def k2_phase(gen, dev, results):
             log(f"[K2 moe_ffn_decode_int4h] bound {bms:.4f} ms ({by}: "
                 f"{len(used)} experts' weights), one PyTorch call for the "
                 f"same function: none")
+
+
+def _grouped_library_ms(xin, w, tile_gid, bm):
+    """The library yardstick for one grouped matmul over an aligned
+    buffer, w [E, K, N]: torch._grouped_mm (one call) for bf16 operands
+    where the installed torch has it; else the sum of one torch call per
+    expert over its contiguous tiles (torch._int_mm for int8 x,
+    torch.matmul on the bf16-cast weight otherwise). -> (ms, label)."""
+    import torch
+    gid = tile_gid.long()
+    ends = [int((gid <= g).sum()) * bm for g in range(w.shape[0])]
+    if xin.dtype == torch.bfloat16 and w.dtype == torch.bfloat16 and \
+            hasattr(torch, "_grouped_mm"):
+        offs = torch.tensor(ends, dtype=torch.int32, device=xin.device)
+        wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+        return cuda_time(lambda: torch._grouped_mm(xin, wt, offs=offs)), \
+            "torch._grouped_mm"
+    if xin.dtype == torch.int8:
+        fn, label = torch._int_mm, "sum of per-expert torch._int_mm"
+    else:
+        fn, label = torch.matmul, \
+            "sum of per-expert torch.matmul (bf16 weight)"
+        xin, w = xin.to(torch.bfloat16), w.to(torch.bfloat16)
+    starts = [0] + ends[:-1]
+    return sum(cuda_time(lambda a=a, b=b, g=g: fn(xin[a:b], w[g]))
+               for g, (a, b) in enumerate(zip(starts, ends)) if b > a), label
+
+
+# (mode, routed rows S, K, N, transposed weights)
+K3_CASES = [
+    ("W8A8", 8 * 623, 4096, 11264, False),
+    ("W8A8", 8 * 623, 11264, 4096, False),
+    ("int8-w", 4 * 1789, 4096, 11264, False),
+    ("int8-w", 4 * 1789, 11264, 4096, False),
+    ("float bf16", 4 * 1789, 4096, 11264, False),
+    ("W8A8", 700, 1024, 768, True),
+    ("int8-w", 700, 1024, 768, True),
+]
+
+
+def k3_phase(gen, dev, results):
+    """gmm (K3) against gmm_plain, TF32 off, at the shapes its main paths
+    give it: W8A8 at the int8-expert flagship prefill (S = 8 x 623 rows
+    top-1 routed over 2 experts, two-ended aligned to Sp = 5632, bm 512;
+    gate/up K 4096 -> N 11264 and down K 11264 -> N 4096); int8-w (bf16 x)
+    at the ICL prefill (S = 4 x 1789, Sp = 7680), both shapes; float bf16
+    at the ICL gate/up shape; transposed weights (W8A8 and int8-w) at a
+    small shape. Tolerances: W8A8 sums are exact integers on both sides
+    and the epilogue the same rounded f32 ops -> within one bf16 ulp
+    (the equal share is printed); otherwise bf16 outputs of f32 sums in
+    another order -> rel Frobenius <= 4e-3."""
+    import torch
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    bm = 512
+    for mode, s, k, n, trans in K3_CASES:
+        idx = torch.randint(0, 2, (s,), generator=gen, device=dev)
+        xs = torch.randn((s, k), generator=gen, device=dev).to(torch.bfloat16)
+        x_al, _, tile_gid = G.align_groups(xs, idx, 2, bm)
+        assert int(tile_gid.min()) == 0 and int(tile_gid.max()) == 1
+        wshape = (2, n, k) if trans else (2, k, n)
+        w_s = a_s = None
+        if mode == "float bf16":
+            w = (torch.randn(wshape, generator=gen, device=dev)
+                 * k ** -0.5).to(torch.bfloat16)
+        else:
+            w = torch.randint(-127, 128, wshape, generator=gen, device=dev,
+                              dtype=torch.int8)
+            w_s = torch.rand((2, 1, n), generator=gen, device=dev) * 0.01 \
+                + 1e-3
+        xin = x_al
+        if mode == "W8A8":
+            xin, a_s = G.quantize_rows(x_al)
+        call = lambda: G.gmm(xin, w, tile_gid, w_s, a_s, bm,  # noqa: E731
+                             transposed=trans)
+        got = call()
+        want = G.gmm_plain(xin, w, tile_gid, w_s, a_s, bm, transposed=trans)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        rel = rel_err(got, want)
+        if mode == "W8A8":
+            ok, tol = within_one_bf16_ulp(got, want), "<= 1 bf16 ulp"
+            tol += f", {float((got == want).float().mean()) * 100:.4f}% equal"
+        else:
+            ok, tol = rel <= 4e-3, "rel Frobenius <= 4e-3"
+        ms = cuda_time(call)
+        pms = cuda_time(lambda: G.gmm_plain(xin, w, tile_gid, w_s, a_s, bm,
+                                            transposed=trans),
+                        warmup=1, iters=2)
+        # the routed rows' products; bytes of every operand
+        ops = 2 * s * k * n
+        bms, by = bound(nbytes(xin, w, tile_gid, got) + (
+            nbytes(w_s) if w_s is not None else 0) + (
+            nbytes(a_s) if a_s is not None else 0), ops,
+            INT8_OPS if mode == "W8A8" else BF16_FLOPS)
+        lib_ms, lib = _grouped_library_ms(xin, w.transpose(1, 2) if trans
+                                          else w, tile_gid, bm)
+        log(f"[K3 gmm {mode}{' transposed' if trans else ''}] "
+            f"Sp={x_al.shape[0]} K={k} N={n}: max_abs_err={err:.3e} "
+            f"rel={rel:.3e} ({tol}) kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+            f"bound {bms:.4f} ms ({by}), {lib} {lib_ms:.3f} ms")
+        if not ok:
+            raise AssertionError(f"K3 {mode} K={k} N={n} disagrees with "
+                                 f"plain")
+        if mode == "W8A8" and not trans and k == 4096:
+            results["gmm"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                  bound_ms=bms, bound_by=by,
+                                  library_ms=lib_ms)
+        del xs, x_al, xin, w, got, want
+    torch.cuda.empty_cache()
 
 
 # peak rates of one H100 SXM (dense, NVIDIA's data sheet) for bound_ms
@@ -367,12 +486,13 @@ def make_batch(cfg, b, t, rng, dev):
         sam_frame=ss)
 
 
-def init_flagship(cfg, gen, dev):
+def init_flagship(cfg, gen, dev, expert_bits=4):
     """Random MedPLIB-7b-2e in its serving quantization, built the way
     _init_flagship_moe_quantized builds it: a bf16 dense skeleton without
     the dense MLP, int8-quantized; then the experts initialized, padded
-    (M 11008 -> 11264) and int4h-quantized ONE LAYER AT A TIME, so the bf16
-    expert stacks never exist whole."""
+    (M 11008 -> 11264) and quantized ONE LAYER AT A TIME (int4h with
+    per-half scales for expert_bits=4, int8 per channel for 8), so the
+    bf16 expert stacks never exist whole."""
     import torch
     from medplib_tpu_torch.config import MoeConfig
     from medplib_tpu_torch.models import medplib, moe_llama
@@ -387,14 +507,16 @@ def init_flagship(cfg, gen, dev):
     params = qz.quantize_tree(params, bits=8)
     L, E = cfg.llm.num_layers, cfg.moe.num_experts
     H, M = cfg.llm.hidden_size, cfg.llm.intermediate_size
-    nodes = {n: {"kernel": [], "scale4h": []}
+    skey = "scale4h" if expert_bits == 4 else "scale"
+    nodes = {n: {"kernel": [], skey: []}
              for n in ("gate_proj", "up_proj", "down_proj")}
     for _ in range(L):
         one = moe_llama.init_experts(gen, cfg.llm, cfg.moe, bf, dev)
         one = qz.pad_moe_experts_for_gmm(one)
-        one = qz.quantize_tree(one, skip=(), bits=4, int4_groups=2)
+        one = qz.quantize_tree(one, skip=(), bits=expert_bits,
+                               int4_groups=2)
         for n in nodes:
-            for k in ("kernel", "scale4h"):
+            for k in ("kernel", skey):
                 nodes[n][k].append(one[n][k])
     experts = {n: {k: torch.stack(v) for k, v in node.items()}
                for n, node in nodes.items()}
@@ -408,19 +530,49 @@ def init_flagship(cfg, gen, dev):
 # small-input check: the slice on the card against the slice on the CPU
 # ---------------------------------------------------------------------------
 
-def small_check(dev):
-    import torch
+def _wrappers():
+    """name -> the kernel wrapper that counts its launches."""
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    from medplib_tpu_torch.ops.cuda import moe_decode as D
+    return {"gmm_int4h": G.gmm_int4h,
+            "moe_ffn_decode_int4h": D.moe_ffn_decode_int4h, "gmm": G.gmm,
+            "flash_fwd": FA.flash_forward, "flash_bwd_dq": FA.flash_dq,
+            "flash_bwd_dkv": FA.flash_dkv}
+
+
+def reset_counts() -> None:
+    for f in _wrappers().values():
+        f.launches = 0
+
+
+def kernel_counts() -> dict:
+    return {n: f.launches for n, f in _wrappers().items()}
+
+
+def flash_counts():
+    c = kernel_counts()
+    return (c["flash_fwd"], c["flash_bwd_dq"], c["flash_bwd_dkv"])
+
+
+def expect_counts(where: str, got: dict, **want) -> None:
+    """Fail unless every named kernel launched exactly `want` times (the
+    kernels not named: none)."""
+    want = {n: want.get(n, 0) for n in got}
+    log(f"[{where}] launches {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"{where}: the path did not run the kernels as "
+                             f"expected")
+
+
+def tiny_serving_cfg(hidden: int, heads: int):
+    """The tiny MoE serving model of the card-vs-CPU checks: 2 layers x 2
+    experts, M = 1024, head_dim 64; tiny CLIP (16 patches) and SAM."""
     from medplib_tpu_torch import config as C
-    from medplib_tpu_torch.models import medplib
-    from medplib_tpu_torch.ops.cuda.gmm import gmm_int4h
-    from medplib_tpu_torch.ops.cuda.moe_decode import moe_ffn_decode_int4h
-    from medplib_tpu_torch.utils.convert import tree_to_numpy, tree_from_numpy
-    from medplib_tpu_torch.utils.quantize import (dynamic_act_quant,
-                                                  quantize_flagship_moe)
-    llm = C.LlamaConfig(vocab_size=512, hidden_size=512,
-                        intermediate_size=1024, num_layers=2, num_heads=8,
-                        num_kv_heads=8, head_dim=64)
-    cfg = C.MedplibConfig(
+    llm = C.LlamaConfig(vocab_size=512, hidden_size=hidden,
+                        intermediate_size=1024, num_layers=2,
+                        num_heads=heads, num_kv_heads=heads, head_dim=64)
+    return C.MedplibConfig(
         llm=llm,
         vision=C.ClipVisionConfig(image_size=56, patch_size=14,
                                   hidden_size=64, intermediate_size=128,
@@ -431,46 +583,60 @@ def small_check(dev):
                         prompt_embed_dim=32, mask_in_chans=4,
                         decoder_mlp_dim=64, decoder_num_heads=2,
                         iou_head_hidden_dim=32),
-        projector=C.ProjectorConfig(mm_hidden_size=64, hidden_size=512),
+        projector=C.ProjectorConfig(mm_hidden_size=64, hidden_size=hidden),
         moe=C.MoeConfig(enable=True, num_experts=2, top_k=1),
         seg=C.SegConfig(out_dim=32), seg_token_idx=500, vocab_size_padded=512)
+
+
+def _tiny_card_vs_cpu(dev, name, cfg, expert_bits, kv_quant, **want):
+    """Generate B=16 x T_in=64 (1264 spliced tokens, W8A8 prefill, 4 new
+    tokens) with the same tiny params on the CPU (plain versions) and on
+    the card (kernels); tokens and masks must agree and the card must
+    launch exactly `want`."""
+    import torch
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.utils.convert import tree_to_numpy, tree_from_numpy
+    from medplib_tpu_torch.utils.quantize import (dynamic_act_quant,
+                                                  quantize_flagship_moe)
     gen = torch.Generator().manual_seed(1)
     p = medplib.init_medplib(gen, cfg, torch.float32, "cpu")
     # unit-scale embeddings: a well-conditioned residual stream, so that
     # last-bit differences do not flip greedy tokens
     p["llm"]["embed_tokens"]["embedding"] *= 50.0
-    p = tree_to_numpy(quantize_flagship_moe(p, 4, 8))
+    p = tree_to_numpy(quantize_flagship_moe(p, expert_bits, 8))
     out = {}
     for where in ("cpu", dev):
         b = make_batch(cfg, 16, 64, np.random.default_rng(0), where)
-        k1, k2 = gmm_int4h.launches, moe_ffn_decode_int4h.launches
+        reset_counts()
         with dynamic_act_quant(True):
             r = medplib.generate(tree_from_numpy(p, where), cfg, b,
-                                 max_new_tokens=4)
-        out[str(where)] = (r, gmm_int4h.launches - k1,
-                           moe_ffn_decode_int4h.launches - k2)
-    (rc, _, _), (rg, n1, n2) = out["cpu"], out[str(dev)]
+                                 max_new_tokens=4, kv_quant=kv_quant)
+        out[str(where)] = (r, kernel_counts())
+    (rc, nc), (rg, ng) = out["cpu"], out[str(dev)]
     same = float((rc.output_ids == rg.output_ids.cpu()).float().mean())
     mrel = rel_err(rg.pred_masks.cpu(), rc.pred_masks)
-    log(f"[small check] B=16 T_in=64 tiny slice, card vs CPU plain: tokens "
-        f"equal {same * 100:.1f}%, mask rel err {mrel:.3e} "
-        f"(K1 launches {n1}, K2 launches {n2})")
+    log(f"[{name}] B=16 T_in=64 tiny slice, card vs CPU plain: tokens "
+        f"equal {same * 100:.1f}%, mask rel err {mrel:.3e}")
+    expect_counts(name + ", CPU", nc)
+    expect_counts(name + ", card", ng, **want)
     # last-bit differences between the card's and the CPU's float sums can
     # flip a rare act-quant rounding; require near-total agreement
-    if same < 0.9 or mrel > 5e-2 or n1 != 6 or n2 != 8:
-        raise AssertionError("small-input slice disagrees with the CPU")
+    if same < 0.9 or mrel > 5e-2:
+        raise AssertionError(f"{name}: the tiny slice disagrees with the CPU")
 
 
-def flash_counts():
-    from medplib_tpu_torch.ops.cuda import flash_attention as FA
-    return (FA.flash_forward.launches, FA.flash_dq.launches,
-            FA.flash_dkv.launches)
+def small_check(dev):
+    """int4h experts (H=512): K1 at prefill, K2 at decode."""
+    _tiny_card_vs_cpu(dev, "small check", tiny_serving_cfg(512, 8), 4, False,
+                      gmm_int4h=6, moe_ffn_decode_int4h=8)
 
 
-def reset_flash_counts():
-    from medplib_tpu_torch.ops.cuda import flash_attention as FA
-    FA.flash_forward.launches = FA.flash_dq.launches = 0
-    FA.flash_dkv.launches = 0
+def small_int8_check(dev):
+    """int8 experts at H = M = 1024 (multiples of 1024: the whole-stack
+    int8 gmm engages), int8 KV cache: K3 at prefill, sort path at
+    decode."""
+    _tiny_card_vs_cpu(dev, "small int8 check", tiny_serving_cfg(1024, 16), 8,
+                      True, gmm=6)
 
 
 def qlora_params(cfg, gen, dtype, dev, lora_b_scale=0.0):
@@ -535,7 +701,7 @@ def train_check(dev):
         state, tx = trainer.create_state(params, tcfg)
         step = trainer.make_train_step(cfg, tcfg, tx)
         batches = Batch(*[x[None] for x in b])
-        reset_flash_counts()
+        reset_counts()
         losses = []
         for _ in range(2):
             state, m = step(state, batches)
@@ -647,7 +813,7 @@ def train_phase(dev, results, card):
 
     F.scaled_dot_product_attention = counting_sdpa
     try:
-        reset_flash_counts()
+        reset_counts()
         t0 = time.time()
         state, m = step(state, batches)
         loss = float(m["loss"])
@@ -701,12 +867,64 @@ def train_phase(dev, results, card):
 # main path
 # ---------------------------------------------------------------------------
 
+def check_result(r, cfg, b, new):
+    """Token ids in range and finite mask logits of the expected shapes."""
+    import torch
+    assert r.output_ids.shape == (b, new)
+    assert int(r.output_ids.min()) >= 0
+    assert int(r.output_ids.max()) < cfg.vocab_size_padded
+    assert tuple(r.pred_masks.shape) == (b, 1, 256, 256)
+    assert bool(torch.isfinite(r.pred_masks.float()).all())
+
+
+def serve_batch(name, run, cfg, b, new, card, **want):
+    """One warm-up call (its launches checked), three timed calls with
+    the warm-up's tokens; -> (masks/s, peak GiB, launches)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    first = run()
+    t_first = time.time() - t0
+    counts = kernel_counts()
+    check_result(first, cfg, b, new)
+    log(f"[{name}] batch B={b}: first call {t_first:.2f} s; has_seg "
+        f"{first.has_seg.sum().item()}/{b}")
+    expect_counts(name, counts, **want)
+    rs, times = [], []
+    for _ in range(3):       # host clock; `run` ends in a synchronize
+        t0 = time.time()
+        rs.append(run())
+        times.append(time.time() - t0)
+    if not all(torch.equal(r.output_ids, first.output_ids) for r in rs):
+        raise AssertionError(f"{name}: a repeated batch call gave other "
+                             f"tokens")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dt = sum(times) / len(times)
+    log(f"[{name}] batch B={b} max_new={new}: "
+        f"{', '.join(f'{t:.3f}' for t in times)} s per call -> "
+        f"{b / dt:.3f} masks/s, {dt * 1e3 / b:.1f} ms/sample; peak "
+        f"allocated {peak:.2f} GiB on {card}")
+    return b / dt, peak, counts
+
+
+def serve_single(name, run, cfg, new, **want):
+    """One B=1 request: its launches and its wall time."""
+    reset_counts()
+    t0 = time.time()
+    one = run()
+    t_one = time.time() - t0
+    check_result(one, cfg, 1, new)
+    log(f"[{name}] single request B=1: {t_one:.3f} s")
+    expect_counts(name + " B=1", kernel_counts(), **want)
+
+
 def main_path(dev, results, card):
+    """The int4h-expert flagship: B=16 under W4A8 / W8A8 prefill (K1 at
+    prefill, K2 at decode), then one request (sort prefill)."""
     import torch
     from medplib_tpu_torch.config import flagship_cfg
     from medplib_tpu_torch.models import medplib
-    from medplib_tpu_torch.ops.cuda.gmm import gmm_int4h
-    from medplib_tpu_torch.ops.cuda.moe_decode import moe_ffn_decode_int4h
     from medplib_tpu_torch.utils.quantize import dynamic_act_quant
 
     cfg = flagship_cfg(32, moe=True)
@@ -727,54 +945,103 @@ def main_path(dev, results, card):
         torch.cuda.synchronize()
         return r
 
-    def check(r, b):
-        assert r.output_ids.shape == (b, NEW)
-        assert int(r.output_ids.min()) >= 0
-        assert int(r.output_ids.max()) < cfg.vocab_size_padded
-        assert tuple(r.pred_masks.shape) == (b, 1, 256, 256)
-        assert bool(torch.isfinite(r.pred_masks.float()).all())
+    masks_per_s, peak, counts = serve_batch(
+        "main", lambda: run(batch), cfg, B, NEW, card,
+        gmm_int4h=3 * L, moe_ffn_decode_int4h=L * NEW)
+    for n in ("gmm_int4h", "moe_ffn_decode_int4h"):
+        results[n]["launches"] = counts[n]
+    # B=1: 623 tokens take the capacity-sort prefill; decode still K2
+    serve_single("main", lambda: run(single), cfg, NEW,
+                 moe_ffn_decode_int4h=L * NEW)
+    return masks_per_s, peak
 
-    torch.cuda.reset_peak_memory_stats()
-    gmm_int4h.launches = 0
-    moe_ffn_decode_int4h.launches = 0
+
+def make_icl_batch(cfg, b, t, rng, dev):
+    """benchmarks/run_all.py bench_icl's batch: random ids with BOS, three
+    image sentinels (query + 2 in-context examples) at 2, 4, 6 and <SEG>
+    at T-3; three CLIP images per row, N(0,1); SAM pixels 0..255."""
+    import torch
+    from medplib_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from medplib_tpu_torch.models.medplib import Batch
+    n_img = 3
+    ids = rng.integers(3, cfg.llm.vocab_size, size=(b, t))
+    ids[:, 0] = 1
+    for k in range(n_img):
+        ids[:, 2 + 2 * k] = IMAGE_TOKEN_INDEX
+    ids[:, t - 3] = cfg.seg_token_idx
+    vs, ss = cfg.vision.image_size, cfg.sam.image_size
+    clip_px = rng.normal(size=(b, n_img, vs, vs, 3)).astype(np.float32)
+    sam_px = rng.uniform(0, 255, size=(b, ss, ss, 3)).astype(np.float32)
+    gt = (rng.uniform(size=(b, 1, ss, ss)) > 0.5).astype(np.float32)
+    td = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    return Batch.make(
+        input_ids=td(ids), input_mask=td(np.ones((b, t), np.int32)),
+        labels=td(ids), images_clip=td(clip_px), images_sam=td(sam_px),
+        image_token_lengths=td(np.full((b, n_img), cfg.vision.num_patches,
+                                       np.int32)),
+        gt_masks=td(gt), mask_valid=td(np.ones((b, 1), bool)),
+        sam_frame=ss)
+
+
+def int8_path(dev, results, card):
+    """Two serving configurations over one int8-expert MedPLIB-7b-2e tree
+    (_init_flagship_moe_quantized's default expert_bits=8, built one
+    expert layer at a time; int8 attention / lm_head / projector):
+
+    - the int8-expert flagship (bench.py with BENCH_MOE_EXPERT_BITS=8):
+      B=8 grounding requests, T_in=48 (623 spliced tokens), 10 new tokens,
+      int8 KV cache, W8A8 prefill through K3 (3 per layer), decode on the
+      capacity-sort path; one profiled call; then a single request (sort
+      prefill at 623 tokens: no K3);
+    - ICL config 5 (benchmarks/run_all.py bench_icl): icl_enable, B=4,
+      T_in=64 with three images per row (1789 spliced tokens), 10 new
+      tokens, no activation quant, bf16 KV cache: K3 in int8-w mode and
+      flash attention K4 at prefill."""
+    import dataclasses as dc
+
+    import torch
+    from medplib_tpu_torch.config import flagship_cfg
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.utils.quantize import dynamic_act_quant
+
+    cfg = flagship_cfg(32, moe=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.time()
-    first = run(batch)
-    t_first = time.time() - t0
-    k1, k2 = gmm_int4h.launches, moe_ffn_decode_int4h.launches
-    check(first, B)
-    log(f"[main] batch B={B}: first call {t_first:.2f} s; launches "
-        f"gmm_int4h={k1} (want {3 * L}), moe_ffn_decode_int4h={k2} "
-        f"(want {L * NEW}); has_seg {first.has_seg.sum().item()}/{B}")
-    if k1 != 3 * L or k2 != L * NEW:
-        raise AssertionError("main path did not run the kernels as expected")
-    results["gmm_int4h"]["launches"] = k1
-    results["moe_ffn_decode_int4h"]["launches"] = k2
+    params = init_flagship(cfg, gen, dev, expert_bits=8)
+    torch.cuda.synchronize()
+    log(f"[int8] int8-expert flagship initialized + quantized in "
+        f"{time.time() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    L, NEW = cfg.llm.num_layers, 10
+    B, T = 8, 48
+    batch = make_batch(cfg, B, T, np.random.default_rng(0), dev)
+    single = make_batch(cfg, 1, T, np.random.default_rng(1), dev)
 
-    times = []
-    for _ in range(3):
-        t0 = time.time()
-        r = run(batch)
-        times.append(time.time() - t0)
-    if not torch.equal(r.output_ids, first.output_ids):
-        raise AssertionError("a repeated batch call gave other tokens")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    dt = sum(times) / len(times)
-    log(f"[main] batch B={B} T_in={T} max_new={NEW}: "
-        f"{', '.join(f'{t:.3f}' for t in times)} s per call -> "
-        f"{B / dt:.3f} masks/s; peak allocated {peak:.2f} GiB on {card}")
+    def run(c, b, actq, kv_quant):
+        with dynamic_act_quant(actq):
+            r = medplib.generate(params, c, b, max_new_tokens=NEW,
+                                 kv_quant=kv_quant)
+        torch.cuda.synchronize()
+        return r
 
-    c1, c2 = gmm_int4h.launches, moe_ffn_decode_int4h.launches
-    t0 = time.time()
-    one = run(single)
-    t_one = time.time() - t0
-    check(one, 1)
-    d1, d2 = gmm_int4h.launches - c1, moe_ffn_decode_int4h.launches - c2
-    log(f"[main] single request B=1: {t_one:.3f} s; launches "
-        f"gmm_int4h={d1} (want 0, sort prefill), "
-        f"moe_ffn_decode_int4h={d2} (want {L * NEW})")
-    if d1 != 0 or d2 != L * NEW:
-        raise AssertionError("single request did not take the expected path")
-    return B / dt, peak
+    masks_per_s, peak, counts = serve_batch(
+        "int8", lambda: run(cfg, batch, True, True), cfg, B, NEW, card,
+        gmm=3 * L)
+    results["gmm"]["launches"] = counts["gmm"]
+    profile_step(lambda: run(cfg, batch, True, True))
+    serve_single("int8", lambda: run(cfg, single, True, True), cfg, NEW)
+
+    icfg = dc.replace(cfg, icl_enable=True)
+    IB, IT = 4, 64
+    ibatch = make_icl_batch(icfg, IB, IT, np.random.default_rng(0), dev)
+    spliced = IT + 3 * (cfg.vision.num_patches - 1)
+    log(f"[icl] B={IB}, T_in={IT}, 3 images per row -> {spliced} spliced "
+        f"tokens per row")
+    icl_per_s, icl_peak, _ = serve_batch(
+        "icl", lambda: run(icfg, ibatch, False, False), icfg, IB, NEW, card,
+        gmm=3 * L, flash_fwd=L)
+    return dict(masks_per_s=masks_per_s, peak=peak,
+                icl_ms_per_sample=1e3 / icl_per_s, icl_peak=icl_peak)
 
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
@@ -782,6 +1049,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                   "medplib_tpu/ops/pallas/gmm.py:348"),
     "moe_ffn_decode_int4h": ("medplib_tpu_torch/csrc/moe_decode_int4h.cu",
                              "medplib_tpu/ops/pallas/moe_decode.py:258"),
+    "gmm": ("medplib_tpu_torch/csrc/gmm.cu",
+            "medplib_tpu/ops/pallas/gmm.py:176"),
     "flash_fwd": ("medplib_tpu_torch/csrc/flash_attention.cu",
                   "medplib_tpu/ops/pallas/flash_attention.py:138"),
     "flash_bwd_dq": ("medplib_tpu_torch/csrc/flash_attention.cu",
@@ -815,11 +1084,15 @@ def main() -> int:
     results = {}
     k1_phase(gen, dev, results)
     k2_phase(gen, dev, results)
+    k3_phase(gen, dev, results)
     flash_phase(gen, dev, results)
     torch.cuda.empty_cache()
     small_check(dev)
+    small_int8_check(dev)
     train_check(dev)
     masks_per_s, peak = main_path(dev, results, card)
+    torch.cuda.empty_cache()
+    int8 = int8_path(dev, results, card)
     torch.cuda.empty_cache()
     tokens_per_s, train_peak = train_phase(dev, results, card)
 
@@ -829,9 +1102,12 @@ def main() -> int:
                     **{k: results[n][k] for k in keys})
                for n, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(f"[result] serving {masks_per_s:.3f} masks/s, peak "
-          f"{peak:.2f} GiB; training {tokens_per_s:.1f} tokens/s, peak "
-          f"{train_peak:.2f} GiB; {card}", flush=True)
+    print(f"[result] serving int4h B=16 {masks_per_s:.3f} masks/s, peak "
+          f"{peak:.2f} GiB; int8 B=8 {int8['masks_per_s']:.3f} masks/s, "
+          f"peak {int8['peak']:.2f} GiB; ICL B=4 "
+          f"{int8['icl_ms_per_sample']:.1f} ms/sample, peak "
+          f"{int8['icl_peak']:.2f} GiB; training {tokens_per_s:.1f} "
+          f"tokens/s, peak {train_peak:.2f} GiB; {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

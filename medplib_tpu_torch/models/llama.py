@@ -9,7 +9,9 @@ The MLP is pluggable (`mlp_apply(layer_params, h) -> (y, aux)`): the MoE
 variant (models/moe_llama.py) reuses these blocks.
 
 KV cache: prefill and decode write the cache IN PLACE (the JAX package
-returns a new cache), so a decode loop never copies it.
+returns a new cache), so a decode loop never copies it. With quant=True it
+holds int8 k / v and f32 per-token-per-head scales (ops/attention.py
+quantize_kv, decode_attention_quant).
 
 Training: `forward(..., remat=True)` runs each decoder layer under
 torch.utils.checkpoint (the counterpart of jax.checkpoint on the scan
@@ -28,7 +30,10 @@ from torch.utils.checkpoint import checkpoint
 
 from medplib_tpu_torch.config import LlamaConfig
 from medplib_tpu_torch.ops.moe import _silu
-from medplib_tpu_torch.ops.attention import causal_attention, decode_attention
+from medplib_tpu_torch.ops.attention import (causal_attention,
+                                             decode_attention,
+                                             decode_attention_quant,
+                                             quantize_kv)
 from medplib_tpu_torch.ops.initializers import dense_init, embed_init
 from medplib_tpu_torch.ops.norms import rms_norm
 from medplib_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -42,21 +47,37 @@ Params = Dict[str, Any]
 
 @dataclass
 class KVCache:
-    """k/v [L, B, MAX, KV_HEADS, D]; length [B] int32 (valid entries)."""
+    """k/v [L, B, MAX, KV_HEADS, D]; length [B] int32 (valid entries).
+    Quantized (`quant=True`): k/v int8 and k_scale/v_scale
+    [L, B, MAX, KV_HEADS, 1] f32 absmax / 127 scales."""
 
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @staticmethod
     def init(cfg: LlamaConfig, batch: int, max_len: int,
-             dtype=torch.bfloat16, device="cuda") -> "KVCache":
+             dtype=torch.bfloat16, device="cuda",
+             quant: bool = False) -> "KVCache":
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.head_dim)
-        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                       v=torch.zeros(shape, dtype=dtype, device=device),
-                       length=torch.zeros((batch,), dtype=torch.int32,
-                                          device=device))
+        zeros = lambda s, dt: torch.zeros(s, dtype=dt,  # noqa: E731
+                                          device=device)
+        length = zeros((batch,), torch.int32)
+        if quant:
+            sshape = shape[:-1] + (1,)
+            return KVCache(k=zeros(shape, torch.int8),
+                           v=zeros(shape, torch.int8), length=length,
+                           k_scale=zeros(sshape, torch.float32),
+                           v_scale=zeros(sshape, torch.float32))
+        return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype),
+                       length=length)
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 # ---------------------------------------------------------------------------
@@ -158,17 +179,29 @@ def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: LlamaConfig,
 def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: LlamaConfig,
                          cos, sin, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, length: torch.Tensor,
-                         mlp_apply: MlpApply) -> torch.Tensor:
+                         mlp_apply: MlpApply,
+                         k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """x [B, 1, H]. Writes this token's k/v at row position `length` of the
-    layer's cache views (in place) and attends to the first length+1."""
+    layer's cache views (in place; quantized with their scales when
+    k_scale / v_scale are given) and attends to the first length+1."""
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
     q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
     b = x.shape[0]
     bidx = torch.arange(b, device=x.device)
     pos = length.long()
-    k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
-    attn = decode_attention(q, k_cache, v_cache, length + 1)
+    if k_scale is not None:
+        kq, ksc = quantize_kv(k[:, 0])
+        vq, vsc = quantize_kv(v[:, 0])
+        k_cache[bidx, pos], k_scale[bidx, pos] = kq, ksc
+        v_cache[bidx, pos], v_scale[bidx, pos] = vq, vsc
+        attn = decode_attention_quant(q, k_cache, k_scale, v_cache, v_scale,
+                                      length + 1)
+    else:
+        k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+        attn = decode_attention(q, k_cache, v_cache, length + 1)
     x = x + linear(p["attn"]["o_proj"], attn.reshape(b, 1, -1))
     h = rms_norm(x, p["post_attention_layernorm"]["weight"],
                  cfg.rms_norm_eps)
@@ -213,7 +246,10 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
                               preserve_rng_state=False)
         else:
             x, (k, v), a = layer(i, x)
-            if cache is not None:
+            if cache is not None and cache.quantized:
+                cache.k[i, :, :t], cache.k_scale[i, :, :t] = quantize_kv(k)
+                cache.v[i, :, :t], cache.v_scale[i, :, :t] = quantize_kv(v)
+            elif cache is not None:
                 cache.k[i, :, :t] = k.to(cache.k.dtype)
                 cache.v[i, :, :t] = v.to(cache.v.dtype)
         aux = aux + a
@@ -234,9 +270,11 @@ def forward_decode(params: Params, cfg: LlamaConfig,
                             cfg.rope_theta)
     x = input_embeds
     for i in range(cfg.num_layers):
+        scales = ((cache.k_scale[i], cache.v_scale[i]) if cache.quantized
+                  else (None, None))
         x = decoder_layer_decode(layer_params(params["layers"], i), x, cfg,
                                  cos, sin, cache.k[i], cache.v[i],
-                                 cache.length, mlp_apply)
+                                 cache.length, mlp_apply, *scales)
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     cache.length = cache.length + 1
     return x, cache

@@ -2,11 +2,14 @@
 <SEG> capture -> SAM-Med2D (medplib_tpu/models/medplib.py).
 
 The port covers the pixel-grounding `generate` path with greedy decoding
-(prefill into a KV cache, decode with the <SEG> hidden state captured
-inside the loop, then one batched SAM encode + mask decode over every SEG
-slot) and the dense training forward `model_forward` (CE + mask losses,
-frozen CLIP and SAM encoders, per-layer remat). Sampling, streaming,
-region / ICL inputs and MoE training are not ported yet.
+(prefill into a bf16 or int8 KV cache, decode with the <SEG> hidden state
+captured inside the loop, then one batched SAM encode + mask decode over
+every SEG slot), over one image per row or several (the in-context
+config: query + example images, each spliced at its own sentinel), and
+the dense training forward `model_forward` (CE + mask losses, frozen CLIP
+and SAM encoders, per-layer remat). Sampling, streaming, region inputs,
+the ICL mask encoder and token compressor, and MoE training are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ Params = Dict[str, Any]
 
 class Batch(NamedTuple):
     """Static-shape batch: the fields of the JAX package's Batch that the
-    generate and training paths read (ICL and region fields come with their
-    slices). generate reads no mask field, so they may stay None there."""
+    generate and training paths read (the ICL mask-encoder and the region
+    fields come with their slices). generate reads no mask field, so they
+    may stay None there."""
 
     input_ids: torch.Tensor          # [B, T_in] with sentinel ids
     input_mask: torch.Tensor         # [B, T_in]
@@ -89,8 +93,9 @@ def text_hidden_fcs(p: Params, hidden: torch.Tensor) -> torch.Tensor:
 def encode_images(params: Params, cfg: MedplibConfig,
                   images_clip: torch.Tensor):
     """images_clip [B, MAX_IMG, S, S, 3] -> (feature buffer
-    [B, MAX_IMG * L, H], L tokens per image). The CLIP tower is frozen and
-    runs without autograd (stop_gradient in the JAX package)."""
+    [B, MAX_IMG * L, H], L tokens per image; image i of a row at rows
+    [i * L, (i + 1) * L)). The CLIP tower is frozen and runs without
+    autograd (stop_gradient in the JAX package)."""
     if cfg.projector.token_compress or cfg.projector.mask_encoder:
         raise NotImplementedError("ICL token compression / mask encoder "
                                   "are not ported yet")
@@ -243,17 +248,18 @@ def _seg_slot_write(seg_emb, seg_count, cap, is_seg):
 @torch.no_grad()
 def generate(params: Params, cfg: MedplibConfig, batch: Batch,
              max_new_tokens: int = 64, eos_id: int = 2,
-             max_segs: int = 1) -> GenerateResult:
+             max_segs: int = 1, kv_quant: bool = False) -> GenerateResult:
     """Greedy decode + pixel grounding. SEG hidden states are captured
     inside the loop (prompt SEGs first, then generated ones, up to
     max_segs); a row with no SEG grounds the last step's projected hidden
-    in slot 0."""
+    in slot 0. kv_quant: int8 KV cache with per-token-per-head scales."""
     b = batch.input_ids.shape[0]
     dev = batch.input_ids.device
     embeds, _, attn_mask, seg_mask_prompt, _ = splice_batch(params, cfg,
                                                             batch)
     cache = llama.KVCache.init(cfg.llm, b, embeds.shape[1] + max_new_tokens,
-                               dtype=embeds.dtype, device=dev)
+                               dtype=embeds.dtype, device=dev,
+                               quant=kv_quant)
     hidden, cache, _ = _llm_forward(params, cfg, embeds, attn_mask, cache,
                                     train=False)
     last_idx = (attn_mask.sum(-1) - 1).clamp(min=0).long()

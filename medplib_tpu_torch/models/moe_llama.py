@@ -4,11 +4,12 @@
 The MoE MLP plugs into models/llama.py's blocks as `mlp_apply`. Whether the
 zero-drop grouped-matmul path engages follows the JAX gates exactly
 (`stack_experts_for_gmm`): inference, top-1, capacity >= S, every layer MoE,
-int4h(G=2) experts of kernel-friendly shapes, and S >= 1024 at prefill
-(decode: int4h experts always try it, with 32-row tiles, which selects the
-fused decode kernel). The JAX whole-stack view with a per-layer gid offset
-was a workaround for XLA slice copies; here each layer passes its own
-[E, ...] view, which is free.
+int8 (kernel K3) or int4h(G=2) (kernel K1) experts of pad-free shapes, and
+S >= 1024 at prefill. At decode only int4h experts try it, with 32-row
+tiles, which selects the fused decode kernel K2; int8 experts keep the
+capacity-sort path there, as in JAX. The JAX whole-stack view with a
+per-layer gid offset was a workaround for XLA slice copies; here each
+layer passes its own [E, ...] view, which is free.
 """
 
 from __future__ import annotations
@@ -100,8 +101,8 @@ def stack_experts_for_gmm(experts: Params, moe_cfg: MoeConfig, s_tokens: int,
         if k.dim() != 4 or k.shape[1] != e:
             return False
         if "scale" in node and k.dtype == torch.int8:
-            # int8 experts are eligible in JAX; their grouped matmul is
-            # the unported gmm kernel, so moe_mlp raises for them
+            # int8 experts stream through K3; the JAX gate rejects shapes
+            # its kernel would have to pad (K block < 1024, N % 512)
             if _best_k_block(k.shape[-2]) < 1024 or k.shape[-1] % 512:
                 return False
         elif not ("scale4h" in node and node["scale4h"].shape[-3] == 2
@@ -142,7 +143,8 @@ def forward_decode(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
                    input_embeds, cache):
     """One decode step. int4h(G=2) expert trees route the expert MLP
     through the whole-stack gmm dispatch at 32-row tiles, i.e. the fused
-    decode kernel K2 (the JAX default); other trees take the sort path."""
+    decode kernel K2 (the JAX default); other trees, int8 experts
+    included, take the sort path."""
     experts = params["layers"]["moe"]["experts"]
     int4h = ("scale4h" in experts["gate_proj"]
              and experts["gate_proj"]["scale4h"].shape[-3] == 2)

@@ -1,5 +1,6 @@
-"""Attention: batched causal prefill + single-step cached decode
-(medplib_tpu/ops/attention.py). Public layout [B, T, H, D], as in JAX.
+"""Attention: batched causal prefill + single-step cached decode over a
+bf16 or an int8 KV cache (medplib_tpu/ops/attention.py). Public layout
+[B, T, H, D], as in JAX.
 
 Scores are formed in float32 (the JAX einsums ask for f32 accumulation);
 softmax probabilities are cast back to the activation dtype before the
@@ -89,3 +90,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     logits = logits.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def decode_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
+                           k_s: torch.Tensor, v_q: torch.Tensor,
+                           v_s: torch.Tensor,
+                           cache_len: torch.Tensor) -> torch.Tensor:
+    """One decode step over an int8 KV cache with per-token-per-head
+    scales. q [B, 1, H, D]; k_q / v_q [B, MAX, KV, D] int8; k_s / v_s
+    [B, MAX, KV, 1] f32. The scales apply after the products, in the
+    reference's order: logits = (scores * k_s) * d^-0.5, and the softmax
+    probabilities times v_s in f32, cast to q.dtype, meet the int8 values
+    (as q.dtype, exact) in the value product."""
+    n_rep = q.shape[2] // k_q.shape[2]
+    k = _repeat_kv(k_q.to(q.dtype), n_rep)
+    v = _repeat_kv(v_q.to(q.dtype), n_rep)
+    ks = _repeat_kv(k_s, n_rep).permute(0, 2, 3, 1)        # [B, H, 1, S]
+    vs = _repeat_kv(v_s, n_rep).permute(0, 2, 3, 1)
+    d = q.shape[-1]
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    logits = logits * ks.float() * (d ** -0.5)
+    pos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    valid = pos < cache_len.reshape(-1, 1, 1, 1)
+    logits = logits.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    probs = (probs * vs.float()).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def quantize_kv(x: torch.Tensor):
+    """[..., D] -> (int8 values, f32 scale [..., 1]): symmetric absmax per
+    leading index (per token per head for cache writes). As compiled, the
+    scale is max(absmax, 1e-6) * f32(1/127); x / scale stays a division
+    and rounds half to even."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-6) * (1 / 127)
+    return torch.round(xf / s).to(torch.int8), s

@@ -56,6 +56,8 @@ def _declare(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.gmm_int4h_launch.argtypes = [vp] * 6 + [i] * 6 + [vp]
     lib.gmm_int4h_launch.restype = i
+    lib.gmm_launch.argtypes = [vp] * 6 + [i] * 9 + [vp]
+    lib.gmm_launch.restype = i
     lib.moe_decode_int4h_launch.argtypes = [vp] * 14 + [i] * 6 + [vp]
     lib.moe_decode_int4h_launch.restype = i
     f = ctypes.c_float

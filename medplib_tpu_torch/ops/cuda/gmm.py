@@ -1,16 +1,19 @@
-"""Grouped matmul over int4 interleaved-pairs expert weights (kernel K1),
-with the group-aligned row layout it consumes.
+"""Grouped matmuls over expert weights (kernels K3 and K1), with the
+group-aligned row layout they consume.
 
-Counterpart of medplib_tpu/ops/pallas/gmm.py: `gmm_int4h` (the CUDA
-kernel csrc/gmm_int4h.cu, replacing the Pallas `_kernel_int4h`),
-`align_groups`, `quantize_rows` and `unpack_pairs` (plain torch).
+Counterpart of medplib_tpu/ops/pallas/gmm.py: `gmm` (the CUDA kernel
+csrc/gmm.cu, replacing the Pallas `_kernel`: float, int8-weight and W8A8
+experts, optionally transposed), `gmm_int4h` (csrc/gmm_int4h.cu, replacing
+`_kernel_int4h`), `align_groups`, `quantize_rows` and `unpack_pairs`
+(plain torch).
 
-On a CPU tensor `gmm_int4h` runs its plain PyTorch version,
-`gmm_int4h_plain`. On a CUDA tensor it launches the kernel or raises.
+On a CPU tensor `gmm` and `gmm_int4h` run their plain PyTorch versions,
+`gmm_plain` and `gmm_int4h_plain`. On a CUDA tensor they launch their
+kernels or raise.
 
-What bounds the kernel on the H100, and what the design does about it, is
-noted at the top of csrc/gmm_int4h.cu (compute bound at the flagship
-prefill; a first __dp4a version from shared-memory tiles).
+What bounds the kernels on the H100, and what the designs do about it, is
+noted at the top of each source (both compute bound at the flagship
+prefill; first __dp4a / f32-FMA versions from shared-memory tiles).
 """
 
 from __future__ import annotations
@@ -121,6 +124,126 @@ def _check_cuda(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+_KERNEL_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def gmm_plain(x: torch.Tensor, w: torch.Tensor, tile_gid: torch.Tensor,
+              w_scale: torch.Tensor | None = None,
+              a_scale: torch.Tensor | None = None, block_m: int = 512,
+              out_dtype: torch.dtype | None = None,
+              transposed: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K3, any device. W8A8 (int8 x): the sums are
+    taken in float64, where every partial sum of int8 products is an exact
+    integer, then rounded to f32 as the kernel converts its s32 sum.
+    int8-w: x rounded to bf16, exact products, f32 sums. float: the
+    operands' own products, f32 sums (TF32 must be off on a GPU).
+    Epilogue in the kernel's order: acc * w_scale (int8 w only), then
+    * a_scale (int8 x only), each product rounded in f32."""
+    sp = x.shape[0]
+    n = w.shape[1] if transposed else w.shape[2]
+    int8_x, int8_w = x.dtype == torch.int8, w.dtype == torch.int8
+    if out_dtype is None:
+        out_dtype = torch.bfloat16 if int8_x else x.dtype
+    if int8_x:
+        xf = x.double()
+    elif int8_w:
+        xf = x.to(torch.bfloat16).float()
+    else:
+        xf = x.float()
+    rows_gid = tile_gid.long().repeat_interleave(block_m)
+    out = torch.zeros((sp, n), dtype=torch.float32, device=x.device)
+    for g in range(w.shape[0]):
+        sel = rows_gid == g
+        if not bool(sel.any()):
+            continue
+        wg = w[g].t() if transposed else w[g]
+        y = (xf[sel] @ wg.to(xf.dtype)).float()
+        if int8_w and w_scale is not None:
+            y = y * w_scale[g].float()
+        if int8_x and a_scale is not None:
+            y = y * a_scale[sel].float()
+        out[sel] = y
+    return out.to(out_dtype)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, tile_gid: torch.Tensor,
+        w_scale: torch.Tensor | None = None,
+        a_scale: torch.Tensor | None = None, block_m: int = 512,
+        block_n: int = 512, out_dtype: torch.dtype | None = None,
+        allow_pad: bool = True, block_k: int | None = None,
+        transposed: bool = False) -> torch.Tensor:
+    """Grouped matmul over group-aligned rows (kernel K3).
+
+    x [Sp, K]: float, or int8 with a_scale [Sp, 1] f32 (W8A8); w [E, K, N]
+    float or int8 with w_scale [E, 1, N] f32 per channel, or [E, N, K]
+    with `transposed` (w_scale still channel-last); tile_gid [Sp // block_m]
+    int32. -> [Sp, N] in out_dtype (default bf16 for int8 x, else x.dtype).
+    block_n, block_k and allow_pad are the TPU kernel's tiling knobs: they
+    are accepted and change nothing (the card's kernel needs no K / N
+    padding copies)."""
+    sp, k = x.shape
+    e, kw, n = (w.shape[0], w.shape[2], w.shape[1]) if transposed \
+        else tuple(w.shape)
+    if kw != k:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} (transposed={transposed})")
+    if sp % block_m or tuple(tile_gid.shape) != (sp // block_m,):
+        raise ValueError(f"Sp={sp} must be a multiple of block_m={block_m} "
+                         f"with one tile_gid per tile")
+    int8_x, int8_w = x.dtype == torch.int8, w.dtype == torch.int8
+    if int8_x and not int8_w:
+        raise TypeError("int8 x (W8A8) needs int8 w")
+    if w_scale is not None and tuple(w_scale.shape) != (e, 1, n):
+        raise ValueError(f"w_scale must be channel-last {(e, 1, n)}, got "
+                         f"{tuple(w_scale.shape)}")
+    if out_dtype is None:
+        out_dtype = torch.bfloat16 if int8_x else x.dtype
+    if x.device.type == "cpu":
+        return gmm_plain(x, w, tile_gid, w_scale, a_scale, block_m,
+                         out_dtype, transposed)
+    if not x.is_cuda:
+        raise ValueError(f"gmm: unsupported device {x.device}")
+
+    from medplib_tpu_torch.ops.cuda._build import check, load_library
+    dev = x.device
+    if k % 16 or n % 16 or block_m % 16:
+        raise ValueError(f"the CUDA kernel needs K % 16 == 0, N % 16 == 0 "
+                         f"and block_m % 16 == 0 (K={k}, N={n}, "
+                         f"block_m={block_m})")
+    if x.dtype not in _KERNEL_DTYPES or w.dtype not in _KERNEL_DTYPES \
+            or out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA kernel takes int8 / bf16 / f32 operands "
+                        f"and a bf16 / f32 output (x {x.dtype}, w {w.dtype}, "
+                        f"out {out_dtype})")
+    _check_cuda("x", x, x.dtype, (sp, k), dev)
+    _check_cuda("w", w, w.dtype, tuple(w.shape), dev)
+    _check_cuda("tile_gid", tile_gid, torch.int32, (sp // block_m,), dev)
+    ws = w_scale if int8_w else None
+    a_s = a_scale if int8_x else None
+    if ws is not None:
+        _check_cuda("w_scale", ws, torch.float32, (e, 1, n), dev)
+    if a_s is not None:
+        _check_cuda("a_scale", a_s, torch.float32, (sp, 1), dev)
+    out = torch.empty((sp, n), device=dev, dtype=out_dtype)
+    if sp == 0 or n == 0:
+        return out
+    lib = load_library()
+    err = lib.gmm_launch(
+        x.data_ptr(), w.data_ptr(), tile_gid.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        a_s.data_ptr() if a_s is not None else None, out.data_ptr(),
+        sp, k, n, block_m, 64 if block_m % 64 == 0 else 16,
+        _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[w.dtype], int(transposed),
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "gmm")
+    gmm.launches += 1
+    return out
+
+
+gmm.launches = 0
 
 
 def gmm_int4h(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,

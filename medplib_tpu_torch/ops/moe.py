@@ -4,13 +4,12 @@ and its dispatches (medplib_tpu/ops/moe.py).
 - "sort": capacity dispatch by a stable sort of tokens by expert (exact
   DeepSpeed slot order; tokens beyond capacity are dropped);
 - "gmm": the zero-drop grouped-matmul dispatch, top-1 only: rows in a
-  group-aligned buffer through kernel K1 (gate, up, down), or at decode
-  the fused kernel K2; exactly equivalent to "sort" when capacity >= S;
+  group-aligned buffer through three grouped matmuls (gate, up, down):
+  kernel K3 for int8 and float experts, K1 for int4h(G=2) experts; or, at
+  decode on the whole-stack path, the fused int4h kernel K2; exactly
+  equivalent to "sort" when capacity >= S;
 - "auto": gmm for inference, top-1, capacity >= S and S >= 1024 tokens,
   else sort (the JAX gates, moe.py:481-486).
-
-The int8-expert and dense-weight grouped matmuls (the JAX `gmm` kernel)
-are not ported yet; those layouts raise on the gmm dispatch.
 """
 
 from __future__ import annotations
@@ -107,9 +106,10 @@ def _route_top1(logits: torch.Tensor):
 
 def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
              block_m: int = 512, stacked: bool = False):
-    """Top-1 expert MLP via the grouped matmul (kernel K1) over a
+    """Top-1 expert MLP via the grouped matmuls (K3 / K1) over a
     group-aligned buffer, or, for decode tiles (block_m <= 64) on the
-    whole-stack path, the fused decode kernel K2 in A8 mode."""
+    whole-stack path with int4h experts, the fused decode kernel K2 in A8
+    mode."""
     from medplib_tpu_torch.ops.cuda.gmm import align_groups
     from medplib_tpu_torch.ops.cuda.moe_decode import (
         fused_decode_eligible, moe_ffn_decode_int4h)
@@ -121,7 +121,7 @@ def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
                                  e, int8_x=True)
         return y.to(dtype), aux
     x_al, dest, tile_gid = align_groups(xs, idx, e, block_m)
-    out_al = _gmm_ffn(x_al, tile_gid, experts, dtype, block_m)
+    out_al = _gmm_ffn(x_al, tile_gid, experts, dtype, block_m, stacked)
     # gate rounded to out_al's dtype, product unrounded (as compiled)
     y = (out_al[dest].float()
          * gate_s[:, None].to(out_al.dtype).float()).to(dtype)
@@ -129,37 +129,57 @@ def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
 
 
 def _gmm_ffn(x_al: torch.Tensor, tile_gid: torch.Tensor, experts, dtype,
-             block_m: int) -> torch.Tensor:
-    """SwiGLU over a group-aligned buffer: three K1 calls (gate, up, down),
-    W4A8 under dynamic_act_quant. -> out_al [Sp, H]."""
-    from medplib_tpu_torch.ops.cuda.gmm import gmm_int4h, quantize_rows
+             block_m: int, stacked: bool = False) -> torch.Tensor:
+    """SwiGLU over a group-aligned buffer: three grouped matmuls (gate, up,
+    down) per the expert layout (JAX ops/moe.py:_gmm_ffn): int8 experts
+    through K3 with the per-channel scale at its epilogue, int4h(G=2)
+    experts through K1, any other layout ("dense": float, finer int4h)
+    dequantized to a one-layer `dtype` copy through K3's float mode (not
+    on the whole-stack path). Under dynamic_act_quant, and only when no
+    node is dense, the inputs are row-quantized (W8A8 / W4A8).
+    -> out_al [Sp, H]."""
+    from medplib_tpu_torch.ops.cuda.gmm import gmm, gmm_int4h, quantize_rows
+    from medplib_tpu_torch.train.lora import dequant_kernel
     from medplib_tpu_torch.utils.quantize import act_quant_enabled
 
-    for n in ("gate_proj", "up_proj", "down_proj"):
-        node = experts[n]
-        if not ("scale4h" in node and node["scale4h"].shape[-3] == 2
-                and node["kernel"].shape[-2] % 128 == 0):
-            raise NotImplementedError(
-                "grouped matmul over int8 or float expert weights needs the "
-                "gmm kernel (medplib_tpu/ops/pallas/gmm.py:gmm), which is "
-                "not ported yet")
-    actq = act_quant_enabled()
+    def wspec(node):
+        k = node["kernel"]
+        if "scale" in node and k.dtype == torch.int8:
+            return "int8", k, node["scale"].float()
+        if ("scale4h" in node and node["scale4h"].shape[-3] == 2
+                and k.shape[-2] % 128 == 0):
+            return "int4h", k, node["scale4h"].float()
+        if stacked:
+            raise ValueError("whole-stack gmm requires int8 / int4h(G=2) "
+                             "experts")
+        return "dense", dequant_kernel(node, dtype), None
 
-    def mm(xv, node):
+    specs = {n: wspec(experts[n]) for n in ("gate_proj", "up_proj",
+                                            "down_proj")}
+    actq = act_quant_enabled() and all(s[0] != "dense"
+                                       for s in specs.values())
+
+    def mm(xv, spec):
+        kind, w, sc = spec
+        if kind == "dense":
+            return gmm(xv, w, tile_gid, block_m=block_m)
         if actq:
             xq, xsc = quantize_rows(xv)
-            return gmm_int4h(xq, node["kernel"], node["scale4h"], tile_gid,
-                             a_scale=xsc, block_m=block_m)
-        return gmm_int4h(xv, node["kernel"], node["scale4h"], tile_gid,
-                         block_m=block_m)
+            if kind == "int4h":
+                return gmm_int4h(xq, w, sc, tile_gid, a_scale=xsc,
+                                 block_m=block_m)
+            return gmm(xq, w, tile_gid, sc, a_scale=xsc, block_m=block_m)
+        if kind == "int4h":
+            return gmm_int4h(xv, w, sc, tile_gid, block_m=block_m)
+        return gmm(xv, w, tile_gid, sc, block_m=block_m)
 
-    h1 = mm(x_al, experts["gate_proj"])
-    h2 = mm(x_al, experts["up_proj"])
+    h1 = mm(x_al, specs["gate_proj"])
+    h2 = mm(x_al, specs["up_proj"])
     g = _silu(h1)
     # under act-quant the compiled reference keeps this product unrounded
     # (f32) where it feeds the activation quant; bf16 x bf16 is exact in f32
     act = g.float() * h2.float() if actq else g * h2
-    return mm(act, experts["down_proj"])
+    return mm(act, specs["down_proj"])
 
 
 def _expert_mm(node, xin: torch.Tensor) -> torch.Tensor:

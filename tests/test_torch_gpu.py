@@ -170,3 +170,72 @@ def test_flash_autograd_on_card(dev):
                 n[0] + 1, n[1] + 1)
     for a, w in zip(*grads):
         assert float((a - w).norm() / w.norm()) < 1e-4
+
+
+# (x dtype, w dtype, transposed, N, block_m): W8A8; int8-w with bf16 and
+# f32 x; float bf16 / f32; transposed weights; N not a multiple of the
+# 64-column tile; 16-row tiles (block_m 32)
+@pytest.mark.parametrize("xd,wd,transposed,n,block_m", [
+    (torch.int8, torch.int8, False, 192, 64),
+    (torch.int8, torch.int8, True, 208, 32),
+    (torch.bfloat16, torch.int8, False, 192, 64),
+    (torch.float32, torch.int8, True, 192, 64),
+    (torch.bfloat16, torch.bfloat16, False, 208, 64),
+    (torch.float32, torch.float32, True, 192, 32),
+])
+def test_gmm_kernel_matches_plain(dev, xd, wd, transposed, n, block_m):
+    """K3 against gmm_plain over a two-ended E=2 buffer, K = 2176 (a
+    ragged last 64-deep chunk). W8A8: exact integer sums, same epilogue
+    ops -> within one bf16 ulp. Otherwise the same products summed in
+    another order: rel 1e-5 in f32, 4e-3 for bf16 outputs."""
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    gen = torch.Generator(device=dev).manual_seed(n + block_m)
+    k, e = 2176, 2
+    xs = torch.randn((300, k), generator=gen, device=dev)
+    idx = torch.randint(0, e, (300,), generator=gen, device=dev)
+    x_al, _, gid = G.align_groups(xs, idx, e, block_m)
+    a_s = None
+    if xd == torch.int8:
+        x_al, a_s = G.quantize_rows(x_al)
+    else:
+        x_al = x_al.to(xd)
+    wshape = (e, n, k) if transposed else (e, k, n)
+    ws = None
+    if wd == torch.int8:
+        w = torch.randint(-127, 128, wshape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        ws = torch.rand((e, 1, n), generator=gen, device=dev) * 0.01 + 1e-3
+    else:
+        w = (torch.randn(wshape, generator=gen, device=dev)
+             * k ** -0.5).to(wd)
+    n0 = G.gmm.launches
+    got = G.gmm(x_al, w, gid, ws, a_s, block_m, transposed=transposed)
+    want = G.gmm_plain(x_al, w, gid, ws, a_s, block_m, transposed=transposed)
+    torch.cuda.synchronize()
+    assert G.gmm.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == (x_al.shape[0], n)
+    if xd == torch.int8:
+        d = (got.float() - want.float()).abs()
+        assert bool((d <= want.float().abs() * 2.0 ** -7).all())
+    else:
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        assert rel < (1e-5 if got.dtype == torch.float32 else 4e-3)
+
+
+def test_int8_kv_cache_decode_on_card(dev):
+    """quantize_kv and decode_attention_quant on the card equal the same
+    functions on the CPU (int8 values and scales bit-equal; the attention
+    output within rel 1e-5 in f32)."""
+    from medplib_tpu_torch.ops import attention as A
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn((3, 1, 8, 64), generator=gen)
+    kc, vc = (torch.randn((3, 40, 4, 64), generator=gen) for _ in range(2))
+    lens = torch.tensor([40, 7, 1], dtype=torch.int32)
+    want = [A.quantize_kv(kc), A.quantize_kv(vc)]
+    got = [A.quantize_kv(kc.to(dev)), A.quantize_kv(vc.to(dev))]
+    for (gq, gs), (wq, wsc) in zip(got, want):
+        assert torch.equal(gq.cpu(), wq) and torch.equal(gs.cpu(), wsc)
+    out = A.decode_attention_quant(q.to(dev), *got[0], *got[1], lens.to(dev))
+    ref = A.decode_attention_quant(q, *want[0], *want[1], lens)
+    assert float((out.cpu() - ref).norm() / ref.norm()) < 1e-5
