@@ -9,16 +9,20 @@
 3. Kernel phases: each kernel at the shapes its main path gives it (K1,
    K2 in A8 and bf16-x modes at the flagship serving shapes; K3 in W8A8
    at the int8-expert flagship shapes, int8-w and float bf16 at the ICL
-   shapes, transposed at a small shape; K4, K5, K6 at the stage-3
-   training shape) against its plain PyTorch version on the same card
-   (TF32 off), with the tolerance stated; timed with CUDA events beside
-   the plain version, the least time the card could take (bound_ms) and
-   a library yardstick (SDPA for flash attention; torch._grouped_mm or
-   per-expert torch calls for K3).
+   shapes, transposed at a small shape; K7 int8_matmul and K9 int4h_matmul
+   at the packed dense serving shapes, prefill and decode, both layouts;
+   K8 w8a8_matmul, on no path, at the dense W8A8 shapes; K4, K5, K6 at the
+   stage-3 training shape) against its plain PyTorch version on the same
+   card (TF32 off), with the tolerance stated; timed with CUDA events
+   beside the plain version, the least time the card could take
+   (bound_ms) and a library yardstick (SDPA for flash attention;
+   torch._grouped_mm or per-expert torch calls for K3; torch.matmul on a
+   bf16 weight dequantized beforehand for K7 / K9; torch._int_mm for K8).
 4. Small-input checks, card (kernels) against CPU (plain versions): the
-   generate slice at a tiny width with int4h experts (K1, K2) and with
-   int8 experts and the int8 KV cache (K3), and two QLoRA train steps of
-   a tiny model with head_dim 128 and a 1039-token spliced row (flash
+   generate slice at a tiny width with int4h experts (K1, K2), with int8
+   experts and the int8 KV cache (K3), and over a packed dense tree in
+   int8 under W8A8 (K7) and in int4h (K9); and two QLoRA train steps of a
+   tiny model with head_dim 128 and a 1039-token spliced row (flash
    route).
 5. Serving main paths, MedPLIB-7b-2e at full width (32 layers x 2
    experts, int8 attention / lm_head / projector), random weights from a
@@ -28,16 +32,12 @@
    cache, W8A8 prefill; K3 = 96 launches), one profiled call and a single
    request (no K3), then ICL config 5 on the same tree (B=4, three images
    per row, 1789 spliced tokens, no activation quant; K3 = 96, K4 = 32).
+   Then packed dense serving (the dense MedPLIB-7B, pack_inference): int8
+   B=16 under W8A8 (K7 = 704) and int4h B=12 (K9 = 704), each with one
+   profiled call and a single request after it.
    Each path runs with every launch count set to 0 just before it and
    read just after; each checks the outputs and repeatability and prints
    masks/s or ms/sample and peak memory.
-6. Training main path: the stage-3 QLoRA step at full width (dense
-   LLaMA-7B, int8 base, LoRA q/v r=8, B=8 x 1087 spliced tokens, remat),
-   one warm-up step and three timed ones; checks finite losses, the frozen
-   int8 base unchanged, LoRA moved, the K4 / K5 / K6 launch counts and
-   that SDPA never ran; prints tokens/s and peak memory, then profiles
-   one more step (device time by kernel, idle share).
-
 Any failed phase raises; the line before the last is the card's name and
 power limit, the last stdout line, printed only on success, is
 {"ok": true, "device": {...}}.
@@ -313,6 +313,184 @@ def k3_phase(gen, dev, results):
     torch.cuda.empty_cache()
 
 
+def sum_order_close(got, want, x, w_deq):
+    """|got - want| <= both f32 summation error bounds (K * 2^-24 *
+    sum_k |x w| each) + one rounding of the output dtype: the tolerance of
+    a kernel whose f32 sums take another order than its plain version's
+    (the bound is computed in f32, TF32 off). -> (ok, share of equal
+    elements)."""
+    import torch
+    k = x.shape[-1]
+    sums = x.float().abs() @ w_deq.float().abs()
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -23
+    d = (got.float() - want.float()).abs()
+    ok = bool((d <= 2 * k * 2.0 ** -24 * sums + want.float().abs() * ulp)
+              .all())
+    return ok, float((got == want).float().mean())
+
+
+# K7 / K9 at the packed dense serving shapes: (case, M, K, N, transposed);
+# M is B x 623 spliced tokens at prefill (int8 B=16, int4h B=12), B at
+# decode; qkv_proj [3H, H] is stored transposed, gateup_proj [H, 2I] not
+K7_CASES = [
+    ("prefill qkv", 16 * 623, 4096, 3 * 4096, True),
+    ("prefill gate-up", 16 * 623, 4096, 2 * 11008, False),
+    ("decode qkv", 16, 4096, 3 * 4096, True),
+    ("decode gate-up", 16, 4096, 2 * 11008, False),
+]
+K9_CASES = [(c, m // 16 * 12, k, n, t) for c, m, k, n, t in K7_CASES]
+
+
+def _time_three(kern, plain, library, iters):
+    return (cuda_time(kern, iters=iters), cuda_time(plain, 1, 2),
+            cuda_time(library, iters=iters))
+
+
+def k7_phase(gen, dev, results):
+    """int8_matmul (K7) against its plain version, TF32 off, bf16 x, at the
+    packed int8 serving shapes (K7_CASES). Tolerance: the same exact
+    products summed in f32 in another order (sum_order_close). Yardsticks,
+    never used by the port: torch.matmul against the weight dequantized to
+    bf16 beforehand (library_ms), and torch._weight_int8pack_mm where this
+    build has it on CUDA."""
+    import torch
+    from medplib_tpu_torch.ops.cuda import int8_matmul as I8
+    bf = torch.bfloat16
+    for case, m, k, n, trans in K7_CASES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf)
+        w = torch.randint(-127, 128, (n, k) if trans else (k, n),
+                          generator=gen, device=dev, dtype=torch.int8)
+        s = torch.rand((n, 1) if trans else (1, n), generator=gen,
+                       device=dev) * 0.01 + 1e-3
+        got = I8.int8_matmul_2d(x, w, s, trans)
+        want = I8.int8_matmul_plain(x, w, s, trans)
+        torch.cuda.synchronize()
+        w_deq = (w.float() * s).to(bf)              # the library's operand
+        w_kn = w_deq.t() if trans else w_deq
+        ok, eq = sum_order_close(got, want, x, w_kn)
+        err = float((got.float() - want.float()).abs().max())
+        iters = 20 if m <= 16 else 5
+        ms, pms, lib_ms = _time_three(
+            lambda: I8.int8_matmul_2d(x, w, s, trans),
+            lambda: I8.int8_matmul_plain(x, w, s, trans),
+            lambda: x @ w_kn, iters)
+        bms, by = bound(nbytes(x, w, s, got), 2 * m * k * n, BF16_FLOPS)
+        w_nk = w if trans else w.t().contiguous()
+        try:       # a yardstick only: report whether this build has it
+            i8mm = cuda_time(lambda: torch._weight_int8pack_mm(
+                x, w_nk, s.reshape(-1).to(bf)), iters=iters)
+            i8mm = f"{i8mm:.3f} ms"
+        except (AttributeError, RuntimeError, NotImplementedError) as e:
+            i8mm = f"absent ({type(e).__name__}: {str(e)[:80]})"
+        log(f"[K7 int8_matmul {case}{' transposed' if trans else ''}] M={m} "
+            f"K={k} N={n}: max_abs_err={err:.3e}, {eq * 100:.4f}% equal "
+            f"(within the f32 sum-order bound: {ok}) kernel {ms:.3f} ms, "
+            f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), torch.matmul "
+            f"(bf16 weight) {lib_ms:.3f} ms, torch._weight_int8pack_mm "
+            f"{i8mm}")
+        if not ok:
+            raise AssertionError(f"K7 {case} disagrees with plain")
+        if case == "prefill gate-up":
+            results["int8_matmul"] = dict(max_abs_err=err, ms=ms,
+                                          plain_ms=pms, bound_ms=bms,
+                                          bound_by=by, library_ms=lib_ms)
+        del x, w, s, got, want, w_deq, w_kn, w_nk
+    torch.cuda.empty_cache()
+
+
+# K8 at the dense W8A8 shapes, both layouts: (M, K, N, transposed)
+K8_CASES = [(16 * 623, 4096, 3 * 4096, True),
+            (16 * 623, 4096, 3 * 4096, False),
+            (16 * 623, 11008, 4096, False),
+            (16 * 623, 11008, 4096, True)]
+
+
+def k8_phase(gen, dev, results):
+    """w8a8_matmul (K8, on no path) against its plain version at the dense
+    W8A8 shapes (K8_CASES), x quantized per row beforehand (outside the
+    kernel, as in the reference). Exact s32 sums and the same rounded
+    epilogue on both sides: bit-equal. Yardstick: torch._int_mm on the same
+    int8 operands."""
+    import torch
+    from medplib_tpu_torch.ops.cuda import int8_matmul as I8
+    for m, k, n, trans in K8_CASES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        x_q, a_s = I8.quantize_rows(x)
+        w = torch.randint(-127, 128, (n, k) if trans else (k, n),
+                          generator=gen, device=dev, dtype=torch.int8)
+        s = torch.rand((n, 1) if trans else (1, n), generator=gen,
+                       device=dev) * 0.01 + 1e-3
+        call = lambda: I8.w8a8_matmul_2d(  # noqa: E731
+            x_q, a_s, w, s, trans, torch.bfloat16)
+        got = call()
+        want = I8.w8a8_matmul_plain(x_q, a_s, w, s, trans, torch.bfloat16)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        w_kn = w.t() if trans else w
+        ms, pms, lib_ms = _time_three(
+            call, lambda: I8.w8a8_matmul_plain(x_q, a_s, w, s, trans,
+                                               torch.bfloat16),
+            lambda: torch._int_mm(x_q, w_kn), 5)
+        bms, by = bound(nbytes(x_q, a_s, w, s, got), 2 * m * k * n,
+                        INT8_OPS)
+        log(f"[K8 w8a8_matmul{' transposed' if trans else ''}] M={m} K={k} "
+            f"N={n}: max_abs_err={err:.3e} (bit-equal: {equal}) kernel "
+            f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), "
+            f"torch._int_mm {lib_ms:.3f} ms")
+        if not equal:
+            raise AssertionError(f"K8 K={k} N={n} disagrees with plain")
+        if "w8a8_matmul" not in results:
+            results["w8a8_matmul"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, launches=0)
+        del x, x_q, a_s, w, s, got, want
+    torch.cuda.empty_cache()
+
+
+def k9_phase(gen, dev, results):
+    """int4h_matmul (K9) against its plain version, TF32 off, bf16 x, at the
+    packed int4h serving shapes (K9_CASES: B=12), G = 8 scale groups.
+    Tolerance: the same f32 weights and products summed in f32 in another
+    order (sum_order_close). Yardstick: torch.matmul against the weight
+    dequantized to bf16 beforehand."""
+    import torch
+    from medplib_tpu_torch.ops.cuda import int4_matmul as I4
+    bf, g = torch.bfloat16, 8
+    for case, m, k, n, trans in K9_CASES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf)
+        packed = torch.randint(-128, 128, (n, k // 2) if trans
+                               else (k // 2, n), generator=gen, device=dev,
+                               dtype=torch.int8)
+        s = torch.rand((g, n, 1) if trans else (g, 1, n), generator=gen,
+                       device=dev) * 0.01 + 1e-3
+        got = I4.int4h_matmul_2d(x, packed, s, trans)
+        want = I4.int4h_matmul_plain(x, packed, s, trans)
+        torch.cuda.synchronize()
+        w_kn = I4.dequant_f32(packed, s, trans).to(bf)    # [K, N]
+        ok, eq = sum_order_close(got, want, x, w_kn)
+        err = float((got.float() - want.float()).abs().max())
+        ms, pms, lib_ms = _time_three(
+            lambda: I4.int4h_matmul_2d(x, packed, s, trans),
+            lambda: I4.int4h_matmul_plain(x, packed, s, trans),
+            lambda: x @ w_kn, 20 if m <= 16 else 5)
+        bms, by = bound(nbytes(x, packed, s, got), 2 * m * k * n,
+                        BF16_FLOPS)
+        log(f"[K9 int4h_matmul {case}{' transposed' if trans else ''}] "
+            f"M={m} K={k} N={n} G={g}: max_abs_err={err:.3e}, "
+            f"{eq * 100:.4f}% equal (within the f32 sum-order bound: {ok}) "
+            f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
+            f"({by}), torch.matmul (bf16 weight) {lib_ms:.3f} ms")
+        if not ok:
+            raise AssertionError(f"K9 {case} disagrees with plain")
+        if case == "prefill gate-up":
+            results["int4h_matmul"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=pms, bound_ms=bms,
+                                           bound_by=by, library_ms=lib_ms)
+        del x, packed, s, got, want, w_kn
+    torch.cuda.empty_cache()
+
+
 # peak rates of one H100 SXM (dense, NVIDIA's data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -534,11 +712,16 @@ def _wrappers():
     """name -> the kernel wrapper that counts its launches."""
     from medplib_tpu_torch.ops.cuda import flash_attention as FA
     from medplib_tpu_torch.ops.cuda import gmm as G
+    from medplib_tpu_torch.ops.cuda import int4_matmul as I4
+    from medplib_tpu_torch.ops.cuda import int8_matmul as I8
     from medplib_tpu_torch.ops.cuda import moe_decode as D
     return {"gmm_int4h": G.gmm_int4h,
             "moe_ffn_decode_int4h": D.moe_ffn_decode_int4h, "gmm": G.gmm,
             "flash_fwd": FA.flash_forward, "flash_bwd_dq": FA.flash_dq,
-            "flash_bwd_dkv": FA.flash_dkv}
+            "flash_bwd_dkv": FA.flash_dkv,
+            "int8_matmul": I8.int8_matmul_2d,
+            "w8a8_matmul": I8.w8a8_matmul_2d,
+            "int4h_matmul": I4.int4h_matmul_2d}
 
 
 def reset_counts() -> None:
@@ -588,28 +771,35 @@ def tiny_serving_cfg(hidden: int, heads: int):
         seg=C.SegConfig(out_dim=32), seg_token_idx=500, vocab_size_padded=512)
 
 
-def _tiny_card_vs_cpu(dev, name, cfg, expert_bits, kv_quant, **want):
-    """Generate B=16 x T_in=64 (1264 spliced tokens, W8A8 prefill, 4 new
-    tokens) with the same tiny params on the CPU (plain versions) and on
-    the card (kernels); tokens and masks must agree and the card must
-    launch exactly `want`."""
+def _tiny_moe_tree(cfg, expert_bits):
+    """The tiny MoE serving params in their flagship quantization, as a
+    numpy tree: f32 init, unit-scale embeddings (a well-conditioned
+    residual stream, so that last-bit differences do not flip greedy
+    tokens), quantize_flagship_moe."""
     import torch
     from medplib_tpu_torch.models import medplib
-    from medplib_tpu_torch.utils.convert import tree_to_numpy, tree_from_numpy
-    from medplib_tpu_torch.utils.quantize import (dynamic_act_quant,
-                                                  quantize_flagship_moe)
-    gen = torch.Generator().manual_seed(1)
-    p = medplib.init_medplib(gen, cfg, torch.float32, "cpu")
-    # unit-scale embeddings: a well-conditioned residual stream, so that
-    # last-bit differences do not flip greedy tokens
+    from medplib_tpu_torch.utils.convert import tree_to_numpy
+    from medplib_tpu_torch.utils.quantize import quantize_flagship_moe
+    p = medplib.init_medplib(torch.Generator().manual_seed(1), cfg,
+                             torch.float32, "cpu")
     p["llm"]["embed_tokens"]["embedding"] *= 50.0
-    p = tree_to_numpy(quantize_flagship_moe(p, expert_bits, 8))
+    return tree_to_numpy(quantize_flagship_moe(p, expert_bits, 8))
+
+
+def _tiny_card_vs_cpu(dev, name, cfg, host, kv_quant, actq=True, **want):
+    """Generate B=16 x T_in=64 (1264 spliced tokens, 4 new tokens; W8A8
+    prefill with actq) with the same tiny params `host` (a numpy tree) on
+    the CPU (plain versions) and on the card (kernels); tokens and masks
+    must agree and the card must launch exactly `want`."""
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.utils.convert import tree_from_numpy
+    from medplib_tpu_torch.utils.quantize import dynamic_act_quant
     out = {}
     for where in ("cpu", dev):
         b = make_batch(cfg, 16, 64, np.random.default_rng(0), where)
         reset_counts()
-        with dynamic_act_quant(True):
-            r = medplib.generate(tree_from_numpy(p, where), cfg, b,
+        with dynamic_act_quant(actq):
+            r = medplib.generate(tree_from_numpy(host, where), cfg, b,
                                  max_new_tokens=4, kv_quant=kv_quant)
         out[str(where)] = (r, kernel_counts())
     (rc, nc), (rg, ng) = out["cpu"], out[str(dev)]
@@ -627,16 +817,42 @@ def _tiny_card_vs_cpu(dev, name, cfg, expert_bits, kv_quant, **want):
 
 def small_check(dev):
     """int4h experts (H=512): K1 at prefill, K2 at decode."""
-    _tiny_card_vs_cpu(dev, "small check", tiny_serving_cfg(512, 8), 4, False,
-                      gmm_int4h=6, moe_ffn_decode_int4h=8)
+    cfg = tiny_serving_cfg(512, 8)
+    _tiny_card_vs_cpu(dev, "small check", cfg, _tiny_moe_tree(cfg, 4),
+                      False, gmm_int4h=6, moe_ffn_decode_int4h=8)
 
 
 def small_int8_check(dev):
     """int8 experts at H = M = 1024 (multiples of 1024: the whole-stack
     int8 gmm engages), int8 KV cache: K3 at prefill, sort path at
     decode."""
-    _tiny_card_vs_cpu(dev, "small int8 check", tiny_serving_cfg(1024, 16), 8,
+    cfg = tiny_serving_cfg(1024, 16)
+    _tiny_card_vs_cpu(dev, "small int8 check", cfg, _tiny_moe_tree(cfg, 8),
                       True, gmm=6)
+
+
+def small_packed_check(dev, bits):
+    """A tiny packed dense model (H=256, 2 layers, M=512): f32 init,
+    unit-scale embeddings, pack_inference, quantize_tree(bits). int8 under
+    W8A8: the packed qkv / gate-up kernels on K7 (2 per layer per LLM
+    pass: 2 x 2 x (1 + 4)); int4h without act quant: on K9."""
+    import dataclasses as dc
+
+    import torch
+    from medplib_tpu_torch.models import llama, medplib
+    from medplib_tpu_torch.utils.convert import tree_to_numpy
+    from medplib_tpu_torch.utils.quantize import quantize_tree
+    cfg = tiny_serving_cfg(256, 4)
+    cfg = dc.replace(cfg, moe=dc.replace(cfg.moe, enable=False),
+                     llm=dc.replace(cfg.llm, intermediate_size=512))
+    p = medplib.init_medplib(torch.Generator().manual_seed(2), cfg,
+                             torch.float32, "cpu")
+    p["llm"]["embed_tokens"]["embedding"] *= 50.0
+    p["llm"] = llama.pack_inference(p["llm"])
+    host = tree_to_numpy(quantize_tree(p, bits=bits))
+    kernel = "int8_matmul" if bits == 8 else "int4h_matmul"
+    _tiny_card_vs_cpu(dev, f"small packed int{bits} check", cfg, host,
+                      False, actq=bits == 8, **{kernel: 20})
 
 
 def qlora_params(cfg, gen, dtype, dev, lora_b_scale=0.0):
@@ -1044,6 +1260,65 @@ def int8_path(dev, results, card):
                 icl_ms_per_sample=1e3 / icl_per_s, icl_peak=icl_peak)
 
 
+def packed_path(dev, results, card):
+    """Packed dense serving (bench.py with BENCH_MOE=0 BENCH_PACK=1): the
+    dense LLaMA-style MedPLIB-7B at full width, bf16 init from a seeded
+    generator on the card, llama.pack_inference (fused qkv_proj /
+    gateup_proj), then quantize_tree:
+
+    - int8 (BENCH_QUANT=int8): B=16, T_in=48 (623 spliced tokens), 10 new
+      tokens, W8A8 prefill: the packed kernels on K7 (weight-only, as in
+      JAX: 2 per layer per LLM pass, 2 x 32 x 11 = 704), o_proj /
+      down_proj on W8A8;
+    - int4h (BENCH_QUANT=int4, G = 8): B=12, no activation quant: the
+      packed kernels on K9 (704), the other linears on the grouped int4h
+      products;
+
+    each with one profiled call and then a single request.
+
+    Each tree is freed before the next is built."""
+    import torch
+    from medplib_tpu_torch.config import flagship_cfg
+    from medplib_tpu_torch.models import llama, medplib
+    from medplib_tpu_torch.utils.quantize import (dynamic_act_quant,
+                                                  quantize_tree)
+    cfg = flagship_cfg(32, moe=False)
+    L, T, NEW = cfg.llm.num_layers, 48, 10
+    want = 2 * L * (1 + NEW)
+    out = {}
+    for bits, B, actq, kernel in ((8, 16, True, "int8_matmul"),
+                                  (4, 12, False, "int4h_matmul")):
+        name = f"packed int{bits}"
+        t0 = time.time()
+        params = medplib.init_medplib(
+            torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16,
+            dev)
+        params["llm"] = llama.pack_inference(params["llm"])
+        params = quantize_tree(params, bits=bits)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[{name}] dense 7B packed + quantized in {time.time() - t0:.1f}"
+            f" s; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        batch = make_batch(cfg, B, T, np.random.default_rng(0), dev)
+        single = make_batch(cfg, 1, T, np.random.default_rng(1), dev)
+
+        def run(b):
+            with dynamic_act_quant(actq):
+                r = medplib.generate(params, cfg, b, max_new_tokens=NEW)
+            torch.cuda.synchronize()
+            return r
+
+        per_s, peak, counts = serve_batch(name, lambda: run(batch), cfg, B,
+                                          NEW, card, **{kernel: want})
+        results[kernel]["launches"] = counts[kernel]
+        profile_step(lambda: run(batch))
+        serve_single(name, lambda: run(single), cfg, NEW, **{kernel: want})
+        out[bits] = (per_s, peak)
+        del params, batch, single
+        torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "gmm_int4h": ("medplib_tpu_torch/csrc/gmm_int4h.cu",
                   "medplib_tpu/ops/pallas/gmm.py:348"),
@@ -1057,6 +1332,12 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                      "medplib_tpu/ops/pallas/flash_attention.py:306"),
     "flash_bwd_dkv": ("medplib_tpu_torch/csrc/flash_attention.cu",
                       "medplib_tpu/ops/pallas/flash_attention.py:333"),
+    "int8_matmul": ("medplib_tpu_torch/csrc/int8_matmul.cu",
+                    "medplib_tpu/ops/pallas/int8_matmul.py:91"),
+    "w8a8_matmul": ("medplib_tpu_torch/csrc/int8_matmul.cu",
+                    "medplib_tpu/ops/pallas/int8_matmul.py:234"),
+    "int4h_matmul": ("medplib_tpu_torch/csrc/int4_matmul.cu",
+                     "medplib_tpu/ops/pallas/int4_matmul.py:144"),
 }
 
 
@@ -1085,15 +1366,21 @@ def main() -> int:
     k1_phase(gen, dev, results)
     k2_phase(gen, dev, results)
     k3_phase(gen, dev, results)
+    k7_phase(gen, dev, results)
+    k8_phase(gen, dev, results)
+    k9_phase(gen, dev, results)
     flash_phase(gen, dev, results)
     torch.cuda.empty_cache()
     small_check(dev)
     small_int8_check(dev)
+    small_packed_check(dev, 8)
+    small_packed_check(dev, 4)
     train_check(dev)
     masks_per_s, peak = main_path(dev, results, card)
     torch.cuda.empty_cache()
     int8 = int8_path(dev, results, card)
     torch.cuda.empty_cache()
+    packed = packed_path(dev, results, card)
     tokens_per_s, train_peak = train_phase(dev, results, card)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1106,7 +1393,10 @@ def main() -> int:
           f"{peak:.2f} GiB; int8 B=8 {int8['masks_per_s']:.3f} masks/s, "
           f"peak {int8['peak']:.2f} GiB; ICL B=4 "
           f"{int8['icl_ms_per_sample']:.1f} ms/sample, peak "
-          f"{int8['icl_peak']:.2f} GiB; training {tokens_per_s:.1f} "
+          f"{int8['icl_peak']:.2f} GiB; packed dense int8 B=16 "
+          f"{packed[8][0]:.3f} masks/s, peak {packed[8][1]:.2f} GiB; packed "
+          f"dense int4h B=12 {packed[4][0]:.3f} masks/s, peak "
+          f"{packed[4][1]:.2f} GiB; training {tokens_per_s:.1f} "
           f"tokens/s, peak {train_peak:.2f} GiB; {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

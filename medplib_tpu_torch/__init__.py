@@ -10,8 +10,8 @@ layout and function names so each counterpart is easy to find:
                   each with its plain PyTorch version beside it
   models          llama / moe_llama / clip / projector / sam_med2d /
                   losses / medplib (generate, model_forward)
-  train           lora (linears, injection, dropout, trainable mask),
-                  optimizer (AdamW to optax's semantics), trainer
+  train           lora (linears, injection, dropout, trainable mask,
+                  merge), optimizer (AdamW to optax's semantics), trainer
   utils           weight bridge (convert), quantization, tree views,
                   checkpoints, logging
 

@@ -1,5 +1,6 @@
 // Shared tile routine of the int4 "interleaved pairs" kernels
-// (gmm_int4h.cu, moe_decode_int4h.cu).
+// (gmm_int4h.cu, moe_decode_int4h.cu; int4_matmul.cu uses the nibble
+// helpers).
 //
 // Weights are packed int8 [K/2, N] (one expert): logical reduction row 2r is
 // the LOW nibble of packed row r, row 2r+1 its HIGH nibble, both

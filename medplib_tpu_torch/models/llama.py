@@ -8,6 +8,11 @@ layer stack is a Python loop.
 The MLP is pluggable (`mlp_apply(layer_params, h) -> (y, aux)`): the MoE
 variant (models/moe_llama.py) reuses these blocks.
 
+Packed trees (`pack_inference`): q/k/v fuse into one transposed
+`qkv_proj` and gate/up into one `gateup_proj`; an int8 packed kernel runs
+on K7 (ops/cuda/int8_matmul), an int4h one on K9 (ops/cuda/int4_matmul),
+a float one on the LoRA linear.
+
 KV cache: prefill and decode write the cache IN PLACE (the JAX package
 returns a new cache), so a decode loop never copies it. With quant=True it
 holds int8 k / v and f32 per-token-per-head scales (ops/attention.py
@@ -138,10 +143,28 @@ def layer_params(tree: Any, i: int) -> Any:
 # forward
 # ---------------------------------------------------------------------------
 
+def _packed_linear(p: Params, x: torch.Tensor, transposed: bool):
+    """A pack_inference kernel: int8 -> K7, int4h -> K9, float -> the LoRA
+    linear. Packed kernels never take W8A8 (as in the JAX package)."""
+    if "scale" in p and p["kernel"].dtype == torch.int8:
+        from medplib_tpu_torch.ops.cuda import int8_matmul as K7
+        fn = K7.int8_matmul_t if transposed else K7.int8_matmul
+        return fn(x, p["kernel"], p["scale"])
+    if "scale4h" in p:
+        from medplib_tpu_torch.ops.cuda import int4_matmul as K9
+        fn = K9.int4h_matmul_t if transposed else K9.int4h_matmul
+        return fn(x, p["kernel"], p["scale4h"])
+    return linear_t(p, x) if transposed else linear(p, x)
+
+
 def dense_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
-    return linear(p["down_proj"], _silu(linear(p["gate_proj"], x))
-                  * linear(p["up_proj"], x))
+    """SwiGLU: down(silu(gate(x)) * up(x)); one wide gate-up product on a
+    packed tree."""
+    if "gateup_proj" in p:
+        gate, up = _packed_linear(p["gateup_proj"], x, False).chunk(2, -1)
+    else:
+        gate, up = linear(p["gate_proj"], x), linear(p["up_proj"], x)
+    return linear(p["down_proj"], _silu(gate) * up)
 
 
 def dense_mlp_layer(layer_p: Params, x: torch.Tensor):
@@ -153,11 +176,17 @@ MlpApply = Callable[[Params, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 def _qkv(p: Params, x: torch.Tensor, cfg: LlamaConfig, cos, sin):
     b, t, _ = x.shape
-    q = linear_t(p["q_proj"], x).reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = linear_t(p["k_proj"], x).reshape(b, t, cfg.num_kv_heads,
-                                         cfg.head_dim)
-    v = linear_t(p["v_proj"], x).reshape(b, t, cfg.num_kv_heads,
-                                         cfg.head_dim)
+    if "qkv_proj" in p:        # packed: one wide product, split on columns
+        qd = cfg.num_heads * cfg.head_dim
+        kd = cfg.num_kv_heads * cfg.head_dim
+        q, k, v = _packed_linear(p["qkv_proj"], x, True).split(
+            [qd, kd, kd], dim=-1)
+    else:
+        q, k, v = (linear_t(p[n], x)
+                   for n in ("q_proj", "k_proj", "v_proj"))
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -288,3 +317,35 @@ def embed(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
 
 def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     return linear(params["lm_head"], hidden).float()
+
+
+def pack_inference(llm_params: Params) -> Params:
+    """Inference packing: q/k/v fuse into one transposed `qkv_proj`
+    [L, 3H, H] kernel (concatenated on the out axis) and gate/up into one
+    `gateup_proj` [L, H, 2I] (on the last axis), so each layer runs one
+    wide product for each. LoRA must be merged first (train/lora.merge) and
+    quantization comes after (utils/quantize.quantize_tree). MUTATES
+    llm_params: the source kernels are popped, so their memory is freed."""
+    attn = llm_params["layers"]["attn"]
+    if all(k in attn for k in ("q_proj", "k_proj", "v_proj")):
+        for name in ("q_proj", "k_proj", "v_proj"):
+            if "lora_a" in attn[name]:
+                raise ValueError("merge LoRA before pack_inference")
+            if "scale" in attn[name] or "scale4" in attn[name]:
+                raise ValueError("pack_inference must run BEFORE "
+                                 "quantize_tree (per-channel scales can't "
+                                 "be concatenated post hoc)")
+        ks = [attn.pop(n)["kernel"] for n in ("q_proj", "k_proj", "v_proj")]
+        attn["qkv_proj"] = {"kernel": torch.cat(ks, dim=ks[0].dim() - 2)}
+        del ks
+    mlp = llm_params["layers"].get("mlp")
+    if mlp is not None and "gate_proj" in mlp:
+        if "lora_a" in mlp["gate_proj"] or "lora_a" in mlp["up_proj"]:
+            raise ValueError("merge LoRA before pack_inference")
+        if any(s in mlp[n] for s in ("scale", "scale4")
+               for n in ("gate_proj", "up_proj")):
+            raise ValueError("pack_inference must run BEFORE quantize_tree")
+        ks = [mlp.pop(n)["kernel"] for n in ("gate_proj", "up_proj")]
+        mlp["gateup_proj"] = {"kernel": torch.cat(ks, dim=-1)}
+        del ks
+    return llm_params

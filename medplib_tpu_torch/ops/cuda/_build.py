@@ -67,6 +67,12 @@ def _declare(lib):
     lib.flash_bwd_dq_launch.restype = i
     lib.flash_bwd_dkv_launch.argtypes = [vp] * 9 + [i] * 5 + [f, vp]
     lib.flash_bwd_dkv_launch.restype = i
+    lib.int8_matmul_launch.argtypes = [vp] * 4 + [i] * 5 + [vp]
+    lib.int8_matmul_launch.restype = i
+    lib.w8a8_matmul_launch.argtypes = [vp] * 5 + [i] * 5 + [vp]
+    lib.w8a8_matmul_launch.restype = i
+    lib.int4h_matmul_launch.argtypes = [vp] * 4 + [i] * 6 + [vp]
+    lib.int4h_matmul_launch.restype = i
     return lib
 
 

@@ -1,6 +1,8 @@
 """LoRA adapters and the linears (medplib_tpu/train/lora.py): dequant, the
-W8A8 switch, LoRA injection, the adapter branch with its dropout, and the
-trainable mask. `merge` (the export path) is not ported yet.
+W8A8 switch, the grouped int4h products of 2D int4h nodes, LoRA injection,
+the adapter branch with its dropout, the trainable mask, and `merge` (the
+export path, and the route from a stage-3 checkpoint to a packed serving
+tree).
 
 A linear node is {"kernel", optional "scale" (int8) / "scale4h" (int4h),
 optional "bias", optional "lora_a" [in, r] / "lora_b" [r, out]}; kernels
@@ -216,10 +218,15 @@ def _lora_and_bias(p: Params, x: torch.Tensor, y: torch.Tensor,
 
 
 def linear(p: Params, x: torch.Tensor, scale: float = 2.0) -> torch.Tensor:
-    """x @ kernel (+ LoRA branch, `scale` = alpha / r) (+ bias)."""
+    """x @ kernel (+ LoRA branch, `scale` = alpha / r) (+ bias). A 2D int4h
+    node takes the grouped products of utils/quantize.int4h_matmul; a
+    stacked one dequantizes."""
     if _use_w8a8(p, x):
         from medplib_tpu_torch.utils.quantize import int8_dyn_matmul
         y = int8_dyn_matmul(x, p["kernel"], p["scale"], transposed=False)
+    elif "scale4h" in p and p["kernel"].dim() == 2:
+        from medplib_tpu_torch.utils.quantize import int4h_matmul
+        y = int4h_matmul(x, p["kernel"], p["scale4h"])
     else:
         y = x @ dequant_kernel(p, x.dtype)
     return _lora_and_bias(p, x, y, scale)
@@ -231,6 +238,39 @@ def linear_t(p: Params, x: torch.Tensor, scale: float = 2.0) -> torch.Tensor:
     if _use_w8a8(p, x):
         from medplib_tpu_torch.utils.quantize import int8_dyn_matmul
         y = int8_dyn_matmul(x, p["kernel"], p["scale"], transposed=True)
+    elif "scale4h" in p and p["kernel"].dim() == 2:
+        from medplib_tpu_torch.utils.quantize import int4h_matmul_t
+        y = int4h_matmul_t(x, p["kernel"], p["scale4h"])
     else:
         y = x @ dequant_kernel(p, x.dtype).t()
     return _lora_and_bias(p, x, y, scale)
+
+
+def merge(params: Params, scale: float = 2.0) -> Params:
+    """Fold each LoRA delta (lora_a @ lora_b * scale, transposed for the
+    [out, in] kernels, cast to the kernel's dtype) into its kernel and drop
+    the adapter leaves. Returns a new tree of containers; quantized nodes
+    raise (dequantize first, or merge before quantizing)."""
+    def rec(node, name=""):
+        if isinstance(node, dict):
+            if "kernel" in node and "lora_a" in node:
+                if any(s in node for s in _QUANT_KEYS):
+                    raise ValueError(
+                        "cannot merge LoRA into a QUANTIZED kernel "
+                        f"({name}): dequantize first (QLoRA export path: "
+                        "keep adapters separate or merge pre-quantization)")
+                delta = torch.einsum("...ir,...ro->...io", node["lora_a"],
+                                     node["lora_b"]) * scale
+                if name in TRANSPOSED_KERNELS:
+                    delta = delta.transpose(-1, -2)
+                out = {"kernel": node["kernel"]
+                       + delta.to(node["kernel"].dtype)}
+                for k, v in node.items():
+                    if k not in ("kernel", "lora_a", "lora_b"):
+                        out[k] = rec(v, k)
+                return out
+            return {k: rec(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [rec(v, name) for v in node]
+        return node
+    return rec(params)

@@ -7,7 +7,10 @@
   sign-extended; {"kernel": packed int8, "scale4h": f32} with `groups`
   contiguous logical scale groups along the reduction axis.
 
-Also the W8A8 prefill switch (`dynamic_act_quant`) and its matmul.
+Also the int4h matmuls of the 2D int4h linears (`int4h_matmul(_t)`: one
+pair of products per scale group, in the activation dtype, as the JAX
+package's XLA composition), the W8A8 prefill switch (`dynamic_act_quant`)
+and its matmul.
 Quantizers work one leading-dim slice at a time so float32 temporaries
 stay one layer in size, and (like the JAX quantizers, which donate their
 input) they do not keep the float tree alive.
@@ -172,7 +175,8 @@ def quantize_flagship_moe(params: Any, expert_bits: int = 4,
 
 
 # ---------------------------------------------------------------------------
-# int4 interleaved pairs: unpack, dequant, expert contraction
+# int4 interleaved pairs: unpack, dequant, grouped matmuls, expert
+# contraction
 # ---------------------------------------------------------------------------
 
 def _unpack(p: torch.Tensor, low: bool, dtype) -> torch.Tensor:
@@ -205,6 +209,44 @@ def dequant_int4h(packed: torch.Tensor, scale: torch.Tensor,
     *lead, k, o = w.shape
     wb = w.reshape(*lead, g_n, k // g_n, o)
     return (wb * scale).reshape(w.shape).to(dtype)
+
+
+def int4h_matmul(x: torch.Tensor, packed: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ dequant(packed [K/2, N] pairs, scale4h [G, 1, N]), in
+    x.dtype one scale group at a time, as the JAX package's XLA
+    composition: y_g = (x_even_g @ lo_g + x_odd_g @ hi_g) * s_g, y = sum_g.
+    Compiled with jax.jit, that program rounds each product, the pair sum,
+    the scaled group and every group sum to x.dtype; so does this."""
+    g_n = scale.shape[-3]
+    gs2 = packed.shape[-2] // g_n              # packed rows per group
+    xe, xo = x[..., 0::2], x[..., 1::2]
+    y = None
+    for g in range(g_n):
+        pg = packed[g * gs2:(g + 1) * gs2]
+        yg = (xe[..., g * gs2:(g + 1) * gs2] @ _unpack(pg, True, x.dtype)
+              + xo[..., g * gs2:(g + 1) * gs2] @ _unpack(pg, False, x.dtype))
+        yg = yg * scale[g, 0].to(x.dtype)
+        y = yg if y is None else y + yg
+    return y
+
+
+def int4h_matmul_t(x: torch.Tensor, packed: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ dequant(packed [N, K/2] pairs, scale4h [G, N, 1]).T,
+    group by group in x.dtype as int4h_matmul."""
+    g_n = scale.shape[-3]
+    gs2 = packed.shape[-1] // g_n
+    xe, xo = x[..., 0::2], x[..., 1::2]
+    y = None
+    for g in range(g_n):
+        pg = packed[:, g * gs2:(g + 1) * gs2]
+        yg = (xe[..., g * gs2:(g + 1) * gs2] @ _unpack(pg, True, x.dtype).t()
+              + xo[..., g * gs2:(g + 1) * gs2]
+              @ _unpack(pg, False, x.dtype).t())
+        yg = yg * scale[g, :, 0].to(x.dtype)
+        y = yg if y is None else y + yg
+    return y
 
 
 def int4h_expert_einsum(x: torch.Tensor, packed: torch.Tensor,

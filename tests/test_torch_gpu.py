@@ -239,3 +239,95 @@ def test_int8_kv_cache_decode_on_card(dev):
     out = A.decode_attention_quant(q.to(dev), *got[0], *got[1], lens.to(dev))
     ref = A.decode_attention_quant(q, *want[0], *want[1], lens)
     assert float((out.cpu() - ref).norm() / ref.norm()) < 1e-5
+
+
+def _sum_order_close(got, want, x, w_deq):
+    """|got - want| <= both f32 summation error bounds (K * 2^-24 *
+    sum_k |x w| each) + one rounding of the output dtype."""
+    k = x.shape[-1]
+    sums = x.double().abs() @ w_deq.double().abs()
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -23
+    tol = 2 * k * 2.0 ** -24 * sums + want.double().abs() * ulp
+    return bool(((got.double() - want.double()).abs() <= tol).all())
+
+
+# (x dtype, transposed, M): decode-sized M (16-row tiles) and a ragged M
+# over 64-row tiles; K = 1040 ends in a ragged 64-deep chunk, N = 208 in a
+# ragged 64-column tile
+@pytest.mark.parametrize("xd,transposed,m", [
+    (torch.bfloat16, False, 16), (torch.bfloat16, True, 16),
+    (torch.bfloat16, False, 300), (torch.bfloat16, True, 300),
+    (torch.float32, True, 300), (torch.float32, False, 5),
+])
+def test_int8_matmul_kernel_matches_plain(dev, xd, transposed, m):
+    """K7 against its plain version: the same exact products summed in f32
+    in another order, then one rounding."""
+    from medplib_tpu_torch.ops.cuda import int8_matmul as I
+    gen = torch.Generator(device=dev).manual_seed(m + int(transposed))
+    k, n = 1040, 208
+    x = torch.randn((m, k), generator=gen, device=dev).to(xd)
+    w = torch.randint(-127, 128, (n, k) if transposed else (k, n),
+                      generator=gen, device=dev, dtype=torch.int8)
+    s = torch.rand((n, 1) if transposed else (1, n), generator=gen,
+                   device=dev) * 0.01 + 1e-3
+    n0 = I.int8_matmul_2d.launches
+    got = I.int8_matmul_2d(x, w, s, transposed)
+    want = I.int8_matmul_plain(x, w, s, transposed)
+    torch.cuda.synchronize()
+    assert I.int8_matmul_2d.launches == n0 + 1
+    assert got.dtype == xd and got.shape == (m, n)
+    wd = w.double() * s.double()
+    assert _sum_order_close(got, want, x, wd.t() if transposed else wd)
+
+
+@pytest.mark.parametrize("transposed,m,k", [(False, 300, 2048),
+                                            (True, 300, 2048),
+                                            (True, 16, 1040)])
+def test_w8a8_matmul_kernel_bit_equal_to_plain(dev, transposed, m, k):
+    """K8: exact s32 sums on both sides (above 2^24 at K = 2048 with |x|,
+    |w| near 127), the same rounded epilogue -> bit-equal."""
+    from medplib_tpu_torch.ops.cuda import int8_matmul as I
+    gen = torch.Generator(device=dev).manual_seed(k + m)
+    n = 208
+    x = (torch.rand((m, k), generator=gen, device=dev) * 27 + 100) \
+        * torch.randn((m, 1), generator=gen, device=dev)
+    w = torch.randint(100, 128, (n, k) if transposed else (k, n),
+                      generator=gen, device=dev, dtype=torch.int8)
+    s = torch.rand((n, 1) if transposed else (1, n), generator=gen,
+                   device=dev) * 0.01 + 1e-3
+    x = x.to(torch.bfloat16)
+    n0 = I.w8a8_matmul_2d.launches
+    got = (I.w8a8_matmul_t if transposed else I.w8a8_matmul)(x, w, s)
+    x_q, a_s = I.quantize_rows(x)
+    want = I.w8a8_matmul_plain(x_q, a_s, w, s, transposed, x.dtype)
+    torch.cuda.synchronize()
+    assert I.w8a8_matmul_2d.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+# (x dtype, transposed, groups, M); K = 1056 ends in a ragged chunk
+@pytest.mark.parametrize("xd,transposed,groups,m", [
+    (torch.bfloat16, False, 8, 12), (torch.bfloat16, True, 8, 12),
+    (torch.bfloat16, False, 8, 300), (torch.bfloat16, True, 2, 300),
+    (torch.float32, True, 8, 70), (torch.float32, False, 2, 70),
+])
+def test_int4h_matmul_kernel_matches_plain(dev, xd, transposed, groups, m):
+    """K9 against its plain version: the same f32 weights (nibble * group
+    scale) and products summed in f32 in another order."""
+    from medplib_tpu_torch.ops.cuda import int4_matmul as I
+    gen = torch.Generator(device=dev).manual_seed(m + groups)
+    k, n = 1056, 208
+    x = torch.randn((m, k), generator=gen, device=dev).to(xd)
+    packed = torch.randint(-128, 128, (n, k // 2) if transposed
+                           else (k // 2, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+    s = torch.rand((groups, n, 1) if transposed else (groups, 1, n),
+                   generator=gen, device=dev) * 0.01 + 1e-3
+    n0 = I.int4h_matmul_2d.launches
+    got = I.int4h_matmul_2d(x, packed, s, transposed)
+    want = I.int4h_matmul_plain(x, packed, s, transposed)
+    torch.cuda.synchronize()
+    assert I.int4h_matmul_2d.launches == n0 + 1
+    assert got.dtype == xd and got.shape == (m, n)
+    assert _sum_order_close(got, want, x,
+                            I.dequant_f32(packed, s, transposed))
