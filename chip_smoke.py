@@ -7,17 +7,20 @@
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from medplib_tpu_torch/csrc with nvcc.
 3. Kernel phases: each kernel at the shapes its main path gives it (K1,
-   K2 in A8 and bf16-x modes at the flagship serving shapes; K3 in W8A8
-   at the int8-expert flagship shapes, int8-w and float bf16 at the ICL
-   shapes, transposed at a small shape; K7 int8_matmul and K9 int4h_matmul
-   at the packed dense serving shapes, prefill and decode, both layouts;
-   K8 w8a8_matmul, on no path, at the dense W8A8 shapes; K4, K5, K6 at the
-   stage-3 training shape) against its plain PyTorch version on the same
-   card (TF32 off), with the tolerance stated; timed with CUDA events
-   beside the plain version, the least time the card could take
-   (bound_ms) and a library yardstick (SDPA for flash attention;
-   torch._grouped_mm or per-expert torch calls for K3; torch.matmul on a
-   bf16 weight dequantized beforehand for K7 / K9; torch._int_mm for K8).
+   K2 in A8 and bf16-x modes at the flagship serving shapes, K2 also at
+   B=80 rows; K3 in W8A8 at the int8-expert flagship shapes, int8-w and
+   float bf16 at the ICL shapes, transposed at a small shape; K7
+   int8_matmul and K9 int4h_matmul at the packed dense serving shapes,
+   prefill and decode, both layouts; K8 w8a8_matmul, on no path, at the
+   dense W8A8 shapes; K4, K5, K6 at the stage-3 training shape) against
+   its plain PyTorch version on the same card (TF32 off), with the
+   tolerance stated; timed with CUDA events beside the plain version, the
+   least time the card could take (bound_ms) and a library yardstick
+   (SDPA for flash attention; torch._grouped_mm or per-expert torch calls
+   for K3, per-expert torch._int_mm for K1; torch.matmul on a bf16 weight
+   dequantized beforehand for K7 / K9; torch._int_mm for K8). Then one
+   call per wrapper at odd widths (N = 320, K = 688) and a head_dim-256
+   prompt, which takes the plain attention.
 4. Small-input checks, card (kernels) against CPU (plain versions): the
    generate slice at a tiny width with int4h experts (K1, K2), with int8
    experts and the int8 KV cache (K3), and over a packed dense tree in
@@ -148,11 +151,15 @@ def k1_phase(gen, dev, results):
                 # the routed rows' products; bytes of every operand
                 bms, by = bound(nbytes(xin, packed, scale, tile_gid, a_s,
                                        got), 2 * s * k * n, INT8_OPS)
+                # yardstick: the integer products alone, on the nibbles
+                # widened to int8, as K3's W8A8 row
+                lib_ms, lib = _grouped_library_ms(
+                    xin, G.unpack_pairs(packed), tile_gid, bm)
                 results["gmm_int4h"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                    bound_by=by, library_ms=None)
-                log(f"[K1 gmm_int4h] bound {bms:.4f} ms ({by}), one "
-                    f"PyTorch call for the same function: none")
+                    bound_by=by, library_ms=lib_ms)
+                log(f"[K1 gmm_int4h] bound {bms:.4f} ms ({by}), {lib} on "
+                    f"the nibbles widened to int8 {lib_ms:.3f} ms")
 
 
 def k2_phase(gen, dev, results):
@@ -201,7 +208,25 @@ def k2_phase(gen, dev, results):
                 bound_by=by, library_ms=None)
             log(f"[K2 moe_ffn_decode_int4h] bound {bms:.4f} ms ({by}: "
                 f"{len(used)} experts' weights), one PyTorch call for the "
-                f"same function: none")
+                f"same function: none (no call routes rows to int4 "
+                f"experts and fuses gate / up, silu and down)")
+    # more than 64 rows: one launch per 64 rows
+    b = 80
+    x = (torch.randn((b, h), generator=gen, device=dev) * 0.5).to(
+        torch.bfloat16)
+    idx = torch.randint(0, e, (b,), generator=gen, device=dev).to(
+        torch.int32)
+    gate = torch.rand((b,), generator=gen, device=dev) * 0.5 + 0.5
+    n0 = D.moe_ffn_decode_int4h.launches
+    got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, True)
+    want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e, True)
+    torch.cuda.synchronize()
+    rel = rel_err(got, want)
+    launches = D.moe_ffn_decode_int4h.launches - n0
+    log(f"[K2 moe_ffn_decode_int4h A8] B={b}: {launches} launches, "
+        f"rel={rel:.3e} (rel Frobenius <= 1e-3)")
+    if rel > 1e-3 or launches != 2:
+        raise AssertionError("K2 at B=80 disagrees with plain")
 
 
 def _grouped_library_ms(xin, w, tile_gid, bm):
@@ -318,15 +343,15 @@ def sum_order_close(got, want, x, w_deq):
     sum_k |x w| each) + one rounding of the output dtype: the tolerance of
     a kernel whose f32 sums take another order than its plain version's
     (the bound is computed in f32, TF32 off). -> (ok, share of equal
-    elements)."""
+    elements, largest |got - want| / bound)."""
     import torch
     k = x.shape[-1]
     sums = x.float().abs() @ w_deq.float().abs()
     ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -23
     d = (got.float() - want.float()).abs()
-    ok = bool((d <= 2 * k * 2.0 ** -24 * sums + want.float().abs() * ulp)
-              .all())
-    return ok, float((got == want).float().mean())
+    tol = 2 * k * 2.0 ** -24 * sums + want.float().abs() * ulp
+    return bool((d <= tol).all()), float((got == want).float().mean()), \
+        float((d / tol).max())
 
 
 # K7 / K9 at the packed dense serving shapes: (case, M, K, N, transposed);
@@ -367,7 +392,7 @@ def k7_phase(gen, dev, results):
         torch.cuda.synchronize()
         w_deq = (w.float() * s).to(bf)              # the library's operand
         w_kn = w_deq.t() if trans else w_deq
-        ok, eq = sum_order_close(got, want, x, w_kn)
+        ok, eq, _ = sum_order_close(got, want, x, w_kn)
         err = float((got.float() - want.float()).abs().max())
         iters = 20 if m <= 16 else 5
         ms, pms, lib_ms = _time_three(
@@ -449,11 +474,12 @@ def k8_phase(gen, dev, results):
 
 
 def k9_phase(gen, dev, results):
-    """int4h_matmul (K9) against its plain version, TF32 off, bf16 x, at the
-    packed int4h serving shapes (K9_CASES: B=12), G = 8 scale groups.
-    Tolerance: the same f32 weights and products summed in f32 in another
-    order (sum_order_close). Yardstick: torch.matmul against the weight
-    dequantized to bf16 beforehand."""
+    """int4h_matmul (K9, bf16 x: the tensor-core kernel) against its plain
+    version, TF32 off, at the packed int4h serving shapes (K9_CASES:
+    B=12), G = 8 scale groups. Tolerance: the plain version's f32 sums in
+    another order plus one rounding per weight (sum_order_close; the
+    largest |got - want| / bound is printed). Yardstick: torch.matmul
+    against the weight dequantized to bf16 beforehand."""
     import torch
     from medplib_tpu_torch.ops.cuda import int4_matmul as I4
     bf, g = torch.bfloat16, 8
@@ -468,7 +494,7 @@ def k9_phase(gen, dev, results):
         want = I4.int4h_matmul_plain(x, packed, s, trans)
         torch.cuda.synchronize()
         w_kn = I4.dequant_f32(packed, s, trans).to(bf)    # [K, N]
-        ok, eq = sum_order_close(got, want, x, w_kn)
+        ok, eq, ratio = sum_order_close(got, want, x, w_kn)
         err = float((got.float() - want.float()).abs().max())
         ms, pms, lib_ms = _time_three(
             lambda: I4.int4h_matmul_2d(x, packed, s, trans),
@@ -478,9 +504,10 @@ def k9_phase(gen, dev, results):
                         BF16_FLOPS)
         log(f"[K9 int4h_matmul {case}{' transposed' if trans else ''}] "
             f"M={m} K={k} N={n} G={g}: max_abs_err={err:.3e}, "
-            f"{eq * 100:.4f}% equal (within the f32 sum-order bound: {ok}) "
-            f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
-            f"({by}), torch.matmul (bf16 weight) {lib_ms:.3f} ms")
+            f"{eq * 100:.4f}% equal (within the f32 sum-order bound: {ok}; "
+            f"largest error / bound {ratio:.4f}) kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {bms:.4f} ms ({by}), torch.matmul (bf16 "
+            f"weight) {lib_ms:.3f} ms ({ms / lib_ms:.2f}x)")
         if not ok:
             raise AssertionError(f"K9 {case} disagrees with plain")
         if case == "prefill gate-up":
@@ -489,6 +516,94 @@ def k9_phase(gen, dev, results):
                                            bound_by=by, library_ms=lib_ms)
         del x, packed, s, got, want, w_kn
     torch.cuda.empty_cache()
+
+
+def ragged_phase(gen, dev):
+    """One call per wrapper at widths no multiple of what the kernels' loads
+    take, against the plain versions: K7 / K8 / K3 at N = 320, K = 688
+    (padded by the wrappers), K9 bf16 and f32 x at the same widths (the
+    tensor-core kernel takes them as they are), K1 at N = 208, K = 768 (its
+    64-column tile; K / 2 % 128 == 0 as in the JAX kernel); then a
+    1024-token prompt with head_dim 256, which must take the plain
+    attention (the flash kernels take head_dim 128)."""
+    import torch
+    from medplib_tpu_torch.ops import attention as A
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    from medplib_tpu_torch.ops.cuda import int4_matmul as I4
+    from medplib_tpu_torch.ops.cuda import int8_matmul as I8
+    bf = torch.bfloat16
+    m, k, n = 300, 688, 320
+    x = torch.randn((m, k), generator=gen, device=dev).to(bf)
+    fails = []
+
+    def report(name, ok, detail):
+        log(f"[ragged {name}] {detail} (ok: {ok})")
+        if not ok:
+            fails.append(name)
+
+    for trans in (False, True):
+        w = torch.randint(-127, 128, (n, k) if trans else (k, n),
+                          generator=gen, device=dev, dtype=torch.int8)
+        sc = torch.rand((n, 1) if trans else (1, n), generator=gen,
+                        device=dev) * 0.01 + 1e-3
+        got = I8.int8_matmul_2d(x, w, sc, trans)
+        want = I8.int8_matmul_plain(x, w, sc, trans)
+        wd = w.float() * sc
+        ok, eq, _ = sum_order_close(got, want, x, wd.t() if trans else wd)
+        report(f"K7 trans={trans}", ok and got.shape == (m, n),
+               f"M={m} K={k} N={n}: {eq * 100:.2f}% equal")
+        xq, a_s = I8.quantize_rows(x)
+        got = I8.w8a8_matmul_2d(xq, a_s, w, sc, trans, bf)
+        want = I8.w8a8_matmul_plain(xq, a_s, w, sc, trans, bf)
+        report(f"K8 trans={trans}", torch.equal(got, want),
+               "bit-equal to plain")
+        packed = torch.randint(-128, 128, (n, k // 2) if trans
+                               else (k // 2, n), generator=gen, device=dev,
+                               dtype=torch.int8)
+        s4 = torch.rand((8, n, 1) if trans else (8, 1, n), generator=gen,
+                        device=dev) * 0.01 + 1e-3
+        for xd in (bf, torch.float32):
+            got = I4.int4h_matmul_2d(x.to(xd), packed, s4, trans)
+            want = I4.int4h_matmul_plain(x.to(xd), packed, s4, trans)
+            ok, eq, ratio = sum_order_close(got, want, x.to(xd),
+                                            I4.dequant_f32(packed, s4, trans))
+            report(f"K9 {xd} trans={trans}", ok and got.shape == (m, n),
+                   f"G=8: {eq * 100:.2f}% equal, error / bound {ratio:.4f}")
+    e, bm = 2, 64
+    idx = torch.randint(0, e, (m,), generator=gen, device=dev)
+    x_al, _, gid = G.align_groups(x, idx, e, bm)
+    w = torch.randint(-127, 128, (e, k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    ws = torch.rand((e, 1, n), generator=gen, device=dev) * 0.01 + 1e-3
+    xq, a_s = G.quantize_rows(x_al)
+    for mode, xin, aa in (("W8A8", xq, a_s), ("int8-w", x_al, None)):
+        got = G.gmm(xin, w, gid, ws, aa, bm)
+        want = G.gmm_plain(xin, w, gid, ws, aa, bm)
+        ok = within_one_bf16_ulp(got, want) if aa is not None else \
+            rel_err(got, want) <= 4e-3
+        report(f"K3 {mode}", ok and got.shape[1] == n, f"K={k} N={n}")
+    k1, n1 = 768, 208
+    packed, s1 = _random_int4h(gen, e, k1, n1, dev)
+    xs = torch.randn((m, k1), generator=gen, device=dev)
+    x_al, _, gid = G.align_groups(xs, idx, e, bm)
+    xq, a_s = G.quantize_rows(x_al)
+    got = G.gmm_int4h(xq, packed, s1, gid, a_s, bm)
+    want = G.gmm_int4h_plain(xq, packed, s1, gid, a_s, bm)
+    report("K1 A8", within_one_bf16_ulp(got, want) and got.shape[1] == n1,
+           f"K={k1} N={n1}: within one bf16 ulp")
+    q, kk, v = (torch.randn((1, 1024, 2, 256), generator=gen, device=dev)
+                for _ in range(3))
+    n0 = FA.flash_forward.launches
+    got = A.causal_attention(q, kk, v)
+    want = A._plain_attention(q, kk, v,
+                              A.make_causal_bias(None, 1024, 1024,
+                                                 device=dev))
+    torch.cuda.synchronize()
+    report("attention head_dim 256", FA.flash_forward.launches == n0 and
+           rel_err(got, want) <= 1e-6, "T=1024: plain path, no flash launch")
+    if fails:
+        raise AssertionError(f"ragged shapes disagree: {fails}")
 
 
 # peak rates of one H100 SXM (dense, NVIDIA's data sheet) for bound_ms
@@ -1369,6 +1484,7 @@ def main() -> int:
     k7_phase(gen, dev, results)
     k8_phase(gen, dev, results)
     k9_phase(gen, dev, results)
+    ragged_phase(gen, dev)
     flash_phase(gen, dev, results)
     torch.cuda.empty_cache()
     small_check(dev)

@@ -1,5 +1,6 @@
-// Shared tile routines of the dense matmul kernels (int8_matmul.cu: K7,
-// K8; int4_matmul.cu: K9).
+// Shared tile routines of the dense matmul kernels on the CUDA cores
+// (int8_matmul.cu: K7, K8; int4_matmul.cu: K9 on f32 x; K9 on bf16 x runs
+// on the tensor cores, mma_tile.cuh).
 //
 // A block of 256 threads computes a TM x 64 output tile (TM = 64 or 16)
 // over 64-deep reduction chunks staged in shared memory: the activation

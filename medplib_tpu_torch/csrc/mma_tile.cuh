@@ -1,0 +1,167 @@
+// Warp-level tensor-core building blocks of the dense matmul kernels
+// (int4_matmul.cu: K9 on bf16 x). A kernel adds only its B decode.
+//
+//   - cp.async copies (16 or 4 bytes, the rest zero-filled through the
+//     source-size operand) into a ring of pipeline stages in dynamic shared
+//     memory;
+//   - the bf16 A tile of a stage (ATileLoader): BM rows x kBK = 64
+//     logical k, 128 bytes a row, 16-byte chunk c of row r stored at chunk
+//     c ^ (r & 7), so the eight rows an ldmatrix phase reads sit in eight
+//     distinct bank groups;
+//   - ldmatrix.x4 A fragments and mma.sync m16n8k16 (bf16 x bf16 -> f32);
+//   - the int4 nibble -> bf16x2 B-register decode;
+//   - the epilogue store of eight neighbouring outputs of one row.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), lane = 4 g + t:
+//   A a0a1: row g, k 2t..2t+1; a2a3: row g+8; a4a5: row g, k 2t+8..;
+//     a6a7: row g+8, k 2t+8..
+//   B b0b1: k 2t..2t+1, column g; b2b3: k 2t+8..2t+9, column g
+//   C c0c1: row g, columns 2t..2t+1; c2c3: row g+8
+// In each .b32 register the lower half holds the lower index.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mmatile {
+
+constexpr int kBK = 64;         // logical k per pipeline stage
+constexpr int kARow = kBK * 2;  // bytes of one A-tile row (bf16)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// SIZE (16 or 4) bytes global -> shared; only src_bytes are read, the rest
+// of the destination is zero-filled (src_bytes = 0: all zeros).
+template <int SIZE>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  static_assert(SIZE == 16 || SIZE == 4, "cp.async size");
+  if constexpr (SIZE == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copies of the bf16 A tile of one stage: rows m0 .. m0 + BM of x [M,
+// lda], logical k0 .. k0 + 64; rows >= M and k >= K are zero. Each thread
+// copies one 16-byte chunk c of ITERS rows ROW_STEP apart; the addresses
+// are worked out once, so a stage costs a few adds a copy. lda % 8 == 0
+// and a 16-byte aligned x keep every copy aligned.
+template <int BM, int THREADS>
+struct ATileLoader {
+  static constexpr int ITERS = BM * 8 / THREADS;
+  static constexpr int ROW_STEP = THREADS / 8;
+  static_assert(BM * 8 % THREADS == 0 && ROW_STEP % 8 == 0, "A tile copies");
+  const char* src;  // the thread's first row at its chunk, k0 = 0
+  size_t step;      // bytes between its rows
+  int dst, kc, rows;  // smem offset, logical k of its chunk, rows < M
+
+  __device__ ATileLoader(const __nv_bfloat16* x, int lda, int M, int m0) {
+    const int r = threadIdx.x >> 3, c = threadIdx.x & 7;
+    kc = 8 * c;
+    dst = r * kARow + ((c ^ (r & 7)) << 4);
+    rows = min(ITERS, max(0, (M - m0 - r + ROW_STEP - 1) / ROW_STEP));
+    src = reinterpret_cast<const char*>(x + (size_t)(m0 + r) * lda + kc);
+    step = (size_t)ROW_STEP * lda * 2;
+  }
+
+  __device__ __forceinline__ void load(char* tile, const void* x, int K,
+                                       int k0) const {
+    const int left = K - k0 - kc;
+    const int bytes = left >= 8 ? 16 : left > 0 ? 2 * left : 0;
+#pragma unroll
+    for (int i = 0; i < ITERS; ++i) {
+      const bool ok = i < rows && bytes > 0;
+      cp_async<16>(tile + dst + i * ROW_STEP * kARow,
+                   ok ? src + i * step + 2 * (size_t)k0 : x, ok ? bytes : 0);
+    }
+  }
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The lane's ldmatrix.x4 offset in an A tile for the 16-row m-tile at
+// tile rows r0 (a multiple of 8), k-step s (logical k 16 s .. 16 s + 16 of
+// the stage): lanes 0-15 address rows r0 + 0..15 of chunk 2 s, lanes 16-31
+// the same rows of chunk 2 s + 1.
+__device__ __forceinline__ uint32_t a_frag_offset(int r0, int s) {
+  const int lane = threadIdx.x & 31;
+  const int r = r0 + (lane & 15), c = 2 * s + (lane >> 4);
+  return r * kARow + ((c ^ (lane & 7)) << 4);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two packed int4h bytes -> the two bf16x2 registers of a B fragment: bits
+// 0-7 hold the pair (k, k+1) (low nibble k), bits 8-15 the pair (k+8,
+// k+9); higher bits are ignored. A two's-complement nibble u becomes the
+// bf16 0x4300 | (u ^ 8) = 128 + (u ^ 8) = 136 + nibble, and 136 is
+// subtracted: exact, no int -> float conversion. The low nibbles (and the
+// high ones) of both bytes are masked and flipped in one op, beside two
+// 0x43 bytes, and two byte permutes pair each byte's nibbles.
+__device__ __forceinline__ void nibbles_to_bf16x2(uint32_t two, uint32_t& b0,
+                                                  uint32_t& b1) {
+  const uint32_t lo = (two & 0x0F0Fu) ^ 0x43430808u;         // l0 l1 43 43
+  const uint32_t hi = ((two >> 4) & 0x0F0Fu) ^ 0x43430808u;  // h0 h1 43 43
+  uint32_t v0 = __byte_perm(lo, hi, 0x6420);  // (l0, 43, h0, 43)
+  uint32_t v1 = __byte_perm(lo, hi, 0x7531);  // (l1, 43, h1, 43)
+  const uint32_t k136 = 0x43084308u;          // bf16x2 (136, 136)
+  const __nv_bfloat162 bias = *reinterpret_cast<const __nv_bfloat162*>(&k136);
+  __nv_bfloat162 r0 =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v0), bias);
+  __nv_bfloat162 r1 =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v1), bias);
+  b0 = *reinterpret_cast<uint32_t*>(&r0);
+  b1 = *reinterpret_cast<uint32_t*>(&r1);
+}
+
+// Eight f32 outputs of row `row`, columns col0 .. col0 + 8, rounded to bf16:
+// one 16-byte store where the row is whole and aligned, else guarded
+// element stores.
+__device__ __forceinline__ void store_row8_bf16(__nv_bfloat16* out, int row,
+                                                int col0, int N,
+                                                const float (&v)[8]) {
+  __nv_bfloat16* o = out + (size_t)row * N + col0;
+  if ((N & 7) == 0 && col0 + 8 <= N) {
+    __nv_bfloat162 h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(h);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (col0 + i < N) o[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+}  // namespace mmatile

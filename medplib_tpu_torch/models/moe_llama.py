@@ -112,7 +112,7 @@ def stack_experts_for_gmm(experts: Params, moe_cfg: MoeConfig, s_tokens: int,
 
 
 def make_moe_mlp_apply(cfg: LlamaConfig, moe_cfg: MoeConfig,
-                       train: bool = False, stacked: bool = False,
+                       train: bool = True, stacked: bool = False,
                        block_m: int = 512):
     flags = moe_flags(cfg, moe_cfg)
     if not bool(np.all(flags == 1)):
@@ -129,7 +129,7 @@ def make_moe_mlp_apply(cfg: LlamaConfig, moe_cfg: MoeConfig,
 
 def forward(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
             input_embeds, attn_mask=None, positions=None, cache=None,
-            train: bool = False):
+            train: bool = True):
     """-> (hidden_post_norm, cache, router_aux_loss_sum)."""
     b, t = input_embeds.shape[:2]
     stacked = stack_experts_for_gmm(params["layers"]["moe"]["experts"],
@@ -150,6 +150,6 @@ def forward_decode(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
              and experts["gate_proj"]["scale4h"].shape[-3] == 2)
     stacked = int4h and stack_experts_for_gmm(
         experts, moe_cfg, input_embeds.shape[0], train=False, decode=True)
-    mlp_apply = make_moe_mlp_apply(cfg, moe_cfg, False, stacked,
+    mlp_apply = make_moe_mlp_apply(cfg, moe_cfg, train=False, stacked=stacked,
                                    block_m=32 if stacked else 512)
     return llama.forward_decode(params, cfg, input_embeds, cache, mlp_apply)

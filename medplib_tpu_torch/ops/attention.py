@@ -13,6 +13,9 @@ from typing import Optional
 
 import torch
 
+from medplib_tpu_torch.ops.cuda.flash_attention import (HEAD_DIM,
+                                                        flash_attention)
+
 NEG_INF = -2.3819763e38  # ~ -max bf16, the JAX package's mask value
 
 
@@ -59,15 +62,15 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Prefill attention. q [B, T, H, D]; k, v [B, S, KV, D] with S >= T;
     attn_mask optional [B, S] 1=keep.
 
-    As in the JAX package, prompts of >= 1024 tokens with head_dim % 128
-    == 0 on the accelerator (here: a CUDA tensor) take flash attention
-    (ops/cuda/flash_attention.py, kernels K4-K6); everything else takes the
-    plain path."""
+    As in the JAX package, prompts of >= 1024 tokens on the accelerator
+    (here: a CUDA tensor) take flash attention (ops/cuda/flash_attention.py,
+    kernels K4-K6) where the kernels run: head_dim HEAD_DIM (128).
+    Everything else, other head sizes included, takes the plain path, which
+    computes the same function."""
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
-    if q.is_cuda and q.shape[1] >= 1024 and q.shape[-1] % 128 == 0:
-        from medplib_tpu_torch.ops.cuda.flash_attention import flash_attention
+    if q.is_cuda and q.shape[1] >= 1024 and q.shape[-1] == HEAD_DIM:
         return flash_attention(q, k, v, attn_mask=attn_mask, causal=True)
     bias = make_causal_bias(attn_mask, q.shape[1], k.shape[1],
                             device=q.device)

@@ -71,7 +71,7 @@ def _declare(lib):
     lib.int8_matmul_launch.restype = i
     lib.w8a8_matmul_launch.argtypes = [vp] * 5 + [i] * 5 + [vp]
     lib.w8a8_matmul_launch.restype = i
-    lib.int4h_matmul_launch.argtypes = [vp] * 4 + [i] * 6 + [vp]
+    lib.int4h_matmul_launch.argtypes = [vp] * 4 + [i] * 9 + [vp]
     lib.int4h_matmul_launch.restype = i
     return lib
 

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from medplib_tpu_torch.ops.cuda.pad import pad_operands
+
 
 def quantize_rows(x: torch.Tensor):
     """Per-row symmetric int8 activation quant: [..., K] -> (int8 [..., K],
@@ -181,8 +183,8 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_gid: torch.Tensor,
     with `transposed` (w_scale still channel-last); tile_gid [Sp // block_m]
     int32. -> [Sp, N] in out_dtype (default bf16 for int8 x, else x.dtype).
     block_n, block_k and allow_pad are the TPU kernel's tiling knobs: they
-    are accepted and change nothing (the card's kernel needs no K / N
-    padding copies)."""
+    are accepted and change nothing (the card's kernel zero-pads K and N to
+    multiples of 16 only where they are not: ops/cuda/pad.py)."""
     sp, k = x.shape
     e, kw, n = (w.shape[0], w.shape[2], w.shape[1]) if transposed \
         else tuple(w.shape)
@@ -208,10 +210,9 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_gid: torch.Tensor,
 
     from medplib_tpu_torch.ops.cuda._build import check, load_library
     dev = x.device
-    if k % 16 or n % 16 or block_m % 16:
-        raise ValueError(f"the CUDA kernel needs K % 16 == 0, N % 16 == 0 "
-                         f"and block_m % 16 == 0 (K={k}, N={n}, "
-                         f"block_m={block_m})")
+    if block_m % 16:
+        raise ValueError(f"the CUDA kernel needs block_m % 16 == 0 "
+                         f"(block_m={block_m})")
     if x.dtype not in _KERNEL_DTYPES or w.dtype not in _KERNEL_DTYPES \
             or out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the CUDA kernel takes int8 / bf16 / f32 operands "
@@ -226,21 +227,24 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_gid: torch.Tensor,
         _check_cuda("w_scale", ws, torch.float32, (e, 1, n), dev)
     if a_s is not None:
         _check_cuda("a_scale", a_s, torch.float32, (sp, 1), dev)
-    out = torch.empty((sp, n), device=dev, dtype=out_dtype)
-    if sp == 0 or n == 0:
-        return out
-    lib = load_library()
-    err = lib.gmm_launch(
-        x.data_ptr(), w.data_ptr(), tile_gid.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
-        a_s.data_ptr() if a_s is not None else None, out.data_ptr(),
-        sp, k, n, block_m, 64 if block_m % 64 == 0 else 16,
-        _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[w.dtype], int(transposed),
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "gmm")
-    gmm.launches += 1
-    return out
+    # the kernel's 16-byte loads want K % 16 == 0 and N % 16 == 0
+    kn = (2, 1) if transposed else (1, 2)
+    x, w, ws = pad_operands(x, w, ws, 16, 16, *kn)
+    n_run = w.shape[kn[1]]
+    out = torch.empty((sp, n_run), device=dev, dtype=out_dtype)
+    if sp and n:
+        lib = load_library()
+        err = lib.gmm_launch(
+            x.data_ptr(), w.data_ptr(), tile_gid.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            a_s.data_ptr() if a_s is not None else None, out.data_ptr(),
+            sp, x.shape[1], n_run, block_m, 64 if block_m % 64 == 0 else 16,
+            _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[w.dtype],
+            int(transposed), int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+        check(err, "gmm")
+        gmm.launches += 1
+    return out if n_run == n else out[:, :n].contiguous()
 
 
 gmm.launches = 0
@@ -276,9 +280,9 @@ def gmm_int4h(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
     from medplib_tpu_torch.ops.cuda._build import check, load_library
     dev = x.device
-    if n % 64 or block_m % 16:
-        raise ValueError(f"the CUDA kernel needs N % 64 == 0 and "
-                         f"block_m % 16 == 0 (N={n}, block_m={block_m})")
+    if block_m % 16:
+        raise ValueError(f"the CUDA kernel needs block_m % 16 == 0 "
+                         f"(block_m={block_m})")
     xk = x if int8_x else x.to(torch.bfloat16)
     _check_cuda("x", xk, xk.dtype, (sp, k), dev)
     _check_cuda("packed", packed, torch.int8, (e, k2, n), dev)
@@ -286,17 +290,22 @@ def gmm_int4h(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     _check_cuda("tile_gid", tile_gid, torch.int32, (sp // block_m,), dev)
     if int8_x:
         _check_cuda("a_scale", a_scale, torch.float32, (sp, 1), dev)
-    out = torch.empty((sp, n), device=dev,
+    # the kernel's tiles are 64 columns wide and unguarded: N % 64 == 0
+    xk, pk, sk = pad_operands(xk, packed, scale, 1, 64, 1, 2)
+    n_run = pk.shape[2]
+    out = torch.empty((sp, n_run), device=dev,
                       dtype=torch.bfloat16 if int8_x else torch.float32)
     tm = 64 if block_m % 64 == 0 else 32 if block_m % 32 == 0 else 16
     lib = load_library()
     err = lib.gmm_int4h_launch(
-        xk.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+        xk.data_ptr(), pk.data_ptr(), sk.data_ptr(),
         tile_gid.data_ptr(), a_scale.data_ptr() if int8_x else None,
-        out.data_ptr(), sp, k, n, block_m, tm, int(int8_x),
+        out.data_ptr(), sp, k, n_run, block_m, tm, int(int8_x),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "gmm_int4h")
     gmm_int4h.launches += 1
+    if n_run != n:
+        out = out[:, :n].contiguous()
     return out if int8_x else out.to(x.dtype)
 
 

@@ -5,10 +5,14 @@ Counterpart of medplib_tpu/ops/pallas/int4_matmul.py: `int4h_matmul` /
 `int4h_matmul_t` (`int4h_matmul_pallas` / `int4h_matmul_t_pallas` there),
 y = x @ dequant(w): each weight is its sign-extended nibble times its
 group's f32 scale (in f32), the products summed in f32, one cast to x's
-dtype. The CUDA kernel is csrc/int4_matmul.cu. Reached by the packed
-`qkv_proj` / `gateup_proj` kernels of an int4h pack_inference tree
-(models/llama.py); the other 2D int4h linears take the grouped products
-of utils/quantize.int4h_matmul, as in the JAX package.
+dtype. The CUDA kernels are in csrc/int4_matmul.cu: on bf16 x (the serving
+dtype) a tensor-core kernel that sums x * nibble per group in f32 and
+scales each group's sum (the same f32 sums in another order, one rounding
+per weight fewer); on f32 x an f32-FMA kernel that scales the weight, as
+the plain version. Reached by the packed `qkv_proj` / `gateup_proj`
+kernels of an int4h pack_inference tree (models/llama.py); the other 2D
+int4h linears take the grouped products of utils/quantize.int4h_matmul,
+as in the JAX package.
 
 Layouts (utils/quantize._quantize_kernel4h): packed [K/2, N] + scale
 [G, 1, N], or transposed packed [N, K/2] + scale [G, N, 1]. On a CPU tensor
@@ -21,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from medplib_tpu_torch.ops.cuda.gmm import _check_cuda, unpack_pairs
+from medplib_tpu_torch.ops.cuda.pad import pad_operands
 
 _X_DTYPES = {torch.bfloat16: 1, torch.float32: 2}
 
@@ -79,24 +84,36 @@ def int4h_matmul_2d(x2d: torch.Tensor, packed: torch.Tensor,
     if x2d.dtype not in _X_DTYPES:
         raise TypeError(f"int4h_matmul: the CUDA kernel takes bf16 or f32 "
                         f"x, got {x2d.dtype}")
-    if k % 32 or n % 16:
-        raise ValueError(f"int4h_matmul: the CUDA kernel needs K % 32 == 0 "
-                         f"and N % 16 == 0 (K={k}, N={n})")
     dev = x2d.device
-    _check_cuda("x", x2d, x2d.dtype, (m, k), dev)
-    _check_cuda("packed", packed, torch.int8, tuple(packed.shape), dev)
-    _check_cuda("scale", scale, torch.float32, tuple(scale.shape), dev)
-    out = torch.empty((m, n), device=dev, dtype=x2d.dtype)
-    if m == 0:
-        return out
-    lib = load_library()
-    err = lib.int4h_matmul_launch(
-        x2d.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        m, k, n, g, _X_DTYPES[x2d.dtype], int(transposed),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "int4h_matmul")
-    int4h_matmul_2d.launches += 1
-    return out
+    for name, t, dt in (("x", x2d, x2d.dtype), ("packed", packed, torch.int8),
+                        ("scale", scale, torch.float32)):
+        _check_cuda(name, t, dt, tuple(t.shape), dev)
+    gsize = k // g                   # the group map of the unpadded K
+    kn = (1, 0) if transposed else (0, 1)
+    if x2d.dtype == torch.bfloat16:
+        # the tensor-core kernel takes any M, N and K itself; its copies
+        # want 16-byte x rows (K % 8) and 4-byte weight rows, so only such
+        # odd widths are padded (x and the weight, scale stays)
+        xk, pk, _ = pad_operands(x2d, packed, None, 8,
+                                 1 if transposed else 4, *kn, k_per_w_row=2)
+        sk, n_run, k_run = scale, n, k
+    else:
+        # the f32-FMA kernel needs K % 32 and N % 16
+        xk, pk, sk = pad_operands(x2d, packed, scale, 32, 16, *kn,
+                                  scale_n_dim=1 if transposed else 2,
+                                  k_per_w_row=2)
+        n_run, k_run = pk.shape[kn[1]], xk.shape[1]
+    out = torch.empty((m, n_run), device=dev, dtype=x2d.dtype)
+    if m:
+        lib = load_library()
+        err = lib.int4h_matmul_launch(
+            xk.data_ptr(), pk.data_ptr(), sk.data_ptr(), out.data_ptr(),
+            m, n_run, k_run, xk.shape[1], pk.shape[1], g, gsize,
+            _X_DTYPES[x2d.dtype], int(transposed),
+            torch.cuda.current_stream(dev).cuda_stream)
+        check(err, "int4h_matmul")
+        int4h_matmul_2d.launches += 1
+    return out if n_run == n else out[:, :n].contiguous()
 
 
 int4h_matmul_2d.launches = 0

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from medplib_tpu_torch.ops.cuda.gmm import _check_cuda, quantize_rows
+from medplib_tpu_torch.ops.cuda.pad import pad_operands
 
 _X_DTYPES = {torch.bfloat16: 1, torch.float32: 2}
 
@@ -56,13 +57,15 @@ def int8_matmul_plain(x2d: torch.Tensor, w: torch.Tensor,
     return y.to(x2d.dtype)
 
 
-def _check_weights(name, w, scale, k, n, dev):
-    """The CUDA kernels' weight checks."""
-    if k % 16 or n % 16:
-        raise ValueError(f"{name}: the CUDA kernel needs K % 16 == 0 and "
-                         f"N % 16 == 0 (K={k}, N={n})")
-    _check_cuda("w", w, torch.int8, tuple(w.shape), dev)
-    _check_cuda("scale", scale, torch.float32, tuple(scale.shape), dev)
+def _padded(x, w, scale, transposed):
+    """The CUDA kernels' weight checks, then x, w and scale zero-padded to
+    K % 16 == 0 and N % 16 == 0 (the kernels' 16-byte loads) -> (x, w,
+    scale, padded N)."""
+    _check_cuda("w", w, torch.int8, tuple(w.shape), x.device)
+    _check_cuda("scale", scale, torch.float32, tuple(scale.shape), x.device)
+    kn = (1, 0) if transposed else (0, 1)
+    x, w, scale = pad_operands(x, w, scale, 16, 16, *kn, scale_n_dim=kn[1])
+    return x, w, scale, w.shape[kn[1]]
 
 
 def int8_matmul_2d(x2d: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -78,20 +81,19 @@ def int8_matmul_2d(x2d: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if x2d.dtype not in _X_DTYPES:
         raise TypeError(f"int8_matmul: the CUDA kernel takes bf16 or f32 x, "
                         f"got {x2d.dtype}")
-    _check_weights("int8_matmul", w, scale, k, n, x2d.device)
     dev = x2d.device
     _check_cuda("x", x2d, x2d.dtype, (m, k), dev)
-    out = torch.empty((m, n), device=dev, dtype=x2d.dtype)
-    if m == 0:
-        return out
-    lib = load_library()
-    err = lib.int8_matmul_launch(
-        x2d.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k,
-        n, _X_DTYPES[x2d.dtype], int(transposed),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "int8_matmul")
-    int8_matmul_2d.launches += 1
-    return out
+    xk, wk, sk, n_run = _padded(x2d, w, scale, transposed)
+    out = torch.empty((m, n_run), device=dev, dtype=x2d.dtype)
+    if m:
+        lib = load_library()
+        err = lib.int8_matmul_launch(
+            xk.data_ptr(), wk.data_ptr(), sk.data_ptr(), out.data_ptr(), m,
+            xk.shape[1], n_run, _X_DTYPES[x2d.dtype], int(transposed),
+            torch.cuda.current_stream(dev).cuda_stream)
+        check(err, "int8_matmul")
+        int8_matmul_2d.launches += 1
+    return out if n_run == n else out[:, :n].contiguous()
 
 
 int8_matmul_2d.launches = 0
@@ -148,21 +150,20 @@ def w8a8_matmul_2d(x_q: torch.Tensor, a_scale: torch.Tensor,
     if out_dtype not in _X_DTYPES:
         raise TypeError(f"w8a8_matmul: the CUDA kernel writes bf16 or f32, "
                         f"not {out_dtype}")
-    _check_weights("w8a8_matmul", w, scale, k, n, x_q.device)
     dev = x_q.device
     _check_cuda("x_q", x_q, torch.int8, (m, k), dev)
     _check_cuda("a_scale", a_scale, torch.float32, (m, 1), dev)
-    out = torch.empty((m, n), device=dev, dtype=out_dtype)
-    if m == 0:
-        return out
-    lib = load_library()
-    err = lib.w8a8_matmul_launch(
-        x_q.data_ptr(), a_scale.data_ptr(), w.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), m, k, n, _X_DTYPES[out_dtype], int(transposed),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "w8a8_matmul")
-    w8a8_matmul_2d.launches += 1
-    return out
+    xk, wk, sk, n_run = _padded(x_q, w, scale, transposed)
+    out = torch.empty((m, n_run), device=dev, dtype=out_dtype)
+    if m:
+        lib = load_library()
+        err = lib.w8a8_matmul_launch(
+            xk.data_ptr(), a_scale.data_ptr(), wk.data_ptr(), sk.data_ptr(),
+            out.data_ptr(), m, xk.shape[1], n_run, _X_DTYPES[out_dtype],
+            int(transposed), torch.cuda.current_stream(dev).cuda_stream)
+        check(err, "w8a8_matmul")
+        w8a8_matmul_2d.launches += 1
+    return out if n_run == n else out[:, :n].contiguous()
 
 
 w8a8_matmul_2d.launches = 0

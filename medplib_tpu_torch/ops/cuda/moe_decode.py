@@ -127,7 +127,12 @@ def moe_ffn_decode_int4h(x: torch.Tensor, experts, route_idx: torch.Tensor,
     m = gp["kernel"].shape[-1]
     bn = _pick_bn(m // 2)
     if b > 64:
-        raise ValueError(f"the decode kernel takes at most 64 rows, got {b}")
+        # the kernel takes at most 64 rows; rows are independent (the act
+        # quant is per row and per bn block), so launch once per 64 rows
+        return torch.cat([
+            moe_ffn_decode_int4h(x[i:i + 64], experts, route_idx[i:i + 64],
+                                 route_gate[i:i + 64], num_experts, int8_x)
+            for i in range(0, b, 64)])
     bp = 16 if b <= 16 else 32 if b <= 32 else 64
     if int8_x:
         xk, xs = quantize_rows(x)

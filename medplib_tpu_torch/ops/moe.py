@@ -192,7 +192,7 @@ def _expert_mm(node, xin: torch.Tensor) -> torch.Tensor:
     return torch.bmm(xin, dequant_kernel(node, xin.dtype))
 
 
-def moe_mlp(moe_params, x: torch.Tensor, cfg: MoeConfig, train: bool = False,
+def moe_mlp(moe_params, x: torch.Tensor, cfg: MoeConfig, train: bool = True,
             dispatch_mode: str = "auto", block_m: int = 512,
             stacked: bool = False):
     """SwiGLU MoE MLP of one layer.

@@ -224,8 +224,8 @@ def test_moe_mlp_gmm_int8_and_float_experts(bits, actq, stacked):
            "experts": convert.tree_from_numpy(view, device="cpu")}
     with tq.dynamic_act_quant(actq):
         got, aux_t = tmoe.moe_mlp(tmp, _t(x), tc.MoeConfig(
-            enable=True, num_experts=E, top_k=1), dispatch_mode="gmm",
-            stacked=stacked)
+            enable=True, num_experts=E, top_k=1), train=False,
+            dispatch_mode="gmm", stacked=stacked)
     np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-5)
     tol = 1e-3 if (actq and bits == 8) else 1e-4
     assert _rel(got.numpy(), want) < tol

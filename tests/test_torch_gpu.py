@@ -52,11 +52,12 @@ def test_gmm_int4h_kernel_matches_plain(dev, block_m, a8):
         assert float((got - want).norm() / want.norm()) < 1e-5
 
 
-@pytest.mark.parametrize("b", [16, 5, 40])
+@pytest.mark.parametrize("b", [16, 5, 40, 80])
 @pytest.mark.parametrize("a8", [True, False])
 def test_moe_decode_kernel_matches_plain(dev, b, a8):
     """Same op order on both sides; exp() may differ in its last bit and
-    flip a rare act-quant / bf16 rounding by one step: rel 1e-3."""
+    flip a rare act-quant / bf16 rounding by one step: rel 1e-3. More
+    than 64 rows launch once per 64."""
     from medplib_tpu_torch.ops.cuda import moe_decode as D
     gen = torch.Generator(device=dev).manual_seed(b)
     e, h, m = 2, 512, 1536
@@ -69,9 +70,11 @@ def test_moe_decode_kernel_matches_plain(dev, b, a8):
         torch.bfloat16)
     idx = torch.randint(0, e, (b,), generator=gen, device=dev)
     gate = torch.rand((b,), generator=gen, device=dev)
+    n0 = D.moe_ffn_decode_int4h.launches
     got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, a8)
     want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e, a8)
     torch.cuda.synchronize()
+    assert D.moe_ffn_decode_int4h.launches == n0 + (b + 63) // 64
     assert got.shape == (b, h) and got.dtype == torch.bfloat16
     assert float((got.float() - want.float()).norm()
                  / want.float().norm()) < 1e-3
@@ -97,6 +100,25 @@ def test_long_prompt_attention_takes_flash(dev):
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).norm()
                  / want.float().norm()) < 1e-2
+
+
+def test_long_prompt_head_dim_256_takes_plain_attention(dev):
+    """A 1024-token prompt with head_dim 256 on the card: the flash kernels
+    take head_dim 128 only, so it takes the plain attention (no launch),
+    equal to the same function on the CPU (f32: rel 1e-5)."""
+    from medplib_tpu_torch.ops import attention as A
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((1, 1024, 2, 256), generator=gen)
+               for _ in range(3))
+    mask = torch.ones((1, 1024), dtype=torch.int32)
+    mask[0, 1000:] = 0
+    n0 = FA.flash_forward.launches
+    got = A.causal_attention(q.to(dev), k.to(dev), v.to(dev), mask.to(dev))
+    torch.cuda.synchronize()
+    assert FA.flash_forward.launches == n0
+    want = A.causal_attention(q, k, v, mask)
+    assert float((got.cpu() - want).norm() / want.norm()) < 1e-5
 
 
 @pytest.mark.parametrize("t,s,dtype", [(70, 70, torch.float32),
@@ -305,18 +327,39 @@ def test_w8a8_matmul_kernel_bit_equal_to_plain(dev, transposed, m, k):
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
-# (x dtype, transposed, groups, M); K = 1056 ends in a ragged chunk
-@pytest.mark.parametrize("xd,transposed,groups,m", [
-    (torch.bfloat16, False, 8, 12), (torch.bfloat16, True, 8, 12),
-    (torch.bfloat16, False, 8, 300), (torch.bfloat16, True, 2, 300),
-    (torch.float32, True, 8, 70), (torch.float32, False, 2, 70),
+# (x dtype, transposed, groups, M, K, N). K = 1056 at G = 8: 132-deep
+# groups, ends off the 16-deep mma steps; K = 688, N = 320: ragged K and
+# N (86-deep groups, a transposed row of 344 bytes); K = 1028, N = 98:
+# the widths the wrapper pads for the kernel's copies (x rows to K % 8, a
+# normal weight row to N % 4); M = 12 takes the decode tile, 7476 is the
+# prefill M
+@pytest.mark.parametrize("xd,transposed,groups,m,k,n", [
+    (torch.bfloat16, False, 8, 12, 1056, 208),
+    (torch.bfloat16, True, 8, 12, 1056, 208),
+    (torch.bfloat16, False, 8, 300, 1056, 208),
+    (torch.bfloat16, True, 2, 300, 1056, 208),
+    (torch.float32, True, 8, 70, 1056, 208),
+    (torch.float32, False, 2, 70, 1056, 208),
+    (torch.bfloat16, True, 8, 300, 1056, 208),
+    (torch.bfloat16, False, 8, 7476, 1056, 208),
+    (torch.bfloat16, True, 8, 7476, 1056, 208),
+    (torch.bfloat16, False, 8, 12, 688, 320),
+    (torch.bfloat16, True, 8, 12, 688, 320),
+    (torch.bfloat16, False, 8, 300, 688, 320),
+    (torch.bfloat16, True, 8, 300, 688, 320),
+    (torch.float32, False, 8, 70, 688, 320),
+    (torch.float32, True, 8, 70, 688, 320),
+    (torch.bfloat16, False, 2, 300, 1028, 98),
+    (torch.bfloat16, True, 2, 300, 1028, 98),
 ])
-def test_int4h_matmul_kernel_matches_plain(dev, xd, transposed, groups, m):
-    """K9 against its plain version: the same f32 weights (nibble * group
-    scale) and products summed in f32 in another order."""
+def test_int4h_matmul_kernel_matches_plain(dev, xd, transposed, groups, m,
+                                           k, n):
+    """K9 against its plain version: bf16 x on the tensor cores (group
+    sums scaled at each group end), f32 x on the FMA kernel (nibble *
+    group scale before the product); either way the f32 sums of the plain
+    version in another order, plus one rounding per weight."""
     from medplib_tpu_torch.ops.cuda import int4_matmul as I
-    gen = torch.Generator(device=dev).manual_seed(m + groups)
-    k, n = 1056, 208
+    gen = torch.Generator(device=dev).manual_seed(m + groups + k)
     x = torch.randn((m, k), generator=gen, device=dev).to(xd)
     packed = torch.randint(-128, 128, (n, k // 2) if transposed
                            else (k // 2, n), generator=gen, device=dev,
@@ -331,3 +374,90 @@ def test_int4h_matmul_kernel_matches_plain(dev, xd, transposed, groups, m):
     assert got.dtype == xd and got.shape == (m, n)
     assert _sum_order_close(got, want, x,
                             I.dequant_f32(packed, s, transposed))
+
+
+# ragged widths the CUDA wrappers pad (K7, K8, K3) or take as they are
+# (K9, above); K1 needs K / 2 % 128 == 0 (as the JAX kernel), so K = 768,
+# with N = 320 and N = 208 (no multiple of its 64-column tile)
+@pytest.mark.parametrize("kernel,transposed", [
+    ("int8_matmul", False), ("int8_matmul", True), ("w8a8_matmul", False),
+    ("w8a8_matmul", True), ("gmm W8A8", False), ("gmm int8-w", True),
+    ("gmm float", False), ("gmm_int4h A8 320", False),
+    ("gmm_int4h bf16 208", False), ("gmm_int4h A8 208", False),
+])
+def test_ragged_widths_match_plain(dev, kernel, transposed):
+    """N = 320, K = 688 (K1: K = 768) on the card against the plain
+    versions on the same operands, with the kernel tests' tolerances."""
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    from medplib_tpu_torch.ops.cuda import int8_matmul as I
+    gen = torch.Generator(device=dev).manual_seed(len(kernel) + transposed)
+    k, n, m = 688, 320, 300
+    if kernel.startswith("gmm"):
+        e, bm = 2, 64
+        if kernel.startswith("gmm_int4h"):
+            k, n = 768, int(kernel.split()[-1])
+        xs = torch.randn((m, k), generator=gen, device=dev)
+        idx = torch.randint(0, e, (m,), generator=gen, device=dev)
+        x_al, _, gid = G.align_groups(xs, idx, e, bm)
+        if kernel.startswith("gmm_int4h"):
+            packed, scale = _int4h(gen, e, k, n, dev)
+            a8 = " A8 " in kernel
+            xin, a_s = G.quantize_rows(x_al) if a8 else (x_al, None)
+            fn, args = G.gmm_int4h, (xin, packed, scale, gid, a_s, bm)
+            plain, exact = G.gmm_int4h_plain, a8
+        else:
+            mode = kernel.split()[1]
+            wshape = (e, n, k) if transposed else (e, k, n)
+            ws = a_s = None
+            if mode == "float":
+                w = (torch.randn(wshape, generator=gen, device=dev)
+                     * k ** -0.5).to(torch.bfloat16)
+                x_al = x_al.to(torch.bfloat16)
+            else:
+                w = torch.randint(-127, 128, wshape, generator=gen,
+                                  device=dev, dtype=torch.int8)
+                ws = torch.rand((e, 1, n), generator=gen, device=dev) \
+                    * 0.01 + 1e-3
+                x_al = x_al.to(torch.bfloat16)
+            if mode == "W8A8":
+                x_al, a_s = G.quantize_rows(x_al)
+            fn, plain = G.gmm, G.gmm_plain
+            args = (x_al, w, gid, ws, a_s, bm)
+            exact = mode == "W8A8"
+        n0 = fn.launches
+        got = fn(*args) if fn is G.gmm_int4h else fn(*args,
+                                                      transposed=transposed)
+        want = plain(*args) if fn is G.gmm_int4h else plain(
+            *args, transposed=transposed)
+    else:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randint(-127, 128, (n, k) if transposed else (k, n),
+                          generator=gen, device=dev, dtype=torch.int8)
+        s = torch.rand((n, 1) if transposed else (1, n), generator=gen,
+                       device=dev) * 0.01 + 1e-3
+        if kernel == "int8_matmul":
+            fn, n0 = I.int8_matmul_2d, I.int8_matmul_2d.launches
+            got = fn(x, w, s, transposed)
+            want = I.int8_matmul_plain(x, w, s, transposed)
+            wd = w.double() * s.double()
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1 and got.shape == (m, n)
+            assert _sum_order_close(got, want, x,
+                                    wd.t() if transposed else wd)
+            return
+        x_q, a_s = I.quantize_rows(x)
+        fn, n0 = I.w8a8_matmul_2d, I.w8a8_matmul_2d.launches
+        got = fn(x_q, a_s, w, s, transposed, torch.bfloat16)
+        want = I.w8a8_matmul_plain(x_q, a_s, w, s, transposed, torch.bfloat16)
+        exact = True
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.shape[1] == n
+    if exact:       # integer sums, the same rounded epilogue
+        d = (got.float() - want.float()).abs()
+        assert bool((d <= want.float().abs() * 2.0 ** -7).all())
+    else:           # f32 sums in another order
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        assert rel < (1e-5 if got.dtype == torch.float32 else 4e-3)

@@ -444,7 +444,7 @@ def test_moe_mlp_dispatch(mode, actq):
             m, v, mcfg, train=False, dispatch_mode=mode))(lp, jnp.asarray(x))
     with tq.dynamic_act_quant(actq):
         got, aux_t = tmoe.moe_mlp(bridge(lp), _t(x), port_cfg(mcfg),
-                                  dispatch_mode=mode)
+                                  train=False, dispatch_mode=mode)
     close(aux_t, aux_j)
     if mode == "sort":
         close(got, want)
