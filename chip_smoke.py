@@ -5,7 +5,9 @@
 
 1. Requires a CUDA device (exits non-zero otherwise) and prints the card's
    name and power limit as nvidia-smi reports them.
-2. Builds the hand-written kernels from medplib_tpu_torch/csrc with nvcc.
+2. Builds the hand-written kernels from medplib_tpu_torch/csrc with nvcc
+   and counts, with cuobjdump, the HMMA instructions of each instance of
+   the tensor-core kernels (K7 on bf16 x, K3 int8-w / bf16, K9 on bf16 x).
 3. Kernel phases: each kernel at the shapes its main path gives it (K1,
    K2 in A8 and bf16-x modes at the flagship serving shapes, K2 also at
    B=80 rows; K3 in W8A8 at the int8-expert flagship shapes, int8-w and
@@ -34,7 +36,8 @@
    single request (K2 only); with int8 experts, a batch of 8 (int8 KV
    cache, W8A8 prefill; K3 = 96 launches), one profiled call and a single
    request (no K3), then ICL config 5 on the same tree (B=4, three images
-   per row, 1789 spliced tokens, no activation quant; K3 = 96, K4 = 32).
+   per row, 1789 spliced tokens, no activation quant; K3 = 96, K4 = 32,
+   one profiled call).
    Then packed dense serving (the dense MedPLIB-7B, pack_inference): int8
    B=16 under W8A8 (K7 = 704) and int4h B=12 (K9 = 704), each with one
    profiled call and a single request after it.
@@ -102,6 +105,39 @@ def within_one_bf16_ulp(a, b) -> bool:
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
+
+def sass_phase(lib_path) -> None:
+    """cuobjdump --dump-sass of the built library: the HMMA instructions in
+    each instance of the tensor-core kernels (w8_mma_kernel: K7 on bf16 x,
+    K3 int8-w / bf16; int4h_mma_kernel: K9 on bf16 x) and, for contrast,
+    in the CUDA-core kernels of the other modes. Fails if a tensor-core
+    instance holds no HMMA."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    fns = []     # [name, HMMA count] per function of each object
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            fns.append([m.group(1), 0])
+        elif fns and re.search(r"\bHMMA\b", line):
+            fns[-1][1] += 1
+    tc = [(f, c) for f, c in fns
+          if "w8_mma_kernel" in f or "int4h_mma_kernel" in f]
+    other = [c for f, c in fns
+             if any(k in f for k in ("gmm_kernel", "int8_matmul_kernel",
+                                     "int4h_matmul_f32_kernel"))]
+    for f, c in sorted(tc):
+        log(f"[sass] {c:4d} HMMA  {f}")
+    log(f"[sass] CUDA-core kernels (K3 W8A8 / f32, K7 f32 x, K8, K9 f32 "
+        f"x): {sum(other)} HMMA in {len(other)} instances")
+    w8 = [c for f, c in tc if "w8_mma_kernel" in f]
+    # 4 int8 instances for K7 (int8_matmul.cu), 8 int8 / bf16 for K3
+    if len(w8) != 12 or not all(c for _, c in tc):
+        raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
 
 def _random_int4h(gen, e, k, n, dev):
     import torch
@@ -276,8 +312,10 @@ def k3_phase(gen, dev, results):
     at the ICL gate/up shape; transposed weights (W8A8 and int8-w) at a
     small shape. Tolerances: W8A8 sums are exact integers on both sides
     and the epilogue the same rounded f32 ops -> within one bf16 ulp
-    (the equal share is printed); otherwise bf16 outputs of f32 sums in
-    another order -> rel Frobenius <= 4e-3."""
+    (the equal share is printed); the bf16-x modes (tensor cores) sum the
+    same exact products in f32 in another order -> sum_order_close per
+    expert (the largest error / bound is printed). The rate is the routed
+    rows' products over the kernel time."""
     import torch
     from medplib_tpu_torch.ops.cuda import gmm as G
     bm = 512
@@ -292,7 +330,7 @@ def k3_phase(gen, dev, results):
             w = (torch.randn(wshape, generator=gen, device=dev)
                  * k ** -0.5).to(torch.bfloat16)
         else:
-            w = torch.randint(-127, 128, wshape, generator=gen, device=dev,
+            w = torch.randint(-128, 128, wshape, generator=gen, device=dev,
                               dtype=torch.int8)
             w_s = torch.rand((2, 1, n), generator=gen, device=dev) * 0.01 \
                 + 1e-3
@@ -310,7 +348,10 @@ def k3_phase(gen, dev, results):
             ok, tol = within_one_bf16_ulp(got, want), "<= 1 bf16 ulp"
             tol += f", {float((got == want).float().mean()) * 100:.4f}% equal"
         else:
-            ok, tol = rel <= 4e-3, "rel Frobenius <= 4e-3"
+            ok, eq, ratio = grouped_sum_order_close(got, want, xin, w, w_s,
+                                                    tile_gid, bm, trans)
+            tol = (f"within the f32 sum-order bound: {ok}, {eq * 100:.4f}% "
+                   f"equal, largest error / bound {ratio:.4f}")
         ms = cuda_time(call)
         pms = cuda_time(lambda: G.gmm_plain(xin, w, tile_gid, w_s, a_s, bm,
                                             transposed=trans),
@@ -325,8 +366,10 @@ def k3_phase(gen, dev, results):
                                           else w, tile_gid, bm)
         log(f"[K3 gmm {mode}{' transposed' if trans else ''}] "
             f"Sp={x_al.shape[0]} K={k} N={n}: max_abs_err={err:.3e} "
-            f"rel={rel:.3e} ({tol}) kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-            f"bound {bms:.4f} ms ({by}), {lib} {lib_ms:.3f} ms")
+            f"rel={rel:.3e} ({tol}) kernel {ms:.3f} ms "
+            f"({ops / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} ms, bound "
+            f"{bms:.4f} ms ({by}), {lib} {lib_ms:.3f} ms "
+            f"({ms / lib_ms:.2f}x)")
         if not ok:
             raise AssertionError(f"K3 {mode} K={k} N={n} disagrees with "
                                  f"plain")
@@ -336,6 +379,25 @@ def k3_phase(gen, dev, results):
                                   library_ms=lib_ms)
         del xs, x_al, xin, w, got, want
     torch.cuda.empty_cache()
+
+
+def grouped_sum_order_close(got, want, x, w, w_s, tile_gid, bm, trans):
+    """sum_order_close over the rows of each expert of a grouped matmul,
+    against that expert's weight (times its scale) -> (ok, share of equal
+    elements, largest error / bound)."""
+    import torch
+    rows = tile_gid.long().repeat_interleave(bm)
+    oks, ratios = [], []
+    for g in range(w.shape[0]):
+        sel = rows == g
+        wg = (w[g].t() if trans else w[g]).float()
+        if w_s is not None:
+            wg = wg * w_s[g]
+        ok, _, ratio = sum_order_close(got[sel], want[sel],
+                                       x[sel].to(torch.bfloat16), wg)
+        oks.append(ok)
+        ratios.append(ratio)
+    return all(oks), float((got == want).float().mean()), max(ratios)
 
 
 def sum_order_close(got, want, x, w_deq):
@@ -351,7 +413,7 @@ def sum_order_close(got, want, x, w_deq):
     d = (got.float() - want.float()).abs()
     tol = 2 * k * 2.0 ** -24 * sums + want.float().abs() * ulp
     return bool((d <= tol).all()), float((got == want).float().mean()), \
-        float((d / tol).max())
+        float((d / tol.clamp(min=1e-30)).max())   # zero rows: 0 / 0
 
 
 # K7 / K9 at the packed dense serving shapes: (case, M, K, N, transposed);
@@ -383,7 +445,7 @@ def k7_phase(gen, dev, results):
     bf = torch.bfloat16
     for case, m, k, n, trans in K7_CASES:
         x = torch.randn((m, k), generator=gen, device=dev).to(bf)
-        w = torch.randint(-127, 128, (n, k) if trans else (k, n),
+        w = torch.randint(-128, 128, (n, k) if trans else (k, n),
                           generator=gen, device=dev, dtype=torch.int8)
         s = torch.rand((n, 1) if trans else (1, n), generator=gen,
                        device=dev) * 0.01 + 1e-3
@@ -392,7 +454,7 @@ def k7_phase(gen, dev, results):
         torch.cuda.synchronize()
         w_deq = (w.float() * s).to(bf)              # the library's operand
         w_kn = w_deq.t() if trans else w_deq
-        ok, eq, _ = sum_order_close(got, want, x, w_kn)
+        ok, eq, ratio = sum_order_close(got, want, x, w_kn)
         err = float((got.float() - want.float()).abs().max())
         iters = 20 if m <= 16 else 5
         ms, pms, lib_ms = _time_three(
@@ -409,10 +471,12 @@ def k7_phase(gen, dev, results):
             i8mm = f"absent ({type(e).__name__}: {str(e)[:80]})"
         log(f"[K7 int8_matmul {case}{' transposed' if trans else ''}] M={m} "
             f"K={k} N={n}: max_abs_err={err:.3e}, {eq * 100:.4f}% equal "
-            f"(within the f32 sum-order bound: {ok}) kernel {ms:.3f} ms, "
-            f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), torch.matmul "
-            f"(bf16 weight) {lib_ms:.3f} ms, torch._weight_int8pack_mm "
-            f"{i8mm}")
+            f"(within the f32 sum-order bound: {ok}; largest error / bound "
+            f"{ratio:.4f}) kernel {ms:.3f} ms "
+            f"({2 * m * k * n / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} ms, "
+            f"bound {bms:.4f} ms ({by}), torch.matmul (bf16 weight) "
+            f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x), "
+            f"torch._weight_int8pack_mm {i8mm}")
         if not ok:
             raise AssertionError(f"K7 {case} disagrees with plain")
         if case == "prefill gate-up":
@@ -543,7 +607,7 @@ def ragged_phase(gen, dev):
             fails.append(name)
 
     for trans in (False, True):
-        w = torch.randint(-127, 128, (n, k) if trans else (k, n),
+        w = torch.randint(-128, 128, (n, k) if trans else (k, n),
                           generator=gen, device=dev, dtype=torch.int8)
         sc = torch.rand((n, 1) if trans else (1, n), generator=gen,
                         device=dev) * 0.01 + 1e-3
@@ -573,16 +637,21 @@ def ragged_phase(gen, dev):
     e, bm = 2, 64
     idx = torch.randint(0, e, (m,), generator=gen, device=dev)
     x_al, _, gid = G.align_groups(x, idx, e, bm)
-    w = torch.randint(-127, 128, (e, k, n), generator=gen, device=dev,
+    w = torch.randint(-128, 128, (e, k, n), generator=gen, device=dev,
                       dtype=torch.int8)
     ws = torch.rand((e, 1, n), generator=gen, device=dev) * 0.01 + 1e-3
     xq, a_s = G.quantize_rows(x_al)
     for mode, xin, aa in (("W8A8", xq, a_s), ("int8-w", x_al, None)):
         got = G.gmm(xin, w, gid, ws, aa, bm)
         want = G.gmm_plain(xin, w, gid, ws, aa, bm)
-        ok = within_one_bf16_ulp(got, want) if aa is not None else \
-            rel_err(got, want) <= 4e-3
-        report(f"K3 {mode}", ok and got.shape[1] == n, f"K={k} N={n}")
+        if aa is not None:
+            ok, detail = within_one_bf16_ulp(got, want), "within one bf16 ulp"
+        else:
+            ok, eq, ratio = grouped_sum_order_close(got, want, xin, w, ws,
+                                                    gid, bm, False)
+            detail = f"{eq * 100:.2f}% equal, error / bound {ratio:.4f}"
+        report(f"K3 {mode}", ok and got.shape[1] == n,
+               f"K={k} N={n}: {detail}")
     k1, n1 = 768, 208
     packed, s1 = _random_int4h(gen, e, k1, n1, dev)
     xs = torch.randn((m, k1), generator=gen, device=dev)
@@ -1327,7 +1396,7 @@ def int8_path(dev, results, card):
     - ICL config 5 (benchmarks/run_all.py bench_icl): icl_enable, B=4,
       T_in=64 with three images per row (1789 spliced tokens), 10 new
       tokens, no activation quant, bf16 KV cache: K3 in int8-w mode and
-      flash attention K4 at prefill."""
+      flash attention K4 at prefill; one profiled call."""
     import dataclasses as dc
 
     import torch
@@ -1371,6 +1440,7 @@ def int8_path(dev, results, card):
     icl_per_s, icl_peak, _ = serve_batch(
         "icl", lambda: run(icfg, ibatch, False, False), icfg, IB, NEW, card,
         gmm=3 * L, flash_fwd=L)
+    profile_step(lambda: run(icfg, ibatch, False, False))
     return dict(masks_per_s=masks_per_s, peak=peak,
                 icl_ms_per_sample=1e3 / icl_per_s, icl_peak=icl_peak)
 
@@ -1475,6 +1545,7 @@ def main() -> int:
     _build.load_library()
     log(f"[build] {time.time() - t0:.1f} s -> {_build.library_path()}\n"
         f"{_build.build_log.strip()}")
+    sass_phase(_build.library_path())
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}

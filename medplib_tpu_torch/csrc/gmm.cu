@@ -12,21 +12,23 @@
 //   - W8A8: x int8, w int8; products on __dp4a into s32 (exact); the
 //     epilogue converts the sum to f32 and multiplies by w_scale, then by
 //     a_scale, each product rounded (__fmul_rn), in the reference's order.
-//   - int8-w: x bf16 or f32 (f32 x is ROUNDED to bf16 first, as the
-//     reference casts both operands to bf16), w int8; f32 FMA sums of
-//     exact products, scaled by w_scale at the epilogue.
-//   - float: x and w bf16 or f32; f32 FMA sums; no scale.
+//   - int8-w: x bf16 (the wrapper rounds f32 x to bf16 first, as the
+//     reference casts both operands to bf16), w int8; f32 sums of exact
+//     products, scaled by w_scale at the epilogue.
+//   - float: x and w bf16 or f32; f32 sums; no scale.
 //   - transposed: w [E, N, K] contracted on its last axis; w_scale stays
 //     channel-last [E, 1, N].
 //
 // What bounds it on the H100: at the int8 flagship prefill (Sp = 5632
 // rows, K = 4096 / N = 11264 and K = 11264 / N = 4096) one call does
-// ~0.26 T MACs against ~92 MB of int8 weights: compute bound (thousands of
-// operations per byte). This first version does the MACs on __dp4a (W8A8)
-// or f32 FMA (int8-w, float) from shared-memory tiles (TM x 64 output
-// tile, 64-deep K chunks, 4 x 4 outputs per thread), far below the
-// tensor-core rates; mma / wgmma tiles with TMA loads are later work. K and
-// N need no padding copies: the ragged K chunk and column tile are
+// ~0.26 T MACs against ~92 MB of int8 weights, at the ICL prefill (Sp =
+// 7680) ~0.35 T: compute bound (thousands of operations per byte). So the
+// bf16-x modes (int8-w, bf16 w) run bf16 mma.sync from a cp.async ring on
+// the tensor cores (int8w_mma.cuh, grouped: a block reads its expert from
+// tile_gid). The kernel below keeps the modes the bf16 tensor cores cannot
+// take exactly: W8A8 on __dp4a (s8 mma is later work) and the f32 pairs on
+// f32 FMA, from shared-memory tiles (TM x 64 output tile, 64-deep K
+// chunks, 4 x 4 outputs per thread). Ragged K chunks and column tiles are
 // zero-filled in shared memory and the stores are guarded.
 
 #include <cuda_bf16.h>
@@ -34,6 +36,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "int8w_mma.cuh"
 
 namespace {
 
@@ -90,7 +94,7 @@ __device__ __forceinline__ void load_vec(const void* p, bool ok,
 }
 
 // ---- activation chunk [TM, kKC] of rows m0.., columns k0.. -> smem
-template <int XT, bool ROUND, int TM>
+template <int XT, int TM>
 __device__ void load_x(const void* __restrict__ x, int K, size_t m0, int k0,
                        Smem& sm) {
   const int tid = threadIdx.x;
@@ -114,15 +118,14 @@ __device__ void load_x(const void* __restrict__ x, int K, size_t m0, int k0,
       load_vec<XT>(static_cast<const E*>(x) + (m0 + row) * K + k, k < K, f);
       float* dst = sm.x + row * kPadF + kq * V;
 #pragma unroll
-      for (int t = 0; t < V; ++t)
-        dst[t] = ROUND ? __bfloat162float(__float2bfloat16_rn(f[t])) : f[t];
+      for (int t = 0; t < V; ++t) dst[t] = f[t];
     }
   }
 }
 
 // ---- weight chunk, reduction rows k0.., columns n0.. of one expert ->
 // smem column-major [kTN cols][kKC k] (bytes for W8A8, floats otherwise)
-template <int WT, bool A8>
+template <int WT>
 __device__ void load_w(const void* __restrict__ w, int K, int N, int n0,
                        int k0, bool trans, Smem& sm) {
   using E = typename Elem<WT>::type;
@@ -137,7 +140,7 @@ __device__ void load_w(const void* __restrict__ w, int K, int N, int n0,
       const int c = v / PER_ROW, kq = v % PER_ROW;
       const int n = n0 + c, k = k0 + kq * V;
       const bool ok = n < N && k < K;
-      if constexpr (A8) {
+      if constexpr (WT == kI8) {
         int4 d = make_int4(0, 0, 0, 0);
         if (ok) d = *reinterpret_cast<const int4*>(wp + (size_t)n * K + k);
         int* dst = reinterpret_cast<int*>(sm.w) + c * kPadW + kq * 4;
@@ -157,7 +160,7 @@ __device__ void load_w(const void* __restrict__ w, int K, int N, int n0,
       const int r = v / PER_ROW, cq = v % PER_ROW;
       const int k = k0 + r, n = n0 + cq * V;
       const bool ok = k < K && n < N;
-      if constexpr (A8) {
+      if constexpr (WT == kI8) {
         int4 d = make_int4(0, 0, 0, 0);
         if (ok) d = *reinterpret_cast<const int4*>(wp + (size_t)k * N + n);
         const int8_t* b = reinterpret_cast<const int8_t*>(&d);
@@ -181,7 +184,6 @@ gmm_kernel(const void* __restrict__ x, const void* __restrict__ w,
            const float* __restrict__ a_scale, void* __restrict__ out,
            int K, int N, int bm, int trans, int out_bf16) {
   constexpr bool A8 = XT == kI8;
-  constexpr bool ROUND = XT == kF32 && WT == kI8;  // int8-w: x -> bf16
   constexpr int R = TM / 16;
   using Acc = typename std::conditional<A8, int, float>::type;
   __shared__ Smem sm;
@@ -201,8 +203,8 @@ gmm_kernel(const void* __restrict__ x, const void* __restrict__ w,
 
   for (int k0 = 0; k0 < K; k0 += kKC) {
     __syncthreads();  // previous chunk fully consumed
-    load_x<XT, ROUND, TM>(x, K, m0, k0, sm);
-    load_w<WT, A8>(wg, K, N, n0, k0, trans != 0, sm);
+    load_x<XT, TM>(x, K, m0, k0, sm);
+    load_w<WT>(wg, K, N, n0, k0, trans != 0, sm);
     __syncthreads();
     if constexpr (A8) {
       const int* xs = reinterpret_cast<const int*>(sm.x);
@@ -279,13 +281,15 @@ int launch(const void* x, const void* w, const int* tile_gid,
 }  // namespace
 
 // C entry point. x [sp, k] of dtype xt; w [E, k, n] (or [E, n, k] when
-// trans) of dtype wt; xt / wt: 0 int8, 1 bf16, 2 f32, with xt int8 only
-// beside wt int8. tile_gid [sp / bm] int32; w_scale [E, 1, n] f32 or null;
-// a_scale [sp] f32 or null (int8 x only); out [sp, n], bf16 when out_bf16
-// else f32. tm (64 or 16) divides bm. The caller checks shapes, dtypes,
-// contiguity, 16-byte alignment, k % 16 == 0 and n % 16 == 0.
+// trans) of dtype wt; xt / wt: 0 int8, 1 bf16, 2 f32: (int8, int8) W8A8,
+// (bf16, int8), (bf16, bf16) and the f32 pairs (f32, f32), (bf16, f32),
+// (f32, bf16). tile_gid [sp / bm] int32; w_scale [E, 1, n] f32 (int8 w) or
+// null; a_scale [sp] f32 or null (int8 x only); out [sp, n], bf16 when
+// out_bf16 else f32. bm % 16 == 0; tm (64 or 16, the FMA kernel's rows)
+// divides bm. The caller checks shapes, dtypes, contiguity, 16-byte
+// alignment, k % 16 == 0 and n % 16 == 0.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
-// dtype pair the kernel does not take).
+// dtype pair the kernels do not take).
 extern "C" int gmm_launch(const void* x, const void* w, const void* tile_gid,
                           const void* w_scale, const void* a_scale, void* out,
                           int sp, int k, int n, int bm, int tm, int xt, int wt,
@@ -294,14 +298,17 @@ extern "C" int gmm_launch(const void* x, const void* w, const void* tile_gid,
   const int* gid = static_cast<const int*>(tile_gid);
   const float* ws = static_cast<const float*>(w_scale);
   const float* as = static_cast<const float*>(a_scale);
+  if (xt == kBF16 && wt == kI8)  // the tensor cores
+    return w8mma::launch<w8mma::kWI8>(x, w, ws, gid, out, sp, n, k, bm,
+                                      trans, !out_bf16, s);
+  if (xt == kBF16 && wt == kBF16)
+    return w8mma::launch<w8mma::kWBF16>(x, w, nullptr, gid, out, sp, n, k,
+                                        bm, trans, !out_bf16, s);
 #define GMM_CASE(X, W)                                                    \
   if (xt == X && wt == W)                                                 \
     return launch<X, W>(x, w, gid, ws, as, out, sp, k, n, bm, tm, trans,  \
                         out_bf16, s);
   GMM_CASE(kI8, kI8)
-  GMM_CASE(kBF16, kI8)
-  GMM_CASE(kF32, kI8)
-  GMM_CASE(kBF16, kBF16)
   GMM_CASE(kF32, kF32)
   GMM_CASE(kBF16, kF32)
   GMM_CASE(kF32, kBF16)

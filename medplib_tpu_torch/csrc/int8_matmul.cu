@@ -3,11 +3,13 @@
 //
 // Replaces the TPU kernels of medplib_tpu/ops/pallas/int8_matmul.py:
 //   - K7, `_kernel` (int8_matmul / int8_matmul_t): weight-only.
-//       acc[m, n] = sum_k x[m, k] * float(w[k, n])   (f32, FMA)
+//       acc[m, n] = sum_k x[m, k] * float(w[k, n])   (f32 sums)
 //       out[m, n] = (out dtype)(acc * scale[n])
 //     x is bf16 or f32; an int8 weight converts to either exactly, and a
 //     bf16 x times an int8 weight is exact in f32, so only the order of the
-//     f32 sums differs from the reference.
+//     f32 sums differs from the reference. bf16 x (the serving dtype) runs
+//     on the tensor cores (int8w_mma.cuh); f32 x stays on f32 FMA here,
+//     since a bf16 mma would round x.
 //   - K8, `_w8a8_kernel` (w8a8_matmul / w8a8_matmul_t): x is already
 //     quantized per row (int8 x_q, f32 a_scale, done outside as in the
 //     reference); products on __dp4a into an s32 sum (exact), then
@@ -22,15 +24,14 @@
 // (M = 16 x 623 rows, K = 4096, N = 12288 qkv / 22016 gate-up) does
 // ~1-1.8 TFLOP per call against 50-90 MB of int8 weight: compute bound.
 // Decode (M = 16) does 2 x 16 FLOP per weight byte: bound by the weight
-// bytes on the tensor cores, by the FMA rate on the CUDA cores. This first
-// version does f32 FMA (K7) or __dp4a (K8) from shared-memory tiles: TM x
-// 64 output tiles (TM = 64 at prefill, 16 at decode), 64-deep K chunks,
-// 16-byte global loads (neighbouring threads on neighbouring 16-byte
-// chunks of a weight row), R x 4 outputs per thread (the tile routines of
-// matmul_tile.cuh). The dequantized
-// weight never exists in device memory. No padding copies: ragged rows,
-// columns and the last K chunk are zero-filled in shared memory and the
-// stores are guarded. bf16 mma / wgmma and int8 mma tiles are later work.
+// bytes on the tensor cores. K7 on bf16 x therefore runs bf16 mma.sync
+// from a cp.async ring (int8w_mma.cuh: the int8 bytes decoded to bf16 in
+// registers, exactly; the f32 sum scaled once). The FMA / __dp4a kernel
+// below serves K7 on f32 x and K8 (whose s8 mma is later work): TM x 64
+// output tiles (TM = 64 at prefill, 16 at decode), 64-deep K chunks,
+// 16-byte global loads, R x 4 outputs per thread (matmul_tile.cuh), ragged
+// rows, columns and the last K chunk zero-filled in shared memory. In
+// neither kernel does the dequantized weight exist in device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,6 +39,7 @@
 
 #include <type_traits>
 
+#include "int8w_mma.cuh"
 #include "matmul_tile.cuh"
 
 namespace {
@@ -93,8 +95,8 @@ __device__ void load_w(const int8_t* __restrict__ w, int K, int N, int n0,
   }
 }
 
-// XT: kBF16 / kF32 (K7, the output dtype too) or kI8 (K8; out_bf16 picks
-// the output dtype).
+// XT: kF32 (K7 on f32 x, f32 out) or kI8 (K8; out_bf16 picks the output
+// dtype).
 template <int XT, int TM>
 __global__ void __launch_bounds__(kThreads)
 int8_matmul_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
@@ -179,7 +181,8 @@ extern "C" int int8_matmul_launch(const void* x, const void* w,
   const int8_t* wp = static_cast<const int8_t*>(w);
   const float* sp = static_cast<const float*>(scale);
   if (xt == kBF16)
-    return launch<kBF16>(x, wp, sp, nullptr, out, m, k, n, trans, 1, s);
+    return w8mma::launch<w8mma::kWI8>(x, w, sp, nullptr, out, m, n, k, 0,
+                                      trans, 0, s);
   if (xt == kF32)
     return launch<kF32>(x, wp, sp, nullptr, out, m, k, n, trans, 0, s);
   return (int)cudaErrorInvalidValue;

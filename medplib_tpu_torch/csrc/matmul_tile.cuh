@@ -1,6 +1,6 @@
 // Shared tile routines of the dense matmul kernels on the CUDA cores
-// (int8_matmul.cu: K7, K8; int4_matmul.cu: K9 on f32 x; K9 on bf16 x runs
-// on the tensor cores, mma_tile.cuh).
+// (int8_matmul.cu: K7 on f32 x, K8; int4_matmul.cu: K9 on f32 x). K7 and
+// K9 on bf16 x run on the tensor cores (int8w_mma.cuh, int4_matmul.cu).
 //
 // A block of 256 threads computes a TM x 64 output tile (TM = 64 or 16)
 // over 64-deep reduction chunks staged in shared memory: the activation
@@ -36,15 +36,16 @@ struct Smem {
 };
 
 // Activation chunk [TM, kKC] of rows m0.., columns k0.. (x row-major
-// [M, K] of type XT) -> smem: int32 words of 4 int8 values (kI8), else
-// floats (bf16 converts exactly). Rows >= M and columns >= K are zero;
-// K % 16 == 0 keeps every 16-byte vector wholly in or out.
+// [M, K] of type XT, kI8 or kF32) -> smem: int32 words of 4 int8 values
+// (kI8), else floats. Rows >= M and columns >= K are zero; K % 16 == 0
+// keeps every 16-byte vector wholly in or out.
 template <int XT, int TM>
 __device__ void load_x(const void* __restrict__ x, int M, int K, int m0,
                        int k0, Smem& sm) {
-  constexpr int V = XT == kI8 ? 16 : XT == kBF16 ? 8 : 4;  // per 16 bytes
+  static_assert(XT == kI8 || XT == kF32, "bf16 x runs on the tensor cores");
+  constexpr int V = XT == kI8 ? 16 : 4;  // values per 16 bytes
   constexpr int PER_ROW = kKC / V;
-  const size_t esize = XT == kI8 ? 1 : XT == kBF16 ? 2 : 4;
+  const size_t esize = XT == kI8 ? 1 : 4;
   for (int v = threadIdx.x; v < TM * PER_ROW; v += kThreads) {
     const int row = v / PER_ROW, kq = v % PER_ROW, k = k0 + kq * V;
     int4 d = make_int4(0, 0, 0, 0);
@@ -54,11 +55,6 @@ __device__ void load_x(const void* __restrict__ x, int M, int K, int m0,
     if constexpr (XT == kI8) {
       int* dst = reinterpret_cast<int*>(sm.x) + row * kPadW + kq * 4;
       dst[0] = d.x; dst[1] = d.y; dst[2] = d.z; dst[3] = d.w;
-    } else if constexpr (XT == kBF16) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&d);
-      float* dst = sm.x + row * kPadF + kq * V;
-#pragma unroll
-      for (int t = 0; t < V; ++t) dst[t] = __bfloat162float(e[t]);
     } else {
       const float* e = reinterpret_cast<const float*>(&d);
       float* dst = sm.x + row * kPadF + kq * V;

@@ -1,5 +1,6 @@
 // Warp-level tensor-core building blocks of the dense matmul kernels
-// (int4_matmul.cu: K9 on bf16 x). A kernel adds only its B decode.
+// (int4_matmul.cu: K9 on bf16 x; int8w_mma.cuh: K7 on bf16 x and K3's
+// int8-w / bf16 modes). A kernel adds only its B tile and decode.
 //
 //   - cp.async copies (16 or 4 bytes, the rest zero-filled through the
 //     source-size operand) into a ring of pipeline stages in dynamic shared

@@ -13,7 +13,11 @@ kernels or raise.
 
 What bounds the kernels on the H100, and what the designs do about it, is
 noted at the top of each source (both compute bound at the flagship
-prefill; first __dp4a / f32-FMA versions from shared-memory tiles).
+prefill). `gmm` on bf16 x (int8-w and bf16 experts; f32 x against int8
+experts is rounded to bf16 first, as the reference does) runs bf16
+mma.sync on the tensor cores (csrc/int8w_mma.cuh); W8A8 stays on __dp4a
+and the f32 pairs on f32 FMA (csrc/gmm.cu); K1 is a first __dp4a /
+f32-FMA version.
 """
 
 from __future__ import annotations
@@ -219,6 +223,10 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_gid: torch.Tensor,
                         f"and a bf16 / f32 output (x {x.dtype}, w {w.dtype}, "
                         f"out {out_dtype})")
     _check_cuda("x", x, x.dtype, (sp, k), dev)
+    if int8_w and x.dtype == torch.float32:
+        # the reference rounds x to bf16 against an int8 weight; the
+        # tensor-core kernel takes it so (the ICL path's x is bf16 already)
+        x = x.to(torch.bfloat16)
     _check_cuda("w", w, w.dtype, tuple(w.shape), dev)
     _check_cuda("tile_gid", tile_gid, torch.int32, (sp // block_m,), dev)
     ws = w_scale if int8_w else None

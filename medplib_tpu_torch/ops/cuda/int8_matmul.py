@@ -5,8 +5,11 @@ Counterpart of medplib_tpu/ops/pallas/int8_matmul.py:
 
 - `int8_matmul` / `int8_matmul_t`: y = x @ dequant(w), the int8 weight
   converted to x's dtype (exact), f32 sums, the f32 per-channel scale
-  applied to the sum, one cast to x's dtype. The CUDA kernel is
-  csrc/int8_matmul.cu (`int8_matmul_launch`). Reached by the packed
+  applied to the sum, one cast to x's dtype. The CUDA entry is
+  csrc/int8_matmul.cu (`int8_matmul_launch`): bf16 x (the serving dtype)
+  runs bf16 mma.sync on the tensor cores (csrc/int8w_mma.cuh, the bytes
+  decoded to bf16 exactly in registers), f32 x an f32-FMA kernel, since a
+  bf16 product would round x. Reached by the packed
   `qkv_proj` / `gateup_proj` kernels of a pack_inference tree
   (models/llama.py); unpacked int8 linears keep the dequantize-then-matmul
   route of train/lora.linear, whose rounding differs.
@@ -14,7 +17,7 @@ Counterpart of medplib_tpu/ops/pallas/int8_matmul.py:
   (ops/cuda/gmm.quantize_rows, outside the kernel as in the reference), an
   exact s32 product, the epilogue (acc * a_scale) * w_scale in f32, then a
   cast to x's dtype. The CUDA kernel is csrc/int8_matmul.cu
-  (`w8a8_matmul_launch`). The JAX package has no model caller for it, and
+  (`w8a8_matmul_launch`, on __dp4a). The JAX package has no model caller for it, and
   neither has the port.
 
 Weights are [K, N] with scale [1, N], or transposed [N, K] with scale

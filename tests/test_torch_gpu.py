@@ -21,6 +21,15 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _int8_weight(gen, shape, dev):
+    """Random int8 weights over the whole range, every 7th byte -128: the
+    quantizer never writes -128, but the kernels' decode must read it."""
+    w = torch.randint(-128, 128, shape, generator=gen, device=dev,
+                      dtype=torch.int8)
+    w.view(-1)[::7] = -128
+    return w
+
+
 def _int4h(gen, e, k, n, dev):
     packed = torch.randint(-128, 128, (e, k // 2, n), generator=gen,
                            device=dev, dtype=torch.int8)
@@ -194,9 +203,24 @@ def test_flash_autograd_on_card(dev):
         assert float((a - w).norm() / w.norm()) < 1e-4
 
 
+def _gmm_sum_order_close(got, want, x, w, ws, gid, block_m, transposed):
+    """_sum_order_close on the rows of each expert against its own
+    dequantized weight."""
+    rows = gid.long().repeat_interleave(block_m)
+    ok = True
+    for g in range(w.shape[0]):
+        sel = rows == g
+        wg = (w[g].t() if transposed else w[g]).double()
+        if ws is not None:
+            wg = wg * ws[g].double()
+        ok &= _sum_order_close(got[sel], want[sel], x[sel], wg)
+    return ok
+
+
 # (x dtype, w dtype, transposed, N, block_m): W8A8; int8-w with bf16 and
 # f32 x; float bf16 / f32; transposed weights; N not a multiple of the
-# 64-column tile; 16-row tiles (block_m 32)
+# 64-column tile; 16-row tiles (block_m 32); the main path's block_m 512,
+# whose two tiles hold one expert each
 @pytest.mark.parametrize("xd,wd,transposed,n,block_m", [
     (torch.int8, torch.int8, False, 192, 64),
     (torch.int8, torch.int8, True, 208, 32),
@@ -204,18 +228,26 @@ def test_flash_autograd_on_card(dev):
     (torch.float32, torch.int8, True, 192, 64),
     (torch.bfloat16, torch.bfloat16, False, 208, 64),
     (torch.float32, torch.float32, True, 192, 32),
+    (torch.bfloat16, torch.int8, True, 208, 32),
+    (torch.bfloat16, torch.bfloat16, True, 192, 32),
+    (torch.bfloat16, torch.int8, False, 208, 512),
+    (torch.bfloat16, torch.int8, True, 192, 512),
+    (torch.bfloat16, torch.bfloat16, False, 192, 512),
+    (torch.int8, torch.int8, False, 192, 512),
 ])
 def test_gmm_kernel_matches_plain(dev, xd, wd, transposed, n, block_m):
     """K3 against gmm_plain over a two-ended E=2 buffer, K = 2176 (a
-    ragged last 64-deep chunk). W8A8: exact integer sums, same epilogue
-    ops -> within one bf16 ulp. Otherwise the same products summed in
-    another order: rel 1e-5 in f32, 4e-3 for bf16 outputs."""
+    ragged last 64-deep chunk), int8 weights with -128. W8A8: exact
+    integer sums, same epilogue ops -> within one bf16 ulp. Otherwise the
+    same products summed in another order (_sum_order_close; f32 outputs
+    also rel 1e-5)."""
     from medplib_tpu_torch.ops.cuda import gmm as G
     gen = torch.Generator(device=dev).manual_seed(n + block_m)
     k, e = 2176, 2
     xs = torch.randn((300, k), generator=gen, device=dev)
     idx = torch.randint(0, e, (300,), generator=gen, device=dev)
     x_al, _, gid = G.align_groups(xs, idx, e, block_m)
+    assert int(gid.min()) == 0 and int(gid.max()) == 1
     a_s = None
     if xd == torch.int8:
         x_al, a_s = G.quantize_rows(x_al)
@@ -224,8 +256,7 @@ def test_gmm_kernel_matches_plain(dev, xd, wd, transposed, n, block_m):
     wshape = (e, n, k) if transposed else (e, k, n)
     ws = None
     if wd == torch.int8:
-        w = torch.randint(-127, 128, wshape, generator=gen, device=dev,
-                          dtype=torch.int8)
+        w = _int8_weight(gen, wshape, dev)
         ws = torch.rand((e, 1, n), generator=gen, device=dev) * 0.01 + 1e-3
     else:
         w = (torch.randn(wshape, generator=gen, device=dev)
@@ -240,9 +271,13 @@ def test_gmm_kernel_matches_plain(dev, xd, wd, transposed, n, block_m):
         d = (got.float() - want.float()).abs()
         assert bool((d <= want.float().abs() * 2.0 ** -7).all())
     else:
-        rel = float((got.float() - want.float()).norm()
-                    / want.float().norm())
-        assert rel < (1e-5 if got.dtype == torch.float32 else 4e-3)
+        xb = x_al.to(torch.bfloat16) if wd == torch.int8 else x_al
+        assert _gmm_sum_order_close(got, want, xb, w, ws, gid, block_m,
+                                    transposed)
+        if got.dtype == torch.float32:
+            rel = float((got.float() - want.float()).norm()
+                        / want.float().norm())
+            assert rel < 1e-5
 
 
 def test_int8_kv_cache_decode_on_card(dev):
@@ -273,23 +308,24 @@ def _sum_order_close(got, want, x, w_deq):
     return bool(((got.double() - want.double()).abs() <= tol).all())
 
 
-# (x dtype, transposed, M): decode-sized M (16-row tiles) and a ragged M
-# over 64-row tiles; K = 1040 ends in a ragged 64-deep chunk, N = 208 in a
-# ragged 64-column tile
-@pytest.mark.parametrize("xd,transposed,m", [
-    (torch.bfloat16, False, 16), (torch.bfloat16, True, 16),
-    (torch.bfloat16, False, 300), (torch.bfloat16, True, 300),
-    (torch.float32, True, 300), (torch.float32, False, 5),
+# (x dtype, transposed, M, K): decode-sized M (16-row tiles, M = 1 too)
+# and a ragged M over 64-row tiles; K = 1040 ends in a ragged 64-deep
+# chunk, N = 208 in a ragged column tile; M = 9968 at K = 4096 is the
+# packed int8 prefill
+@pytest.mark.parametrize("xd,transposed,m,k", [
+    (torch.bfloat16, False, 16, 1040), (torch.bfloat16, True, 16, 1040),
+    (torch.bfloat16, False, 300, 1040), (torch.bfloat16, True, 300, 1040),
+    (torch.float32, True, 300, 1040), (torch.float32, False, 5, 1040),
+    (torch.bfloat16, False, 1, 4096), (torch.bfloat16, True, 9968, 4096),
 ])
-def test_int8_matmul_kernel_matches_plain(dev, xd, transposed, m):
-    """K7 against its plain version: the same exact products summed in f32
-    in another order, then one rounding."""
+def test_int8_matmul_kernel_matches_plain(dev, xd, transposed, m, k):
+    """K7 against its plain version, weights with -128: the same exact
+    products summed in f32 in another order, then one rounding."""
     from medplib_tpu_torch.ops.cuda import int8_matmul as I
     gen = torch.Generator(device=dev).manual_seed(m + int(transposed))
-    k, n = 1040, 208
+    n = 208
     x = torch.randn((m, k), generator=gen, device=dev).to(xd)
-    w = torch.randint(-127, 128, (n, k) if transposed else (k, n),
-                      generator=gen, device=dev, dtype=torch.int8)
+    w = _int8_weight(gen, (n, k) if transposed else (k, n), dev)
     s = torch.rand((n, 1) if transposed else (1, n), generator=gen,
                    device=dev) * 0.01 + 1e-3
     n0 = I.int8_matmul_2d.launches
@@ -457,7 +493,10 @@ def test_ragged_widths_match_plain(dev, kernel, transposed):
     if exact:       # integer sums, the same rounded epilogue
         d = (got.float() - want.float()).abs()
         assert bool((d <= want.float().abs() * 2.0 ** -7).all())
-    else:           # f32 sums in another order
+    elif fn is G.gmm:   # f32 sums in another order
+        assert _gmm_sum_order_close(got, want, x_al, w, ws, gid, bm,
+                                    transposed)
+    else:
         rel = float((got.float() - want.float()).norm()
                     / want.float().norm())
         assert rel < (1e-5 if got.dtype == torch.float32 else 4e-3)
