@@ -6,8 +6,9 @@
 1. Requires a CUDA device (exits non-zero otherwise) and prints the card's
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from medplib_tpu_torch/csrc with nvcc
-   and counts, with cuobjdump, the HMMA instructions of each instance of
-   the tensor-core kernels (K7 on bf16 x, K3 int8-w / bf16, K9 on bf16 x).
+   and counts, with cuobjdump, the tensor-core instructions of each
+   instance of the tensor-core kernels (HMMA: K7 on bf16 x, K3 int8-w /
+   bf16, K9 on bf16 x, K6 on bf16; IMMA: K8).
 3. Kernel phases: each kernel at the shapes its main path gives it (K1,
    K2 in A8 and bf16-x modes at the flagship serving shapes, K2 also at
    B=80 rows; K3 in W8A8 at the int8-expert flagship shapes, int8-w and
@@ -20,9 +21,9 @@
    least time the card could take (bound_ms) and a library yardstick
    (SDPA for flash attention; torch._grouped_mm or per-expert torch calls
    for K3, per-expert torch._int_mm for K1; torch.matmul on a bf16 weight
-   dequantized beforehand for K7 / K9; torch._int_mm for K8). Then one
-   call per wrapper at odd widths (N = 320, K = 688) and a head_dim-256
-   prompt, which takes the plain attention.
+   dequantized beforehand for K7 / K9; torch._int_mm for K8, both weight
+   layouts). Then one call per wrapper at odd widths (N = 320, K = 688)
+   and a head_dim-256 prompt, which takes the plain attention.
 4. Small-input checks, card (kernels) against CPU (plain versions): the
    generate slice at a tiny width with int4h experts (K1, K2), with int8
    experts and the int8 KV cache (K3), and over a packed dense tree in
@@ -106,38 +107,74 @@ def within_one_bf16_ulp(a, b) -> bool:
 # kernel phases
 # ---------------------------------------------------------------------------
 
-def sass_phase(lib_path) -> None:
-    """cuobjdump --dump-sass of the built library: the HMMA instructions in
-    each instance of the tensor-core kernels (w8_mma_kernel: K7 on bf16 x,
-    K3 int8-w / bf16; int4h_mma_kernel: K9 on bf16 x) and, for contrast,
-    in the CUDA-core kernels of the other modes. Fails if a tensor-core
-    instance holds no HMMA."""
+def sass_phase(lib_path, build_log: str) -> None:
+    """cuobjdump --dump-sass of the built library: the tensor-core
+    instructions in each instance of the tensor-core kernels (HMMA in
+    w8_mma_kernel: K7 on bf16 x, K3 int8-w / bf16; int4h_mma_kernel: K9 on
+    bf16 x; flash_dkv_mma_kernel: K6 on bf16; IMMA in s8_mma_kernel: K8)
+    and, for contrast, in the CUDA-core kernels (K3 W8A8 / f32, K7 f32 x,
+    K9 f32 x, K6 f32). Fails if a tensor-core instance holds none. From
+    this run's nvcc log (ptxas -v), each tensor-core instance's registers
+    and spill stores; fails on a spill."""
     import re
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([exe, "--dump-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=600,
                           check=True).stdout
-    fns = []     # [name, HMMA count] per function of each object
+    fns = []     # [name, HMMA count, IMMA count] per function of each object
     for line in sass.splitlines():
         m = re.match(r"\s*Function\s*:\s*(\S+)", line)
         if m:
-            fns.append([m.group(1), 0])
-        elif fns and re.search(r"\bHMMA\b", line):
-            fns[-1][1] += 1
-    tc = [(f, c) for f, c in fns
-          if "w8_mma_kernel" in f or "int4h_mma_kernel" in f]
-    other = [c for f, c in fns
+            fns.append([m.group(1), 0, 0])
+        elif fns:
+            fns[-1][1] += bool(re.search(r"\bHMMA\b", line))
+            fns[-1][2] += bool(re.search(r"\bIMMA\b", line))
+    hmma = {"w8_mma_kernel": 12, "int4h_mma_kernel": 8,
+            "flash_dkv_mma_kernel": 1}       # kernel -> its instances
+    imma = {"s8_mma_kernel": 4}
+    bad = []
+    for kern, n in list(hmma.items()) + list(imma.items()):
+        col = 1 if kern in hmma else 2
+        got = [(f, c[col - 1]) for f, *c in fns if kern in f]
+        for f, c in sorted(got):
+            log(f"[sass] {c:4d} {'HMMA' if col == 1 else 'IMMA'}  {f}")
+        if len(got) != n or not all(c for _, c in got):
+            bad.append((kern, got))
+    other = [(h, i) for f, h, i in fns
              if any(k in f for k in ("gmm_kernel", "int8_matmul_kernel",
-                                     "int4h_matmul_f32_kernel"))]
-    for f, c in sorted(tc):
-        log(f"[sass] {c:4d} HMMA  {f}")
-    log(f"[sass] CUDA-core kernels (K3 W8A8 / f32, K7 f32 x, K8, K9 f32 "
-        f"x): {sum(other)} HMMA in {len(other)} instances")
-    w8 = [c for f, c in tc if "w8_mma_kernel" in f]
-    # 4 int8 instances for K7 (int8_matmul.cu), 8 int8 / bf16 for K3
-    if len(w8) != 12 or not all(c for _, c in tc):
-        raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
+                                     "int4h_matmul_f32_kernel",
+                                     "flash_dkv_kernel"))]
+    log(f"[sass] CUDA-core kernels (K3 W8A8 / f32, K7 f32 x, K9 f32 x, K6 "
+        f"f32): {sum(h for h, _ in other)} HMMA, {sum(i for _, i in other)}"
+        f" IMMA in {len(other)} instances")
+    if bad:
+        raise AssertionError(f"tensor-core kernels without HMMA / IMMA or "
+                             f"with other instance counts: {bad}")
+    if not build_log:
+        log("[ptxas] the library was built before this run: no ptxas lines")
+        return
+    regs, name = {}, None     # instance -> [registers, spill store bytes]
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if any(k in m.group(1) for k in
+                                     list(hmma) + list(imma)) else None
+        elif name:
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                regs.setdefault(name, [0, 0])[1] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs.setdefault(name, [0, 0])[0] = int(m.group(1))
+                name = None
+    for f, (r, spill) in sorted(regs.items()):
+        log(f"[ptxas] {r:3d} registers, {spill} bytes spill stores  {f}")
+    if len(regs) != sum(hmma.values()) + sum(imma.values()) or any(
+            spill for _, spill in regs.values()):
+        raise AssertionError("tensor-core kernels missing from the ptxas "
+                             "log, or spilling")
+
 
 def _random_int4h(gen, e, k, n, dev):
     import torch
@@ -495,11 +532,13 @@ K8_CASES = [(16 * 623, 4096, 3 * 4096, True),
 
 
 def k8_phase(gen, dev, results):
-    """w8a8_matmul (K8, on no path) against its plain version at the dense
-    W8A8 shapes (K8_CASES), x quantized per row beforehand (outside the
-    kernel, as in the reference). Exact s32 sums and the same rounded
-    epilogue on both sides: bit-equal. Yardstick: torch._int_mm on the same
-    int8 operands."""
+    """w8a8_matmul (K8, on no path; s8 mma.sync) against its plain version
+    at the dense W8A8 shapes (K8_CASES), x quantized per row beforehand
+    (outside the kernel, as in the reference). Exact s32 sums and the same
+    rounded epilogue on both sides: bit-equal, in bf16 and in f32 output.
+    Yardsticks: torch._int_mm on the same int8 operands, the weight
+    row-major [K, N] and column-major (library_ms: the column-major
+    one)."""
     import torch
     from medplib_tpu_torch.ops.cuda import int8_matmul as I8
     for m, k, n, trans in K8_CASES:
@@ -513,27 +552,34 @@ def k8_phase(gen, dev, results):
             x_q, a_s, w, s, trans, torch.bfloat16)
         got = call()
         want = I8.w8a8_matmul_plain(x_q, a_s, w, s, trans, torch.bfloat16)
+        got32 = I8.w8a8_matmul_2d(x_q, a_s, w, s, trans, torch.float32)
+        want32 = I8.w8a8_matmul_plain(x_q, a_s, w, s, trans, torch.float32)
         torch.cuda.synchronize()
-        equal = torch.equal(got, want)
+        equal = torch.equal(got, want) and torch.equal(got32, want32)
         err = float((got.float() - want.float()).abs().max())
-        w_kn = w.t() if trans else w
+        del got32, want32
+        w_row = w.t().contiguous() if trans else w       # [K, N] row-major
+        w_col = w.t() if trans else w.t().contiguous().t()
         ms, pms, lib_ms = _time_three(
             call, lambda: I8.w8a8_matmul_plain(x_q, a_s, w, s, trans,
                                                torch.bfloat16),
-            lambda: torch._int_mm(x_q, w_kn), 5)
-        bms, by = bound(nbytes(x_q, a_s, w, s, got), 2 * m * k * n,
-                        INT8_OPS)
+            lambda: torch._int_mm(x_q, w_col), 5)
+        row_ms = cuda_time(lambda: torch._int_mm(x_q, w_row), iters=5)
+        ops = 2 * m * k * n
+        bms, by = bound(nbytes(x_q, a_s, w, s, got), ops, INT8_OPS)
         log(f"[K8 w8a8_matmul{' transposed' if trans else ''}] M={m} K={k} "
-            f"N={n}: max_abs_err={err:.3e} (bit-equal: {equal}) kernel "
-            f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), "
-            f"torch._int_mm {lib_ms:.3f} ms")
+            f"N={n}: max_abs_err={err:.3e} (bit-equal in bf16 and f32: "
+            f"{equal}) kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s), "
+            f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), torch._int_mm "
+            f"column-major weight {lib_ms:.3f} ms ({ms / lib_ms:.2f}x), "
+            f"row-major {row_ms:.3f} ms ({ms / row_ms:.2f}x)")
         if not equal:
             raise AssertionError(f"K8 K={k} N={n} disagrees with plain")
         if "w8a8_matmul" not in results:
             results["w8a8_matmul"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms, launches=0)
-        del x, x_q, a_s, w, s, got, want
+        del x, x_q, a_s, w, s, got, want, w_row, w_col
     torch.cuda.empty_cache()
 
 
@@ -618,10 +664,11 @@ def ragged_phase(gen, dev):
         report(f"K7 trans={trans}", ok and got.shape == (m, n),
                f"M={m} K={k} N={n}: {eq * 100:.2f}% equal")
         xq, a_s = I8.quantize_rows(x)
-        got = I8.w8a8_matmul_2d(xq, a_s, w, sc, trans, bf)
-        want = I8.w8a8_matmul_plain(xq, a_s, w, sc, trans, bf)
-        report(f"K8 trans={trans}", torch.equal(got, want),
-               "bit-equal to plain")
+        for od in (bf, torch.float32):
+            got = I8.w8a8_matmul_2d(xq, a_s, w, sc, trans, od)
+            want = I8.w8a8_matmul_plain(xq, a_s, w, sc, trans, od)
+            report(f"K8 {od} trans={trans}", torch.equal(got, want),
+                   "bit-equal to plain")
         packed = torch.randint(-128, 128, (n, k // 2) if trans
                                else (k // 2, n), generator=gen, device=dev,
                                dtype=torch.int8)
@@ -807,10 +854,11 @@ def flash_phase(gen, dev, results):
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                  bound_ms=bms, bound_by=by,
                                  library_ms=lib_ms)
-            log(f"[{name}] B={b} T=S={t} H={h} D={d}: kernel {ms:.3f} ms, "
-                f"plain {pms:.3f} ms, SDPA {lib} {lib_ms:.3f} ms, bound "
-                f"{bms:.4f} ms ({by}: {nb / 1e6:.1f} MB, "
-                f"{ops / 1e9:.1f} GFLOP)")
+            log(f"[{name}] B={b} T=S={t} H={h} D={d}: kernel {ms:.3f} ms "
+                f"({ops / ms / 1e9:.1f} TFLOP/s at {ops / pairs / d:.0f}·D "
+                f"FLOP a kept pair), plain {pms:.3f} ms, SDPA {lib} "
+                f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x), bound {bms:.4f} ms "
+                f"({by}: {nb / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP)")
         del sq, sk, sv, qg, kg, vg
         torch.cuda.empty_cache()
 
@@ -1545,7 +1593,7 @@ def main() -> int:
     _build.load_library()
     log(f"[build] {time.time() - t0:.1f} s -> {_build.library_path()}\n"
         f"{_build.build_log.strip()}")
-    sass_phase(_build.library_path())
+    sass_phase(_build.library_path(), _build.build_log)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}

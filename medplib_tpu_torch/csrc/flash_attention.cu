@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of medplib_tpu/ops/pallas/flash_attention.py:
 //   flash_fwd_kernel  <- _flash_forward / _flash_kernel   (pallas_call :138)
 //   flash_dq_kernel   <- _dq_kernel                        (pallas_call :306)
-//   flash_dkv_kernel  <- _dkv_kernel                       (pallas_call :333)
+//   flash_dkv_kernel (f32), flash_dkv_mma_kernel (bf16)
+//                     <- _dkv_kernel                       (pallas_call :333)
 //
 // Layouts are the model's: q / out / dout [B, T, H, D], k / v [B, S, H, D]
 // (heads already repeated for GQA), mask [B, S] int32 (> 0 keeps a key),
@@ -23,12 +24,14 @@
 //   sentinel), dS = p * (dP - delta), dQ = dS K * scale, dK = dS^T (q scale),
 //   dV = P^T dO, with delta = rowsum(dO * O) computed by the caller.
 //
-// Design (first, simple version). One block of 256 threads per (b*h, 64-row
-// tile). K4 and K5: a query tile, looping over 64-key tiles up to the causal
-// diagonal; K6: a key tile, looping over the query tiles from the diagonal
-// down. The scaled Q tile is kept in shared memory in f32, K / V / dO tiles in
-// the input type, with a row pitch of D + 4 elements so that the 8- and
-// 16-byte reads of 16 different rows hit distinct banks. Each thread owns a
+// K6 on bf16 runs on the tensor cores (flash_dkv_mma_kernel, its design
+// beside it). The rest is the first, simple version: one block of 256
+// threads per (b*h, 64-row tile). K4 and K5: a query tile, looping over
+// 64-key tiles up to the causal diagonal; K6 on f32: a key tile, looping
+// over the query tiles from the diagonal down. The scaled Q tile is kept
+// in shared memory in f32, K / V / dO tiles in the input type, with a row
+// pitch of D + 4 elements so that the 8- and 16-byte reads of 16 different
+// rows hit distinct banks. Each thread owns a
 // 4 x 4 patch of the 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j)
 // and a 4 x 8 patch of the 64 x 128 accumulators (rows ty + 16 i, columns
 // 4 tx + {0..3} and 64 + 4 tx + {0..3}). Row max and row sum reduce over the
@@ -41,13 +44,18 @@
 // of q / k / v / out: ~0.085 ms for the bytes at 3.35 TB/s, ~0.078 ms for
 // the FLOP on bf16 tensor cores. The backward passes redo the scores and
 // add two (dQ) or three (dK, dV) products: ~1.2e11 and ~1.5e11 FLOP, bound
-// by operations. This version runs on f32 CUDA-core FMA (67 TFLOP/s peak),
-// so it is compute bound far above those floors; mma / wgmma tiles, TMA
-// loads and a pipelined K / V ring are later work.
+// by operations. K4, K5 and K6 on f32 run on f32 CUDA-core FMA (67
+// TFLOP/s peak), far above those floors; K6 on bf16 runs bf16 mma.sync
+// (12 D FLOP a kept pair with its hi / lo split). mma tiles for K4 / K5,
+// then wgmma and TMA loads, are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -472,6 +480,254 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6 on bf16: dK, dV on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// One block of 4 warps per (b*h, 64-key tile); warp w owns keys 16 w ..
+// 16 w + 15 of the tile and their dK / dV rows (16 x 128 f32 each, in
+// registers: 128 accumulators a thread). Query tiles of 64 rows stream
+// through a 2-stage cp.async ring (Q, dO, lse, delta), from the first one
+// that reaches the key tile (the causal skip). All products are bf16
+// mma.sync m16n8k16 with f32 sums, in [key, query] orientation:
+//   S^T  = K Q^T     A: the warp's K rows (ldmatrix), B: Q rows as the
+//   dP^T = V dO^T       .col operand (ldmatrix), kDkvQS queries a step
+//   P^T  = keep ? exp(S^T * scale - lse) : 0      (the scale on the f32
+//   dS^T = P^T * (dP^T - delta)                   sum: bf16 q * scale
+//   dV  += P^T dO    A: P^T's C fragments            would round)
+//   dK  += dS^T Q    B: dO / Q rows by ldmatrix.trans; dK * scale at the end
+// The m16n8 C fragments of two neighbouring query n-tiles (rows g, g + 8,
+// columns 2t, 2t + 1) are the m16k16 A fragment of those 16 queries, so
+// P^T and dS^T feed the second products from registers.
+// q, k, v and dO are exact bf16 operands; P and dS are not bf16 values.
+// Each is split, hi = bf16(x), lo = bf16(x - hi), and both halves run an
+// mma against the same B: the product keeps ~2^-17 of x (one bf16
+// rounding would be 2^-9), inside the f32 summation-order noise of the
+// reference's f32 products (12 D mma FLOP per kept pair instead of 8 D).
+// Tiles are [row][128 d] bf16, 256 bytes a row, 16-byte chunk c of row r
+// at c ^ (r & 7): the eight rows of an ldmatrix phase (plain or .trans)
+// fall in distinct banks. No atomics: deterministic.
+
+constexpr int kRowB = kD * 2;                        // bytes of a bf16 row
+constexpr int kTileB = 64 * kRowB;                   // a 64-row tile
+constexpr int kDkvThreads = 128;
+constexpr int kDkvStage = 2 * kTileB + 2 * 64 * 4;   // Q, dO, lse, delta
+constexpr int kDkvSmem = 2 * kTileB + 2 * kDkvStage;  // + K, V
+// queries a sub-step: 16 keeps the kernel at 247 registers; at 32 or 64
+// ptxas spills (~20 bytes at 255 registers) for a few % of speed
+constexpr int kDkvQS = 16;
+
+// smem byte offset of 16-byte chunk c of row r of a swizzled tile
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kRowB + ((c ^ (r & 7)) << 4);
+}
+
+// 64 rows [r0, r0 + 64) of a bf16 sequence (row r at g + r * stride) -> a
+// swizzled tile by cp.async; rows >= n are zero. The thread copies chunk
+// c of rows r, r + 8, ..: one source pointer stepped by 8 rows, so no
+// per-copy addresses stay live in registers across the query loop.
+__device__ __forceinline__ void copy_tile(unsigned char* tile,
+                                          const __nv_bfloat16* g,
+                                          size_t stride, int r0, int n) {
+  constexpr int kStep = kDkvThreads / 16;
+  const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
+  const __nv_bfloat16* src = g + (size_t)(r0 + r) * stride + 8 * c;
+#pragma unroll
+  for (int i = 0; i < 64 / kStep; ++i, src += kStep * stride) {
+    const bool ok = r0 + r + i * kStep < n;
+    mmatile::cp_async<16>(tile + swz(r + i * kStep, c), ok ? src : g,
+                          ok ? 16 : 0);
+  }
+}
+
+// The lane's ldmatrix.x4 offset for tile rows r0 .. r0 + 16 (r0 % 8 == 0),
+// d chunks 2 s, 2 s + 1 (d 16 s .. 16 s + 16): lanes 0-15 address the rows
+// at chunk 2 s, lanes 16-31 at 2 s + 1. Plain: the A fragment of those
+// rows, or {b0, b0', b1, b1'} of the n-tiles rows r0.., r0 + 8..; .trans
+// (rows = k): {b0, b1} of d n-tile 2 s, then of 2 s + 1.
+__device__ __forceinline__ uint32_t frag(int r0, int s) {
+  const int lane = threadIdx.x & 31;
+  return swz(r0 + (lane & 15), 2 * s + (lane >> 4));
+}
+
+// acc[j] = the warp's 16 rows of tile a (at a_r0) . tile rows b_r0 + 8 j
+// of tile b, over D: NQ n-tiles of m16n8k16.
+template <int NQ>
+__device__ __forceinline__ void rows_dot(uint32_t a, int a_r0, uint32_t b,
+                                         int b_r0, float (&acc)[NQ][4]) {
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kD / 16; ++s) {
+    uint32_t af[4];
+    mmatile::ldmatrix_x4(af, a + frag(a_r0, s));
+#pragma unroll
+    for (int h = 0; h < NQ / 2; ++h) {
+      uint32_t bf[4];
+      mmatile::ldmatrix_x4(bf, b + frag(b_r0 + 16 * h, s));
+      mmatile::mma_bf16(acc[2 * h], af, bf[0], bf[2]);
+      mmatile::mma_bf16(acc[2 * h + 1], af, bf[1], bf[3]);
+    }
+  }
+}
+
+// (x, y) -> bf16x2 hi = (bf16(x), bf16(y)) and lo = the rounded remainders
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// acc[16 d n-tiles] += X . tile rows b_r0 .. b_r0 + 8 NQ of b ([query][d]),
+// X the warp's 16 x 8 NQ values as C fragments, split hi + lo.
+template <int NQ>
+__device__ __forceinline__ void axpy_split(const float (&x)[NQ][4],
+                                           uint32_t b, int b_r0,
+                                           float (&acc)[kD / 8][4]) {
+#pragma unroll
+  for (int kq = 0; kq < NQ / 2; ++kq) {
+    uint32_t hi[4], lo[4];
+    split2(x[2 * kq][0], x[2 * kq][1], hi[0], lo[0]);
+    split2(x[2 * kq][2], x[2 * kq][3], hi[1], lo[1]);
+    split2(x[2 * kq + 1][0], x[2 * kq + 1][1], hi[2], lo[2]);
+    split2(x[2 * kq + 1][2], x[2 * kq + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int p = 0; p < kD / 16; ++p) {
+      uint32_t bf[4];
+      mmatile::ldmatrix_x4_trans(bf, b + frag(b_r0 + 16 * kq, p));
+      mmatile::mma_bf16(acc[2 * p], hi, bf[0], bf[1]);
+      mmatile::mma_bf16(acc[2 * p], lo, bf[0], bf[1]);
+      mmatile::mma_bf16(acc[2 * p + 1], hi, bf[2], bf[3]);
+      mmatile::mma_bf16(acc[2 * p + 1], lo, bf[2], bf[3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kDkvThreads)
+flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const int* __restrict__ mask,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int t_len, int s_len,
+                     int heads, float scale) {
+  constexpr int NQ = kDkvQS / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t s0 = mmatile::smem_u32(smem);
+
+  const int k0 = blockIdx.x * kBN;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q_off = s_len - t_len;
+  const size_t stride = (size_t)heads * kD;
+  const size_t qbase = ((size_t)b * t_len * heads + h) * kD;
+  const size_t kbase = ((size_t)b * s_len * heads + h) * kD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = 16 * warp;  // the warp's rows of the key tile
+
+  copy_tile(smem, k + kbase, stride, k0, s_len);
+  copy_tile(smem + kTileB, v + kbase, stride, k0, s_len);
+  // query tile qt -> ring stage st: Q, dO, then lse[64], delta[64]
+  auto load_q = [&](int st, int qt) {
+    unsigned char* base = smem + 2 * kTileB + st * kDkvStage;
+    const int q0 = qt * kBM, row = q0 + (threadIdx.x & 63);
+    copy_tile(base, q + qbase, stride, q0, t_len);
+    copy_tile(base + kTileB, dout + qbase, stride, q0, t_len);
+    const bool ok = row < t_len;
+    const float* src = (threadIdx.x < 64 ? lse : delta) +
+                       (size_t)bh * t_len + row;
+    mmatile::cp_async<4>(base + 2 * kTileB + 4 * threadIdx.x,
+                         ok ? src : lse, ok ? 4 : 0);
+  };
+
+  // the thread's keys, rows g and g + 8 of the warp's: kept unless past S
+  // or masked
+  int key[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key[r] = k0 + kw + g + 8 * r;
+    key_ok[r] = key[r] < s_len && mask[(size_t)b * s_len + key[r]] > 0;
+  }
+  float dka[kD / 8][4], dva[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  // the first query tile whose last row reaches the key tile
+  const int n_qt = (t_len + kBM - 1) / kBM;
+  const int qt0 = max(0, k0 - q_off) / kBM;
+  load_q(0, qt0);
+  mmatile::cp_async_commit();
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int st = (qt - qt0) & 1;
+    if (qt + 1 < n_qt) load_q(st ^ 1, qt + 1);
+    mmatile::cp_async_commit();
+    mmatile::cp_async_wait<1>();
+    __syncthreads();  // stage st (and K, V) landed
+    const uint32_t sq = s0 + 2 * kTileB + st * kDkvStage, sdo = sq + kTileB;
+    const float* rows = reinterpret_cast<const float*>(
+        smem + 4 * kTileB + st * kDkvStage);
+    const int q0 = qt * kBM;
+    // per kDkvQS queries: P^T and dV first, then dP^T, dS^T and dK, so
+    // that at most P^T and dP^T are live beside the 128 accumulators (a
+    // rolled loop: unrolled, ptxas interleaves the sub-steps and spills)
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBM; c0 += kDkvQS) {
+      float p[NQ][4], ds[NQ][4];
+      rows_dot<NQ>(s0, kw, sq, c0, p);  // S^T
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const int col = c0 + 8 * j + 2 * t;
+        const float2 l = *reinterpret_cast<const float2*>(rows + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + col + (e & 1), r = e >> 1;
+          const bool keep = key_ok[r] && qi < t_len && qi + q_off >= key[r];
+          p[j][e] =
+              keep ? expf(p[j][e] * scale - ((e & 1) ? l.y : l.x)) : 0.f;
+        }
+      }
+      axpy_split<NQ>(p, sdo, c0, dva);             // dV += P^T dO
+      rows_dot<NQ>(s0 + kTileB, kw, sdo, c0, ds);  // dP^T
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(
+            rows + 64 + c0 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = p[j][e] * (ds[j][e] - ((e & 1) ? dl.y : dl.x));
+      }
+      axpy_split<NQ>(ds, sq, c0, dka);  // dK += dS^T Q
+    }
+    __syncthreads();  // stage st is refilled by the next prefetch
+  }
+
+  // the thread's rows g, g + 8, columns 8 j + 2t, + 1 of each d n-tile j
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= s_len) continue;
+    const size_t o = kbase + (size_t)key[r] * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * j) =
+          __floats2bfloat162_rn(dka[j][2 * r] * scale,
+                                dka[j][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * j) =
+          __floats2bfloat162_rn(dva[j][2 * r], dva[j][2 * r + 1]);
+    }
+  }
+}
+
 template <typename T>
 size_t fwd_smem() {
   return kBM * kPitch * sizeof(float) + kBN * kPitch * sizeof(T) +
@@ -524,22 +780,35 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K6: the FMA kernel on f32 (a bf16 mma would round f32 q, k, v), the
+// tensor-core kernel on bf16.
 template <typename T>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* mask, const void* dout, const void* lse,
                     const void* delta, void* dk, void* dv, int batch,
                     int t_len, int s_len, int heads, float scale,
                     cudaStream_t stream) {
-  const size_t smem = dkv_smem<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
   dim3 grid((s_len + kBN - 1) / kBN, batch * heads);
-  flash_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)mask,
-      (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk,
-      (T*)dv, t_len, s_len, heads, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_dkv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kDkvSmem);
+    if (e != cudaSuccess) return e;
+    flash_dkv_mma_kernel<<<grid, kDkvThreads, kDkvSmem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)mask,
+        (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk,
+        (T*)dv, t_len, s_len, heads, scale);
+  } else {
+    const size_t smem = dkv_smem<T>();
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    flash_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)mask,
+        (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk,
+        (T*)dv, t_len, s_len, heads, scale);
+  }
   return cudaGetLastError();
 }
 

@@ -156,11 +156,11 @@ int4h_mma_kernel(const __nv_bfloat16* __restrict__ x,
     sc[i] = n < N ? scale[(size_t)(i / BN) * N + n] : 0.0f;
   }
 
-  const ATileLoader<BM, THREADS> aload(x, lda, M, m0);
+  const ATileLoader<BM, THREADS> aload(x, 2 * (size_t)lda, M, m0);
   const BTileLoader<BN, THREADS, TRANS, WV> bload(p, N, wpitch, n0);
   auto load_stage = [&](int slot, int kt) {
     char* a = smem + slot * STAGE;
-    aload.load(a, x, K, kt * kBK);
+    aload.load(a, x, 2 * K, 2 * kt * kBK);
     bload.load(a + A_BYTES, p, k2, kt * (kBK / 2));
   };
   uint32_t a_off[4];
@@ -418,7 +418,7 @@ int4h_matmul_f32_kernel(const float* __restrict__ x,
 
   for (int k0 = 0; k0 < K; k0 += kKC) {
     __syncthreads();  // previous chunk fully consumed
-    load_x<kF32, TM>(x, M, K, m0, k0, sm);
+    load_x<TM>(x, M, K, m0, k0, sm);
     load_w(p, scale, K, N, groups, gsize, n0, k0, trans != 0, sm);
     __syncthreads();
     mac_chunk<R>(sm, ty, tx, acc);

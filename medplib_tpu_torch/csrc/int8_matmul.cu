@@ -12,13 +12,13 @@
 //     since a bf16 mma would round x.
 //   - K8, `_w8a8_kernel` (w8a8_matmul / w8a8_matmul_t): x is already
 //     quantized per row (int8 x_q, f32 a_scale, done outside as in the
-//     reference); products on __dp4a into an s32 sum (exact), then
+//     reference); s8 mma.sync m16n8k32 into s32 sums (exact), then
 //       out[m, n] = (out dtype)(__fmul_rn(__fmul_rn(float(acc), a_scale[m]),
 //                                         w_scale[n]))
 //     K8's own epilogue order ((acc * a_s) * w_s; K3's is the other way).
+//     The kernel is s8_mma.cuh's.
 // The weight is [K, N] (scale [1, N]) or transposed [N, K] (scale [N, 1]);
-// both read as scale[n]. A transposed weight is a runtime branch of the
-// loader: the shared-memory tile is [column][k] either way.
+// both read as scale[n].
 //
 // What bounds it on the H100. K7 on the packed dense serving path: prefill
 // (M = 16 x 623 rows, K = 4096, N = 12288 qkv / 22016 gate-up) does
@@ -26,33 +26,30 @@
 // Decode (M = 16) does 2 x 16 FLOP per weight byte: bound by the weight
 // bytes on the tensor cores. K7 on bf16 x therefore runs bf16 mma.sync
 // from a cp.async ring (int8w_mma.cuh: the int8 bytes decoded to bf16 in
-// registers, exactly; the f32 sum scaled once). The FMA / __dp4a kernel
-// below serves K7 on f32 x and K8 (whose s8 mma is later work): TM x 64
-// output tiles (TM = 64 at prefill, 16 at decode), 64-deep K chunks,
-// 16-byte global loads, R x 4 outputs per thread (matmul_tile.cuh), ragged
-// rows, columns and the last K chunk zero-filled in shared memory. In
-// neither kernel does the dequantized weight exist in device memory.
+// registers, exactly; the f32 sum scaled once). The FMA kernel below
+// serves K7 on f32 x: TM x 64 output tiles (TM = 64 at prefill, 16 at
+// decode), 64-deep K chunks, 16-byte global loads, R x 4 outputs per
+// thread (matmul_tile.cuh), ragged rows, columns and the last K chunk
+// zero-filled in shared memory. In neither kernel does the dequantized
+// weight exist in device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "int8w_mma.cuh"
 #include "matmul_tile.cuh"
+#include "s8_mma.cuh"
 
 namespace {
 
 using namespace mtile;
 
 // ---- int8 weight chunk (reduction rows k0.., columns n0..) -> smem
-// column-major [kTN cols][kKC k]: bytes (A8) or floats (exact int8 -> f32).
-template <bool A8>
+// column-major [kTN cols][kKC k] as floats (exact int8 -> f32).
 __device__ void load_w(const int8_t* __restrict__ w, int K, int N, int n0,
                        int k0, bool trans, Smem& sm) {
   const int tid = threadIdx.x;
-  int8_t* wb = reinterpret_cast<int8_t*>(sm.w);
   if (trans) {
     // w [N, K]: column n's reduction axis is contiguous; 4 threads read
     // one column's 64 bytes
@@ -63,15 +60,10 @@ __device__ void load_w(const int8_t* __restrict__ w, int K, int N, int n0,
       int4 d = make_int4(0, 0, 0, 0);
       if (n < N && k < K)
         d = *reinterpret_cast<const int4*>(w + (size_t)n * K + k);
-      if constexpr (A8) {
-        int* dst = reinterpret_cast<int*>(sm.w) + c * kPadW + kq * 4;
-        dst[0] = d.x; dst[1] = d.y; dst[2] = d.z; dst[3] = d.w;
-      } else {
-        const int8_t* b = reinterpret_cast<const int8_t*>(&d);
-        float* dst = sm.w + c * kPadF + kq * 16;
+      const int8_t* b = reinterpret_cast<const int8_t*>(&d);
+      float* dst = sm.w + c * kPadF + kq * 16;
 #pragma unroll
-        for (int t = 0; t < 16; ++t) dst[t] = (float)b[t];
-      }
+      for (int t = 0; t < 16; ++t) dst[t] = (float)b[t];
     }
   } else {
     // w [K, N]: row k holds the columns contiguously; 4 threads read one
@@ -85,43 +77,35 @@ __device__ void load_w(const int8_t* __restrict__ w, int K, int N, int n0,
         d = *reinterpret_cast<const int4*>(w + (size_t)k * N + n);
       const int8_t* b = reinterpret_cast<const int8_t*>(&d);
 #pragma unroll
-      for (int t = 0; t < 16; ++t) {
-        if constexpr (A8)
-          wb[(cq * 16 + t) * kPadW * 4 + r] = b[t];
-        else
-          sm.w[(cq * 16 + t) * kPadF + r] = (float)b[t];
-      }
+      for (int t = 0; t < 16; ++t)
+        sm.w[(cq * 16 + t) * kPadF + r] = (float)b[t];
     }
   }
 }
 
-// XT: kF32 (K7 on f32 x, f32 out) or kI8 (K8; out_bf16 picks the output
-// dtype).
-template <int XT, int TM>
+// K7 on f32 x (f32 out).
+template <int TM>
 __global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ w_scale,
-                   const float* __restrict__ a_scale, void* __restrict__ out,
-                   int M, int K, int N, int trans, int out_bf16) {
-  constexpr bool A8 = XT == kI8;
+int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ w_scale, float* __restrict__ out,
+                   int M, int K, int N, int trans) {
   constexpr int R = TM / 16;
-  using Acc = typename std::conditional<A8, int, float>::type;
   __shared__ Smem sm;
 
   const int n0 = blockIdx.x * kTN;
   const int m0 = blockIdx.y * TM;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  Acc acc[R][4];
+  float acc[R][4];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < K; k0 += kKC) {
     __syncthreads();  // previous chunk fully consumed
-    load_x<XT, TM>(x, M, K, m0, k0, sm);
-    load_w<A8>(w, K, N, n0, k0, trans != 0, sm);
+    load_x<TM>(x, M, K, m0, k0, sm);
+    load_w(w, K, N, n0, k0, trans != 0, sm);
     __syncthreads();
     mac_chunk<R>(sm, ty, tx, acc);
   }
@@ -130,41 +114,29 @@ int8_matmul_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
   for (int i = 0; i < R; ++i) {
     const int r = m0 + ty + 16 * i;
     if (r >= M) continue;
-    const float as = A8 ? a_scale[r] : 1.0f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      float v;
-      if constexpr (A8) {
-        v = __fmul_rn(__int2float_rn(acc[i][j]), as);
-        v = __fmul_rn(v, w_scale[n]);
-      } else {
-        v = __fmul_rn(acc[i][j], w_scale[n]);
-      }
-      const size_t o = (size_t)r * N + n;
-      if (out_bf16)
-        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
-      else
-        static_cast<float*>(out)[o] = v;
+      if (n < N) out[(size_t)r * N + n] = __fmul_rn(acc[i][j], w_scale[n]);
     }
   }
 }
 
-template <int XT>
-int launch(const void* x, const int8_t* w, const float* w_scale,
-           const float* a_scale, void* out, int m, int k, int n, int trans,
-           int out_bf16, cudaStream_t stream) {
+int launch_f32(const void* x, const int8_t* w, const float* w_scale,
+               void* out, int m, int k, int n, int trans,
+               cudaStream_t stream) {
   // 16-row tiles for decode-sized M: the weight is streamed by more
   // column tiles instead of being padded to 64 rows
   const int tm = m > 32 ? 64 : 16;
   dim3 grid((n + kTN - 1) / kTN, (m + tm - 1) / tm);
+  const float* xf = static_cast<const float*>(x);
+  float* o = static_cast<float*>(out);
   if (tm == 64)
-    int8_matmul_kernel<XT, 64><<<grid, kThreads, 0, stream>>>(
-        x, w, w_scale, a_scale, out, m, k, n, trans, out_bf16);
+    int8_matmul_kernel<64><<<grid, kThreads, 0, stream>>>(xf, w, w_scale, o,
+                                                           m, k, n, trans);
   else
-    int8_matmul_kernel<XT, 16><<<grid, kThreads, 0, stream>>>(
-        x, w, w_scale, a_scale, out, m, k, n, trans, out_bf16);
+    int8_matmul_kernel<16><<<grid, kThreads, 0, stream>>>(xf, w, w_scale, o,
+                                                           m, k, n, trans);
   return (int)cudaGetLastError();
 }
 
@@ -184,7 +156,7 @@ extern "C" int int8_matmul_launch(const void* x, const void* w,
     return w8mma::launch<w8mma::kWI8>(x, w, sp, nullptr, out, m, n, k, 0,
                                       trans, 0, s);
   if (xt == kF32)
-    return launch<kF32>(x, wp, sp, nullptr, out, m, k, n, trans, 0, s);
+    return launch_f32(x, wp, sp, out, m, k, n, trans, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -196,8 +168,9 @@ extern "C" int w8a8_matmul_launch(const void* x_q, const void* a_scale,
                                   void* out, int m, int k, int n, int out_t,
                                   int trans, void* stream) {
   if (out_t != kBF16 && out_t != kF32) return (int)cudaErrorInvalidValue;
-  return launch<kI8>(x_q, static_cast<const int8_t*>(w),
-                     static_cast<const float*>(w_scale),
-                     static_cast<const float*>(a_scale), out, m, k, n, trans,
-                     out_t == kBF16, static_cast<cudaStream_t>(stream));
+  return s8mma::launch(static_cast<const int8_t*>(x_q),
+                       static_cast<const int8_t*>(w),
+                       static_cast<const float*>(a_scale),
+                       static_cast<const float*>(w_scale), out, m, n, k,
+                       trans, out_t == kF32, static_cast<cudaStream_t>(stream));
 }

@@ -206,11 +206,11 @@ w8_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int g = lane >> 2, t = lane & 3;
   const int ktiles = (K + kBK - 1) / kBK;
 
-  const ATileLoader<BM, THREADS> aload(x, K, M, m0);
+  const ATileLoader<BM, THREADS> aload(x, 2 * (size_t)K, M, m0);
   const BLoader<WT, TRANS, BN, THREADS> bload(w, N, K, n0);
   auto load_stage = [&](int slot, int kt) {
     char* a = smem + slot * STAGE;
-    aload.load(a, x, K, kt * kBK);
+    aload.load(a, x, 2 * K, 2 * kt * kBK);
     bload.load(a + A_BYTES, w, N, K, kt * kBK);
   };
   uint32_t a_off[4];

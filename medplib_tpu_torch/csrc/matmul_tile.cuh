@@ -1,15 +1,15 @@
 // Shared tile routines of the dense matmul kernels on the CUDA cores
-// (int8_matmul.cu: K7 on f32 x, K8; int4_matmul.cu: K9 on f32 x). K7 and
-// K9 on bf16 x run on the tensor cores (int8w_mma.cuh, int4_matmul.cu).
+// (int8_matmul.cu: K7 on f32 x; int4_matmul.cu: K9 on f32 x). K7 and K9
+// on bf16 x run on the tensor cores (int8w_mma.cuh, int4_matmul.cu), and
+// so does K8 (s8_mma.cuh).
 //
 // A block of 256 threads computes a TM x 64 output tile (TM = 64 or 16)
 // over 64-deep reduction chunks staged in shared memory: the activation
 // chunk [TM][64] row-major, the weight chunk column-major [64 cols][64 k]
 // (each kernel has its own weight loader). Thread ty = tid / 16 owns rows
 // ty + 16 i (i < TM / 16), tx = tid % 16 owns columns tx + 16 j (j < 4).
-// Float tiles hold floats with a row pitch of 65; int8 tiles hold int32
-// words of four int8 values with a pitch of 17 words (the +1 pads keep
-// the column reads of the MAC loop off one bank).
+// Float tiles have a row pitch of 65 (the +1 pad keeps the column reads of
+// the MAC loop off one bank).
 //
 // This is the simple, correct first version: no tensor cores (mma /
 // wgmma), no TMA, no multi-stage pipeline.
@@ -25,7 +25,6 @@ namespace mtile {
 constexpr int kThreads = 256;
 constexpr int kTN = 64;    // output columns per tile
 constexpr int kKC = 64;    // reduction depth per chunk
-constexpr int kPadW = 17;  // int32 words per smem row (int8 tiles), +1 pad
 constexpr int kPadF = 65;  // floats per smem row (float tiles), +1 pad
 
 enum DType { kI8 = 0, kBF16 = 1, kF32 = 2 };
@@ -35,32 +34,20 @@ struct Smem {
   float w[kTN * kPadF];
 };
 
-// Activation chunk [TM, kKC] of rows m0.., columns k0.. (x row-major
-// [M, K] of type XT, kI8 or kF32) -> smem: int32 words of 4 int8 values
-// (kI8), else floats. Rows >= M and columns >= K are zero; K % 16 == 0
+// Activation chunk [TM, kKC] of rows m0.., columns k0.. (x row-major f32
+// [M, K]) -> smem floats. Rows >= M and columns >= K are zero; K % 16 == 0
 // keeps every 16-byte vector wholly in or out.
-template <int XT, int TM>
-__device__ void load_x(const void* __restrict__ x, int M, int K, int m0,
+template <int TM>
+__device__ void load_x(const float* __restrict__ x, int M, int K, int m0,
                        int k0, Smem& sm) {
-  static_assert(XT == kI8 || XT == kF32, "bf16 x runs on the tensor cores");
-  constexpr int V = XT == kI8 ? 16 : 4;  // values per 16 bytes
-  constexpr int PER_ROW = kKC / V;
-  const size_t esize = XT == kI8 ? 1 : 4;
+  constexpr int PER_ROW = kKC / 4;
   for (int v = threadIdx.x; v < TM * PER_ROW; v += kThreads) {
-    const int row = v / PER_ROW, kq = v % PER_ROW, k = k0 + kq * V;
-    int4 d = make_int4(0, 0, 0, 0);
+    const int row = v / PER_ROW, kq = v % PER_ROW, k = k0 + kq * 4;
+    float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
     if (m0 + row < M && k < K)
-      d = *reinterpret_cast<const int4*>(
-          static_cast<const char*>(x) + ((size_t)(m0 + row) * K + k) * esize);
-    if constexpr (XT == kI8) {
-      int* dst = reinterpret_cast<int*>(sm.x) + row * kPadW + kq * 4;
-      dst[0] = d.x; dst[1] = d.y; dst[2] = d.z; dst[3] = d.w;
-    } else {
-      const float* e = reinterpret_cast<const float*>(&d);
-      float* dst = sm.x + row * kPadF + kq * V;
-#pragma unroll
-      for (int t = 0; t < V; ++t) dst[t] = e[t];
-    }
+      d = *reinterpret_cast<const float4*>(x + (size_t)(m0 + row) * K + k);
+    float* dst = sm.x + row * kPadF + kq * 4;
+    dst[0] = d.x; dst[1] = d.y; dst[2] = d.z; dst[3] = d.w;
   }
 }
 
@@ -80,27 +67,6 @@ __device__ __forceinline__ void mac_chunk(const Smem& sm, int ty, int tx,
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], wb[j], acc[i][j]);
-  }
-}
-
-// The same over int8 tiles: __dp4a, four s8 x s8 products into s32
-// (exact).
-template <int R>
-__device__ __forceinline__ void mac_chunk(const Smem& sm, int ty, int tx,
-                                          int (&acc)[R][4]) {
-  const int* xs = reinterpret_cast<const int*>(sm.x);
-  const int* ws = reinterpret_cast<const int*>(sm.w);
-#pragma unroll 4
-  for (int k4 = 0; k4 < kKC / 4; ++k4) {
-    int xa[R], wb[4];
-#pragma unroll
-    for (int i = 0; i < R; ++i) xa[i] = xs[(ty + 16 * i) * kPadW + k4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wb[j] = ws[(tx + 16 * j) * kPadW + k4];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(xa[i], wb[j], acc[i][j]);
   }
 }
 

@@ -1,15 +1,18 @@
 // Warp-level tensor-core building blocks of the dense matmul kernels
 // (int4_matmul.cu: K9 on bf16 x; int8w_mma.cuh: K7 on bf16 x and K3's
-// int8-w / bf16 modes). A kernel adds only its B tile and decode.
+// int8-w / bf16 modes; s8_mma.cuh: K8). A kernel adds only its B tile and
+// decode.
 //
 //   - cp.async copies (16 or 4 bytes, the rest zero-filled through the
 //     source-size operand) into a ring of pipeline stages in dynamic shared
 //     memory;
-//   - the bf16 A tile of a stage (ATileLoader): BM rows x kBK = 64
-//     logical k, 128 bytes a row, 16-byte chunk c of row r stored at chunk
+//   - the A tile of a stage (ATileLoader): BM rows x 128 bytes (kBK = 64
+//     bf16 k, or 128 int8 k), 16-byte chunk c of row r stored at chunk
 //     c ^ (r & 7), so the eight rows an ldmatrix phase reads sit in eight
 //     distinct bank groups;
-//   - ldmatrix.x4 A fragments and mma.sync m16n8k16 (bf16 x bf16 -> f32);
+//   - ldmatrix.x4 A fragments (.trans: B fragments of row-major [k][n]
+//     bf16, for flash_attention.cu's dK / dV) and mma.sync m16n8k16 (bf16
+//     x bf16 -> f32);
 //   - the int4 nibble -> bf16x2 B-register decode;
 //   - the epilogue store of eight neighbouring outputs of one row.
 //
@@ -29,7 +32,7 @@
 namespace mmatile {
 
 constexpr int kBK = 64;         // logical k per pipeline stage
-constexpr int kARow = kBK * 2;  // bytes of one A-tile row (bf16)
+constexpr int kARow = kBK * 2;  // bytes of one A-tile row
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -60,38 +63,50 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copies of the bf16 A tile of one stage: rows m0 .. m0 + BM of x [M,
-// lda], logical k0 .. k0 + 64; rows >= M and k >= K are zero. Each thread
-// copies one 16-byte chunk c of ITERS rows ROW_STEP apart; the addresses
-// are worked out once, so a stage costs a few adds a copy. lda % 8 == 0
-// and a 16-byte aligned x keep every copy aligned.
-template <int BM, int THREADS>
+// Copies of the A tile of one stage: rows m0 .. m0 + BM of x (M rows,
+// `pitch` bytes apart), bytes kb0 .. kb0 + 128 of each; rows >= M and bytes
+// >= kbytes are zero. Each thread copies one 16-byte chunk c of ITERS rows
+// ROW_STEP apart; the addresses are worked out once, so a stage costs a
+// few adds a copy. A 16-byte aligned x and pitch keep every copy aligned.
+// PERM stores tile row 32 G + 4 g + j at smem row 32 G + 8 j + g: a weight
+// tile whose rows are output columns then holds n-tile j's eight columns
+// 4 g + j in smem rows 8 j .. 8 j + 7 (the column map of s8_mma.cuh).
+template <int BM, int THREADS, bool PERM = false>
 struct ATileLoader {
   static constexpr int ITERS = BM * 8 / THREADS;
   static constexpr int ROW_STEP = THREADS / 8;
   static_assert(BM * 8 % THREADS == 0 && ROW_STEP % 8 == 0, "A tile copies");
-  const char* src;  // the thread's first row at its chunk, k0 = 0
+  const char* src;  // the thread's first row at its chunk, kb0 = 0
   size_t step;      // bytes between its rows
-  int dst, kc, rows;  // smem offset, logical k of its chunk, rows < M
+  int r, c16, dst, rows;  // its first row, chunk byte, smem offset, rows < M
 
-  __device__ ATileLoader(const __nv_bfloat16* x, int lda, int M, int m0) {
-    const int r = threadIdx.x >> 3, c = threadIdx.x & 7;
-    kc = 8 * c;
-    dst = r * kARow + ((c ^ (r & 7)) << 4);
-    rows = min(ITERS, max(0, (M - m0 - r + ROW_STEP - 1) / ROW_STEP));
-    src = reinterpret_cast<const char*>(x + (size_t)(m0 + r) * lda + kc);
-    step = (size_t)ROW_STEP * lda * 2;
+  // smem byte offset of 16-byte chunk c of tile row row
+  __device__ static int offset(int row, int c) {
+    if constexpr (PERM)
+      row = (row & ~31) | ((row & 3) << 3) | ((row >> 2) & 7);
+    return row * kARow + ((c ^ (row & 7)) << 4);
   }
 
-  __device__ __forceinline__ void load(char* tile, const void* x, int K,
-                                       int k0) const {
-    const int left = K - k0 - kc;
-    const int bytes = left >= 8 ? 16 : left > 0 ? 2 * left : 0;
+  __device__ ATileLoader(const void* x, size_t pitch, int M, int m0) {
+    r = threadIdx.x >> 3;
+    const int c = threadIdx.x & 7;
+    c16 = 16 * c;
+    dst = offset(r, c);
+    rows = min(ITERS, max(0, (M - m0 - r + ROW_STEP - 1) / ROW_STEP));
+    src = static_cast<const char*>(x) + (size_t)(m0 + r) * pitch + c16;
+    step = (size_t)ROW_STEP * pitch;
+  }
+
+  __device__ __forceinline__ void load(char* tile, const void* x, int kbytes,
+                                       int kb0) const {
+    const int left = kbytes - kb0 - c16;
+    const int bytes = left >= 16 ? 16 : max(left, 0);
 #pragma unroll
     for (int i = 0; i < ITERS; ++i) {
       const bool ok = i < rows && bytes > 0;
-      cp_async<16>(tile + dst + i * ROW_STEP * kARow,
-                   ok ? src + i * step + 2 * (size_t)k0 : x, ok ? bytes : 0);
+      const int d = PERM ? offset(r + i * ROW_STEP, c16 >> 4)
+                         : dst + i * ROW_STEP * kARow;
+      cp_async<16>(tile + d, ok ? src + i * step + kb0 : x, ok ? bytes : 0);
     }
   }
 };
@@ -103,10 +118,22 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+// The same with .trans: each lane gets the transposed 8 x 8 blocks, i.e.
+// from row-major [k][n] bf16 rows the .col B fragments (k 2t, 2t+1 of
+// column g).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // The lane's ldmatrix.x4 offset in an A tile for the 16-row m-tile at
-// tile rows r0 (a multiple of 8), k-step s (logical k 16 s .. 16 s + 16 of
-// the stage): lanes 0-15 address rows r0 + 0..15 of chunk 2 s, lanes 16-31
-// the same rows of chunk 2 s + 1.
+// tile rows r0 (a multiple of 8), k-step s (bytes 32 s .. 32 s + 32 of the
+// stage's rows: 16 bf16 or 32 int8 k): lanes 0-15 address rows r0 + 0..15
+// of chunk 2 s, lanes 16-31 the same rows of chunk 2 s + 1.
 __device__ __forceinline__ uint32_t a_frag_offset(int r0, int s) {
   const int lane = threadIdx.x & 31;
   const int r = r0 + (lane & 15), c = 2 * s + (lane >> 4);

@@ -16,9 +16,10 @@ Counterpart of medplib_tpu/ops/pallas/int8_matmul.py:
 - `w8a8_matmul` / `w8a8_matmul_t`: per-row dynamic int8 activation quant
   (ops/cuda/gmm.quantize_rows, outside the kernel as in the reference), an
   exact s32 product, the epilogue (acc * a_scale) * w_scale in f32, then a
-  cast to x's dtype. The CUDA kernel is csrc/int8_matmul.cu
-  (`w8a8_matmul_launch`, on __dp4a). The JAX package has no model caller for it, and
-  neither has the port.
+  cast to x's dtype. The CUDA entry is csrc/int8_matmul.cu
+  (`w8a8_matmul_launch`): s8 mma.sync m16n8k32 on the tensor cores
+  (csrc/s8_mma.cuh), exact s32 sums, bit-equal to the plain version. The
+  JAX package has no model caller for it, and neither has the port.
 
 Weights are [K, N] with scale [1, N], or transposed [N, K] with scale
 [N, 1]. On a CPU tensor the kernel wrappers (`int8_matmul_2d`,

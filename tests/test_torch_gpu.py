@@ -176,6 +176,35 @@ def test_flash_kernels_match_plain(dev, t, s, dtype):
         assert bool(torch.isfinite(x.float()).all())
 
 
+def test_flash_dkv_whole_masked_key_tiles(dev):
+    """K6 on bf16 at T < S with whole 64-key tiles masked (keys 64-191 of
+    row 0, 128-255 of row 1): those keys' dK / dV rows are exactly zero,
+    the rest within rel Frobenius 1e-3 of the plain version."""
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, t, s, h, d = 2, 100, 300, 2, 128
+    bf = torch.bfloat16
+    q, g = (torch.randn((b, t, h, d), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    mask[0, 64:192] = 0
+    mask[1, 128:256] = 0
+    mask[1, s - 7:] = 0
+    out, lse = FA.flash_forward(q, k, v, mask)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = FA.flash_dkv(q, k, v, mask, g, lse, delta)
+    want = FA.flash_dkv_plain(q, k, v, mask, g, lse, delta)
+    torch.cuda.synchronize()
+    dead = (mask == 0)[:, :, None, None].expand(-1, -1, h, d)
+    for got, w in zip((dk, dv), want):
+        assert got.dtype == bf and bool(torch.isfinite(got.float()).all())
+        assert not bool(got[dead].any())
+        assert float((got.float() - w.float()).norm()
+                     / w.float().norm()) < 1e-3
+
+
 def test_flash_autograd_on_card(dev):
     """flash_attention under torch.autograd on the card: the backward runs
     K5 and K6 once each and matches autograd through the plain attention
@@ -338,29 +367,45 @@ def test_int8_matmul_kernel_matches_plain(dev, xd, transposed, m, k):
     assert _sum_order_close(got, want, x, wd.t() if transposed else wd)
 
 
-@pytest.mark.parametrize("transposed,m,k", [(False, 300, 2048),
-                                            (True, 300, 2048),
-                                            (True, 16, 1040)])
-def test_w8a8_matmul_kernel_bit_equal_to_plain(dev, transposed, m, k):
+# (transposed, M, K, N, x / out dtype): 64-row tiles at M = 300, the
+# 16-row decode tile at M = 16, f32 outputs, and the ragged K = 688 (not a
+# multiple of the 32-deep s8 mma step) with N = 320 (not one of the
+# 128-column tile), which the wrapper pads to K, N % 16
+@pytest.mark.parametrize("transposed,m,k,n,xd", [
+    (False, 300, 2048, 208, torch.bfloat16),
+    (True, 300, 2048, 208, torch.bfloat16),
+    (True, 16, 1040, 208, torch.bfloat16),
+    (False, 16, 1040, 208, torch.bfloat16),
+    (False, 300, 2048, 208, torch.float32),
+    (True, 300, 2048, 208, torch.float32),
+    (False, 16, 1040, 208, torch.float32),
+    (True, 16, 1040, 208, torch.float32),
+    (False, 300, 688, 320, torch.bfloat16),
+    (True, 300, 688, 320, torch.bfloat16),
+    (False, 300, 688, 320, torch.float32),
+    (True, 300, 688, 320, torch.float32),
+])
+def test_w8a8_matmul_kernel_bit_equal_to_plain(dev, transposed, m, k, n,
+                                               xd):
     """K8: exact s32 sums on both sides (above 2^24 at K = 2048 with |x|,
-    |w| near 127), the same rounded epilogue -> bit-equal."""
+    |w| near 127), the same rounded epilogue -> bit-equal, in bf16 and in
+    f32 output."""
     from medplib_tpu_torch.ops.cuda import int8_matmul as I
     gen = torch.Generator(device=dev).manual_seed(k + m)
-    n = 208
     x = (torch.rand((m, k), generator=gen, device=dev) * 27 + 100) \
         * torch.randn((m, 1), generator=gen, device=dev)
     w = torch.randint(100, 128, (n, k) if transposed else (k, n),
                       generator=gen, device=dev, dtype=torch.int8)
     s = torch.rand((n, 1) if transposed else (1, n), generator=gen,
                    device=dev) * 0.01 + 1e-3
-    x = x.to(torch.bfloat16)
+    x = x.to(xd)
     n0 = I.w8a8_matmul_2d.launches
     got = (I.w8a8_matmul_t if transposed else I.w8a8_matmul)(x, w, s)
     x_q, a_s = I.quantize_rows(x)
     want = I.w8a8_matmul_plain(x_q, a_s, w, s, transposed, x.dtype)
     torch.cuda.synchronize()
     assert I.w8a8_matmul_2d.launches == n0 + 1
-    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert got.dtype == xd and got.shape == (m, n) and torch.equal(got, want)
 
 
 # (x dtype, transposed, groups, M, K, N). K = 1056 at G = 8: 132-deep
