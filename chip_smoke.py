@@ -8,14 +8,15 @@
 2. Builds the hand-written kernels from medplib_tpu_torch/csrc with nvcc
    and counts, with cuobjdump, the tensor-core instructions of each
    instance of the tensor-core kernels (HMMA: K7 on bf16 x, K3 int8-w /
-   bf16, K9 on bf16 x, K6 on bf16; IMMA: K8).
+   bf16, K9 on bf16 x, K4 / K5 / K6 on bf16; IMMA: K8).
 3. Kernel phases: each kernel at the shapes its main path gives it (K1,
    K2 in A8 and bf16-x modes at the flagship serving shapes, K2 also at
    B=80 rows; K3 in W8A8 at the int8-expert flagship shapes, int8-w and
    float bf16 at the ICL shapes, transposed at a small shape; K7
    int8_matmul and K9 int4h_matmul at the packed dense serving shapes,
    prefill and decode, both layouts; K8 w8a8_matmul, on no path, at the
-   dense W8A8 shapes; K4, K5, K6 at the stage-3 training shape) against
+   dense W8A8 shapes; K4, K5, K6 at the stage-3 training shape, K4 also
+   at the ICL shape) against
    its plain PyTorch version on the same card (TF32 off), with the
    tolerance stated; timed with CUDA events beside the plain version, the
    least time the card could take (bound_ms) and a library yardstick
@@ -111,9 +112,11 @@ def sass_phase(lib_path, build_log: str) -> None:
     """cuobjdump --dump-sass of the built library: the tensor-core
     instructions in each instance of the tensor-core kernels (HMMA in
     w8_mma_kernel: K7 on bf16 x, K3 int8-w / bf16; int4h_mma_kernel: K9 on
-    bf16 x; flash_dkv_mma_kernel: K6 on bf16; IMMA in s8_mma_kernel: K8)
+    bf16 x; flash_fwd_mma_kernel, flash_dq_mma_kernel and
+    flash_dkv_mma_kernel: K4, K5 and K6 on bf16; IMMA in s8_mma_kernel: K8)
     and, for contrast, in the CUDA-core kernels (K3 W8A8 / f32, K7 f32 x,
-    K9 f32 x, K6 f32). Fails if a tensor-core instance holds none. From
+    K9 f32 x, K4 / K5 / K6 f32). Fails if a tensor-core instance holds none.
+    From
     this run's nvcc log (ptxas -v), each tensor-core instance's registers
     and spill stores; fails on a spill."""
     import re
@@ -131,6 +134,7 @@ def sass_phase(lib_path, build_log: str) -> None:
             fns[-1][1] += bool(re.search(r"\bHMMA\b", line))
             fns[-1][2] += bool(re.search(r"\bIMMA\b", line))
     hmma = {"w8_mma_kernel": 12, "int4h_mma_kernel": 8,
+            "flash_fwd_mma_kernel": 1, "flash_dq_mma_kernel": 1,
             "flash_dkv_mma_kernel": 1}       # kernel -> its instances
     imma = {"s8_mma_kernel": 4}
     bad = []
@@ -144,10 +148,11 @@ def sass_phase(lib_path, build_log: str) -> None:
     other = [(h, i) for f, h, i in fns
              if any(k in f for k in ("gmm_kernel", "int8_matmul_kernel",
                                      "int4h_matmul_f32_kernel",
+                                     "flash_fwd_kernel", "flash_dq_kernel",
                                      "flash_dkv_kernel"))]
-    log(f"[sass] CUDA-core kernels (K3 W8A8 / f32, K7 f32 x, K9 f32 x, K6 "
-        f"f32): {sum(h for h, _ in other)} HMMA, {sum(i for _, i in other)}"
-        f" IMMA in {len(other)} instances")
+    log(f"[sass] CUDA-core kernels (K3 W8A8 / f32, K7 f32 x, K9 f32 x, "
+        f"K4 / K5 / K6 f32): {sum(h for h, _ in other)} HMMA, "
+        f"{sum(i for _, i in other)} IMMA in {len(other)} instances")
     if bad:
         raise AssertionError(f"tensor-core kernels without HMMA / IMMA or "
                              f"with other instance counts: {bad}")
@@ -753,14 +758,23 @@ def _flash_inputs(gen, dev, b, t, s, h, d):
     return q, k, v, mask, dout
 
 
+# mma FLOP a kept (query, key) pair, in units of D: what the table counts
+# (S, then P V / dP and dS K / dP, P^T dO and dS^T Q) and what the bf16
+# tensor-core kernels run (the P / dS products twice: hi + lo)
+FLASH_FLOP_D = {"flash_fwd": (4, 6), "flash_bwd_dq": (6, 8),
+                "flash_bwd_dkv": (8, 12)}
+
+
 def flash_phase(gen, dev, results):
     """K4 / K5 / K6 at the training shape: B=8, T=S=1087 (the spliced
     stage-3 row), H=32, D=128, bf16, with padded key tails and, at T=S, a
-    row whose first queries keep no key; then once with T < S. Each kernel
+    row whose first queries keep no key; then once with T < S, and at the
+    ICL shape (B=4, T=S=1789, the 3-image spliced row). Each kernel
     against its plain version on the same inputs (the backward ones from
-    the kernel's lse and delta), timed with CUDA events beside the plain
-    version and torch's scaled_dot_product_attention (boolean causal+keep
-    mask) forward and backward.
+    the kernel's lse and delta), timed at the training shape with CUDA
+    events beside the plain version and torch's
+    scaled_dot_product_attention (boolean causal+keep mask) forward and
+    backward; K4 also at the ICL shape, where it runs on a serving path.
 
     Tolerances: out, dq, dk, dv are bf16 results of f32 sums taken in
     another order, so at most a rare one-ulp rounding flip: relative
@@ -770,8 +784,8 @@ def flash_phase(gen, dev, results):
     import torch
     import torch.nn.functional as F
     from medplib_tpu_torch.ops.cuda import flash_attention as FA
-    b, h, d = 8, 32, 128
-    for t, s in ((1087, 1087), (1000, 1087)):
+    h, d = 32, 128
+    for b, t, s in ((8, 1087, 1087), (8, 1000, 1087), (4, 1789, 1789)):
         q, k, v, mask, dout = _flash_inputs(gen, dev, b, t, s, h, d)
         keep = FA._keep(mask, t, s)                       # [B, 1, T, S]
         live = keep.any(-1)[:, 0]                         # [B, T]
@@ -804,20 +818,37 @@ def flash_phase(gen, dev, results):
                      for x in (out, lse, dq, dk, dv))
         ok = finite and errs["lse"][1] <= 1e-4 and all(
             r <= 1e-3 for n, (r, _) in errs.items() if n != "lse")
-        log(f"[flash T={t} S={s}] " + ", ".join(
+        log(f"[flash B={b} T={t} S={s}] " + ", ".join(
             f"{n} max_abs_err={a:.3e}" + ("" if r is None else f" rel={r:.3e}")
             for n, (r, a) in errs.items())
             + f"; {int((~live).sum())} rows keep no key (finite: {finite})"
             " (rel Frobenius <= 1e-3, lse max abs <= 1e-4)")
         if not ok:
             raise AssertionError(f"flash kernels disagree with plain at "
-                                 f"T={t} S={s}")
+                                 f"B={b} T={t} S={s}")
         if t != s:
             continue
-        # timings, at T = S only
+        # timings at T = S: all three at the training shape, K4 at ICL's
         sq, sk, sv = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             sq, sk, sv, attn_mask=keep)
+        if b == 4:
+            ms = cuda_time(lambda: FA.flash_forward(q, k, v, mask))
+            pms = cuda_time(lambda: FA.flash_forward_plain(q, k, v, mask),
+                            warmup=1, iters=2)
+            lib_ms = cuda_time(sdpa)
+            counted, run = FLASH_FLOP_D["flash_fwd"]
+            ops = counted * d * pairs
+            bms, by = bound(nbytes(q, k, v, mask, out, lse), ops, BF16_FLOPS)
+            log(f"[flash_fwd] ICL B={b} T=S={t} H={h} D={d}: kernel "
+                f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s at {counted}·D "
+                f"FLOP a kept pair, {ops * run / counted / ms / 1e9:.1f} at "
+                f"the {run}·D it runs), plain {pms:.3f} ms, SDPA fwd "
+                f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x), bound {bms:.4f} ms "
+                f"({by})")
+            del sq, sk, sv
+            torch.cuda.empty_cache()
+            continue
         qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         gout = dout.transpose(1, 2)
@@ -854,9 +885,11 @@ def flash_phase(gen, dev, results):
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                  bound_ms=bms, bound_by=by,
                                  library_ms=lib_ms)
+            counted, run = FLASH_FLOP_D[name]
             log(f"[{name}] B={b} T=S={t} H={h} D={d}: kernel {ms:.3f} ms "
-                f"({ops / ms / 1e9:.1f} TFLOP/s at {ops / pairs / d:.0f}·D "
-                f"FLOP a kept pair), plain {pms:.3f} ms, SDPA {lib} "
+                f"({ops / ms / 1e9:.1f} TFLOP/s at {counted}·D FLOP a kept "
+                f"pair, {ops * run / counted / ms / 1e9:.1f} at the {run}·D "
+                f"it runs), plain {pms:.3f} ms, SDPA {lib} "
                 f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x), bound {bms:.4f} ms "
                 f"({by}: {nb / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP)")
         del sq, sk, sv, qg, kg, vg

@@ -2,8 +2,10 @@
 // backward passes (K5 dQ, K6 dK/dV).
 //
 // Replaces the TPU kernels of medplib_tpu/ops/pallas/flash_attention.py:
-//   flash_fwd_kernel  <- _flash_forward / _flash_kernel   (pallas_call :138)
-//   flash_dq_kernel   <- _dq_kernel                        (pallas_call :306)
+//   flash_fwd_kernel (f32), flash_fwd_mma_kernel (bf16)
+//                     <- _flash_forward / _flash_kernel   (pallas_call :138)
+//   flash_dq_kernel (f32), flash_dq_mma_kernel (bf16)
+//                     <- _dq_kernel                        (pallas_call :306)
 //   flash_dkv_kernel (f32), flash_dkv_mma_kernel (bf16)
 //                     <- _dkv_kernel                       (pallas_call :333)
 //
@@ -24,14 +26,15 @@
 //   sentinel), dS = p * (dP - delta), dQ = dS K * scale, dK = dS^T (q scale),
 //   dV = P^T dO, with delta = rowsum(dO * O) computed by the caller.
 //
-// K6 on bf16 runs on the tensor cores (flash_dkv_mma_kernel, its design
-// beside it). The rest is the first, simple version: one block of 256
-// threads per (b*h, 64-row tile). K4 and K5: a query tile, looping over
-// 64-key tiles up to the causal diagonal; K6 on f32: a key tile, looping
-// over the query tiles from the diagonal down. The scaled Q tile is kept
-// in shared memory in f32, K / V / dO tiles in the input type, with a row
-// pitch of D + 4 elements so that the 8- and 16-byte reads of 16 different
-// rows hit distinct banks. Each thread owns a
+// On bf16 all three run on the tensor cores (flash_fwd_mma_kernel,
+// flash_dq_mma_kernel, flash_dkv_mma_kernel; their design beside them).
+// On f32 (a bf16 mma would round f32 q, k, v) they are the first, simple
+// version: one block of 256 threads per (b*h, 64-row tile). K4 and K5: a
+// query tile, looping over 64-key tiles up to the causal diagonal; K6: a
+// key tile, looping over the query tiles from the diagonal down. The
+// scaled Q tile and the K / V / dO tiles are kept in shared memory with a
+// row pitch of D + 4 floats, so that the 16-byte reads of 16 different rows
+// hit distinct banks. Each thread owns a
 // 4 x 4 patch of the 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j)
 // and a 4 x 8 patch of the 64 x 128 accumulators (rows ty + 16 i, columns
 // 4 tx + {0..3} and 64 + 4 tx + {0..3}). Row max and row sum reduce over the
@@ -44,10 +47,11 @@
 // of q / k / v / out: ~0.085 ms for the bytes at 3.35 TB/s, ~0.078 ms for
 // the FLOP on bf16 tensor cores. The backward passes redo the scores and
 // add two (dQ) or three (dK, dV) products: ~1.2e11 and ~1.5e11 FLOP, bound
-// by operations. K4, K5 and K6 on f32 run on f32 CUDA-core FMA (67
-// TFLOP/s peak), far above those floors; K6 on bf16 runs bf16 mma.sync
-// (12 D FLOP a kept pair with its hi / lo split). mma tiles for K4 / K5,
-// then wgmma and TMA loads, are later work.
+// by operations. On f32 the kernels run f32 CUDA-core FMA (67 TFLOP/s
+// peak), far above those floors; on bf16 they run bf16 mma.sync with the
+// non-bf16 operand (P or dS) split hi + lo: 6 D (K4), 8 D (K5) and 12 D
+// (K6) mma FLOP a kept pair against the 4 D, 6 D and 8 D counted above.
+// wgmma and TMA loads are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,25 +75,8 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&a);
-  u.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -510,7 +497,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int kRowB = kD * 2;                        // bytes of a bf16 row
 constexpr int kTileB = 64 * kRowB;                   // a 64-row tile
-constexpr int kDkvThreads = 128;
+constexpr int kMmaThreads = 128;
 constexpr int kDkvStage = 2 * kTileB + 2 * 64 * 4;   // Q, dO, lse, delta
 constexpr int kDkvSmem = 2 * kTileB + 2 * kDkvStage;  // + K, V
 // queries a sub-step: 16 keeps the kernel at 247 registers; at 32 or 64
@@ -529,7 +516,7 @@ __device__ __forceinline__ int swz(int r, int c) {
 __device__ __forceinline__ void copy_tile(unsigned char* tile,
                                           const __nv_bfloat16* g,
                                           size_t stride, int r0, int n) {
-  constexpr int kStep = kDkvThreads / 16;
+  constexpr int kStep = kMmaThreads / 16;
   const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
   const __nv_bfloat16* src = g + (size_t)(r0 + r) * stride + 8 * c;
 #pragma unroll
@@ -608,7 +595,7 @@ __device__ __forceinline__ void axpy_split(const float (&x)[NQ][4],
   }
 }
 
-__global__ void __launch_bounds__(kDkvThreads)
+__global__ void __launch_bounds__(kMmaThreads)
 flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -728,6 +715,263 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4, K5 on bf16: a query tile on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// One block of 4 warps per (b*h, 64-query tile), heaviest tiles first; warp
+// w owns queries 16 w .. 16 w + 15 of the tile and its 16 x 128 f32
+// accumulator (64 registers a thread); the thread's rows are g and g + 8.
+// The Q tile (K5: and dO) is copied once by cp.async into a swizzled tile;
+// the 64-key tiles the block's last row reaches stream through a 2-stage
+// cp.async ring of K, V and the tile's 64 mask words (0 past S). The
+// building blocks are K6's, in [query, key] orientation:
+//   S  = Q K^T * scale      rows_dot: A the warp's Q rows, B K rows; the
+//                           scale multiplies the f32 sum, as in K6
+//   K4: m_new = max(m, rowmax S) over the quad; alpha = exp(m - m_new);
+//       P = exp(S - m_new); l, acc *= alpha; l += P; acc += P V
+//   K5: P = keep ? exp(S - lse) : 0; dP = dO V^T (rows_dot);
+//       dS = P * (dP - delta); acc += dS K; dq = acc * scale at the end
+// P V and dS K take the C fragments of two neighbouring key n-tiles as the
+// A fragment and the [key][d] V / K rows by ldmatrix.trans (axpy_split),
+// with P and dS split hi + lo as in K6. l is summed per thread over its
+// columns and reduced over the quad once at the end. Masked scores are the
+// finite kNegInf (K4) or P = 0 (K5). Query rows past T read zeros and are
+// not stored. No atomics: deterministic.
+
+constexpr int kKvStage = 2 * kTileB + 64 * 4;        // K, V, mask[64]
+constexpr int kFwdSmem = kTileB + 2 * kKvStage;      // Q + the ring
+constexpr int kDqSmem = 2 * kTileB + 2 * kKvStage;   // Q, dO + the ring
+// key n-tiles a step: a whole 64-key tile (191 / 219 registers, no spill;
+// at 32-key sub-steps one of the two spilled)
+constexpr int kNK = kBN / 8;
+
+// key tile at k0 -> the ring stage at `stage`: K rows, V rows, then the
+// tile's mask words (zero past S, so those columns are never kept)
+__device__ __forceinline__ void load_kv(unsigned char* stage,
+                                        const __nv_bfloat16* kg,
+                                        const __nv_bfloat16* vg,
+                                        const int* mg, size_t stride, int k0,
+                                        int s_len) {
+  copy_tile(stage, kg, stride, k0, s_len);
+  copy_tile(stage + kTileB, vg, stride, k0, s_len);
+  if (threadIdx.x < 64) {
+    const int col = k0 + threadIdx.x;
+    const bool ok = col < s_len;
+    mmatile::cp_async<4>(stage + 2 * kTileB + 4 * threadIdx.x,
+                         ok ? mg + col : mg, ok ? 4 : 0);
+  }
+}
+
+// key tiles whose first column is <= the query tile's last row
+__device__ __forceinline__ int key_tiles(int q0, int q_off, int s_len) {
+  return min((s_len + kBN - 1) / kBN, (q0 + q_off + kBM - 1) / kBN + 1);
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const int* __restrict__ mask,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int t_len, int s_len,
+                     int heads, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t s0 = mmatile::smem_u32(smem);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q_off = s_len - t_len;
+  const size_t stride = (size_t)heads * kD;
+  const size_t qbase = ((size_t)b * t_len * heads + h) * kD;
+  const size_t kbase = ((size_t)b * s_len * heads + h) * kD;
+  const int* mg = mask + (size_t)b * s_len;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw = 16 * warp;  // the warp's rows of the query tile
+
+  copy_tile(smem, q + qbase, stride, q0, t_len);
+  load_kv(smem + kTileB, k + kbase, v + kbase, mg, stride, 0, s_len);
+  mmatile::cp_async_commit();
+
+  // the thread's rows g, g + 8 at their key positions
+  int row[2];
+  float m[2], l[2], acc[kD / 8][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = q0 + q_off + qw + g + 8 * r;
+    m[r] = kNegInf;
+    l[r] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int n_kt = key_tiles(q0, q_off, s_len);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1, k0 = kt * kBN;
+    if (kt + 1 < n_kt)
+      load_kv(smem + kTileB + (st ^ 1) * kKvStage, k + kbase, v + kbase, mg,
+              stride, k0 + kBN, s_len);
+    mmatile::cp_async_commit();
+    mmatile::cp_async_wait<1>();
+    __syncthreads();  // Q and stage st landed
+    const uint32_t sk = s0 + kTileB + st * kKvStage, sv = sk + kTileB;
+    const int* keep_col = reinterpret_cast<const int*>(
+        smem + kTileB + st * kKvStage + 2 * kTileB);
+    float s[kNK][4];
+    rows_dot<kNK>(s0, qw, sk, 0, s);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kNK; ++j) {
+      const int col = 8 * j + 2 * t;
+      const int2 mk = *reinterpret_cast<const int2*>(keep_col + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool keep = ((e & 1) ? mk.y : mk.x) > 0 &&
+                          row[r] >= k0 + col + (e & 1);
+        s[j][e] = keep ? s[j][e] * scale : kNegInf;
+        mx[r] = fmaxf(mx[r], s[j][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kNK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+    axpy_split<kNK>(s, sv, 0, acc);  // acc += P V
+    __syncthreads();  // stage st is refilled by the next prefetch
+  }
+
+  // the thread's rows g, g + 8, columns 8 j + 2t, + 1 of each d n-tile j
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = q0 + qw + g + 8 * r;
+    if (qi >= t_len) continue;
+    const float lm = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* o = out + qbase + (size_t)qi * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
+          acc[j][2 * r] / lm, acc[j][2 * r + 1] / lm);
+    if (t == 0) lse[(size_t)bh * t_len + qi] = m[r] + logf(lm);
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const int* __restrict__ mask,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int t_len, int s_len,
+                    int heads, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t s0 = mmatile::smem_u32(smem);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q_off = s_len - t_len;
+  const size_t stride = (size_t)heads * kD;
+  const size_t qbase = ((size_t)b * t_len * heads + h) * kD;
+  const size_t kbase = ((size_t)b * s_len * heads + h) * kD;
+  const int* mg = mask + (size_t)b * s_len;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw = 16 * warp;
+
+  unsigned char* ring = smem + 2 * kTileB;
+  copy_tile(smem, q + qbase, stride, q0, t_len);
+  copy_tile(smem + kTileB, dout + qbase, stride, q0, t_len);
+  load_kv(ring, k + kbase, v + kbase, mg, stride, 0, s_len);
+  mmatile::cp_async_commit();
+
+  // the thread's rows g, g + 8: key position (-1 past T: nothing kept),
+  // lse, delta
+  int row[2];
+  float lr[2], dr[2], acc[kD / 8][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + qw + g + 8 * r;
+    const bool ok = qi < t_len;
+    row[r] = ok ? qi + q_off : -1;
+    lr[r] = ok ? lse[(size_t)bh * t_len + qi] : 0.f;
+    dr[r] = ok ? delta[(size_t)bh * t_len + qi] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int n_kt = key_tiles(q0, q_off, s_len);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1, k0 = kt * kBN;
+    if (kt + 1 < n_kt)
+      load_kv(ring + (st ^ 1) * kKvStage, k + kbase, v + kbase, mg, stride,
+              k0 + kBN, s_len);
+    mmatile::cp_async_commit();
+    mmatile::cp_async_wait<1>();
+    __syncthreads();  // Q, dO and stage st landed
+    const uint32_t sk = s0 + 2 * kTileB + st * kKvStage, sv = sk + kTileB;
+    const int* keep_col =
+        reinterpret_cast<const int*>(ring + st * kKvStage + 2 * kTileB);
+    float p[kNK][4], ds[kNK][4];
+    rows_dot<kNK>(s0, qw, sk, 0, p);  // S
+#pragma unroll
+    for (int j = 0; j < kNK; ++j) {
+      const int col = 8 * j + 2 * t;
+      const int2 mk = *reinterpret_cast<const int2*>(keep_col + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool keep = ((e & 1) ? mk.y : mk.x) > 0 &&
+                          row[r] >= k0 + col + (e & 1);
+        p[j][e] = keep ? expf(p[j][e] * scale - lr[r]) : 0.f;
+      }
+    }
+    rows_dot<kNK>(s0 + kTileB, qw, sv, 0, ds);  // dP
+#pragma unroll
+    for (int j = 0; j < kNK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - dr[e >> 1]);
+    axpy_split<kNK>(ds, sk, 0, acc);  // acc += dS K
+    __syncthreads();  // stage st is refilled by the next prefetch
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + qw + g + 8 * r;
+    if (qi >= t_len) continue;
+    __nv_bfloat16* o = dq + qbase + (size_t)qi * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
+          acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+  }
+}
+
 template <typename T>
 size_t fwd_smem() {
   return kBM * kPitch * sizeof(float) + kBN * kPitch * sizeof(T) +
@@ -746,19 +990,31 @@ size_t dkv_smem() {
          (2 * kBN + kBM) * kPitch * sizeof(T);
 }
 
+// K4, K5 and K6: the FMA kernels on f32 (a bf16 mma would round f32 q, k,
+// v), the tensor-core kernels on bf16.
 template <typename T>
 cudaError_t fwd(const void* q, const void* k, const void* v, const void* mask,
                 void* out, void* lse, int batch, int t_len, int s_len,
                 int heads, float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
   dim3 grid((t_len + kBM - 1) / kBM, batch * heads);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)mask, (T*)out,
-      (float*)lse, t_len, s_len, heads, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kFwdSmem);
+    if (e != cudaSuccess) return e;
+    flash_fwd_mma_kernel<<<grid, kMmaThreads, kFwdSmem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)mask, (T*)out,
+        (float*)lse, t_len, s_len, heads, scale);
+  } else {
+    const size_t smem = fwd_smem<T>();
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)mask, (T*)out,
+        (float*)lse, t_len, s_len, heads, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -767,21 +1023,30 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* mask, const void* dout, const void* lse,
                    const void* delta, void* dq, int batch, int t_len,
                    int s_len, int heads, float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
   dim3 grid((t_len + kBM - 1) / kBM, batch * heads);
-  flash_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)mask,
-      (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, t_len,
-      s_len, heads, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_dq_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kDqSmem);
+    if (e != cudaSuccess) return e;
+    flash_dq_mma_kernel<<<grid, kMmaThreads, kDqSmem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)mask,
+        (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq,
+        t_len, s_len, heads, scale);
+  } else {
+    const size_t smem = dq_smem<T>();
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    flash_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)mask,
+        (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq,
+        t_len, s_len, heads, scale);
+  }
   return cudaGetLastError();
 }
 
-// K6: the FMA kernel on f32 (a bf16 mma would round f32 q, k, v), the
-// tensor-core kernel on bf16.
 template <typename T>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* mask, const void* dout, const void* lse,
@@ -794,7 +1059,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
         flash_dkv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kDkvSmem);
     if (e != cudaSuccess) return e;
-    flash_dkv_mma_kernel<<<grid, kDkvThreads, kDkvSmem, stream>>>(
+    flash_dkv_mma_kernel<<<grid, kMmaThreads, kDkvSmem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const int*)mask,
         (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk,
         (T*)dv, t_len, s_len, heads, scale);

@@ -11,8 +11,8 @@
 //     c ^ (r & 7), so the eight rows an ldmatrix phase reads sit in eight
 //     distinct bank groups;
 //   - ldmatrix.x4 A fragments (.trans: B fragments of row-major [k][n]
-//     bf16, for flash_attention.cu's dK / dV) and mma.sync m16n8k16 (bf16
-//     x bf16 -> f32);
+//     bf16, for flash_attention.cu's P V, dS K, dK and dV) and mma.sync
+//     m16n8k16 (bf16 x bf16 -> f32);
 //   - the int4 nibble -> bf16x2 B-register decode;
 //   - the epilogue store of eight neighbouring outputs of one row.
 //

@@ -17,10 +17,10 @@ key positions), mask [B, S] int32 (> 0 keeps a key), lse / delta [B, H, T]
 float32. The kernels take D = 128 in bfloat16 or float32.
 
 What bounds the kernels on the H100, and what their design does about it,
-is noted at the top of csrc/flash_attention.cu (compute bound): K4, K5 and
-K6 on f32 run f32 FMA; K6 on bf16 runs bf16 mma.sync on the tensor cores,
-with P and dS split into hi + lo bf16 halves so that their products keep
-the reference's f32 precision.
+is noted at the top of csrc/flash_attention.cu (compute bound): on f32
+the three kernels run f32 FMA; on bf16 they run bf16 mma.sync on the
+tensor cores, with P (K4, K6) and dS (K5, K6) split into hi + lo bf16
+halves so that their products keep the reference's f32 precision.
 
 Rows with no kept key: the plain forward averages v over every key
 (p = exp(0) everywhere); the kernel, like the Pallas kernel, over the key

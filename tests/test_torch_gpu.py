@@ -130,18 +130,22 @@ def test_long_prompt_head_dim_256_takes_plain_attention(dev):
     assert float((got.cpu() - want).norm() / want.norm()) < 1e-5
 
 
-@pytest.mark.parametrize("t,s,dtype", [(70, 70, torch.float32),
-                                       (1087, 1087, torch.bfloat16),
-                                       (50, 130, torch.bfloat16)])
-def test_flash_kernels_match_plain(dev, t, s, dtype):
+@pytest.mark.parametrize("b,t,s,h,dtype", [
+    (3, 70, 70, 2, torch.float32),
+    (3, 1087, 1087, 2, torch.bfloat16),
+    (3, 50, 130, 2, torch.bfloat16),
+    (4, 1789, 1789, 32, torch.bfloat16),   # the ICL prefill
+])
+def test_flash_kernels_match_plain(dev, b, t, s, h, dtype):
     """K4 / K5 / K6 against their plain versions (the backward ones from
     the kernel's lse and delta): out, dq, dk, dv within rel Frobenius 1e-3
     (f32 sums in another order, then the output dtype's rounding), lse
     within 1e-4; rows that keep no key finite. Ragged T, T < S, padded key
-    tails, a row whose first queries keep no key."""
+    tails, a row whose first queries keep no key; f32 takes the FMA
+    kernels, bf16 the tensor-core ones."""
     from medplib_tpu_torch.ops.cuda import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(t + s)
-    b, h, d = 3, 2, 128
+    d = 128
     q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
@@ -203,6 +207,47 @@ def test_flash_dkv_whole_masked_key_tiles(dev):
         assert not bool(got[dead].any())
         assert float((got.float() - w.float()).norm()
                      / w.float().norm()) < 1e-3
+
+
+def test_flash_fwd_dq_whole_masked_key_tiles(dev):
+    """K4 and K5 on bf16 at T < S with whole 64-key tiles masked (keys
+    0-255 of row 0, so its queries 0-55 keep no key and 56-99 find their
+    first kept key after four masked tiles; keys 128-255 and a padded tail
+    of row 1): out and lse of the live rows, and dq, match the plain
+    versions (rel Frobenius 1e-3, lse 1e-4); the no-key rows' out is
+    finite and their dq exactly zero."""
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b, t, s, h, d = 2, 100, 300, 2, 128
+    bf = torch.bfloat16
+    q, g = (torch.randn((b, t, h, d), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    mask[0, :256] = 0
+    mask[1, 128:256] = 0
+    mask[1, s - 7:] = 0
+    out, lse = FA.flash_forward(q, k, v, mask)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = FA.flash_dq(q, k, v, mask, g, lse, delta)
+    want_out, want_lse = FA.flash_forward_plain(q, k, v, mask)
+    want_dq = FA.flash_dq_plain(q, k, v, mask, g, lse, delta)
+    torch.cuda.synchronize()
+    live = FA._keep(mask, t, s).any(-1)[:, 0]
+    assert int((~live).sum()) == 56
+    lv = live[..., None].expand(-1, -1, h)
+
+    def rel(a, w):
+        return float((a.float() - w.float()).norm() / w.float().norm())
+
+    assert rel(out[lv], want_out[lv]) < 1e-3
+    assert float((lse.transpose(1, 2)[lv]
+                  - want_lse.transpose(1, 2)[lv]).abs().max()) < 1e-4
+    assert dq.dtype == bf and rel(dq, want_dq) < 1e-3
+    assert not bool(dq[~lv].any())
+    for x in (out, lse, dq):
+        assert bool(torch.isfinite(x.float()).all())
 
 
 def test_flash_autograd_on_card(dev):
