@@ -8,7 +8,7 @@
 2. Builds the hand-written kernels from medplib_tpu_torch/csrc with nvcc
    and counts, with cuobjdump, the tensor-core instructions of each
    instance of the tensor-core kernels (HMMA: K7 on bf16 x, K3 int8-w /
-   bf16, K9 on bf16 x, K4 / K5 / K6 on bf16; IMMA: K8).
+   bf16, K9 on bf16 x, K4 / K5 / K6 on bf16; IMMA: K8, K3 W8A8, K1 W4A8).
 3. Kernel phases: each kernel at the shapes its main path gives it (K1,
    K2 in A8 and bf16-x modes at the flagship serving shapes, K2 also at
    B=80 rows; K3 in W8A8 at the int8-expert flagship shapes, int8-w and
@@ -21,10 +21,11 @@
    tolerance stated; timed with CUDA events beside the plain version, the
    least time the card could take (bound_ms) and a library yardstick
    (SDPA for flash attention; torch._grouped_mm or per-expert torch calls
-   for K3, per-expert torch._int_mm for K1; torch.matmul on a bf16 weight
-   dequantized beforehand for K7 / K9; torch._int_mm for K8, both weight
-   layouts). Then one call per wrapper at odd widths (N = 320, K = 688)
-   and a head_dim-256 prompt, which takes the plain attention.
+   for K3 and K1, per-expert torch._int_mm on a row-major and a
+   column-major weight for K3 W8A8 and K1 A8; torch.matmul on a bf16
+   weight dequantized beforehand for K7 / K9; torch._int_mm for K8, both
+   weight layouts). Then one call per wrapper at odd widths (N = 320, K =
+   688) and a head_dim-256 prompt, which takes the plain attention.
 4. Small-input checks, card (kernels) against CPU (plain versions): the
    generate slice at a tiny width with int4h experts (K1, K2), with int8
    experts and the int8 KV cache (K3), and over a packed dense tree in
@@ -34,8 +35,8 @@
 5. Serving main paths, MedPLIB-7b-2e at full width (32 layers x 2
    experts, int8 attention / lm_head / projector), random weights from a
    seed: with int4h experts, a batch of 16 grounding requests (T_in=48,
-   10 new tokens, W8A8 / W4A8 prefill; K1 = 96, K2 = 320 launches) and one
-   single request (K2 only); with int8 experts, a batch of 8 (int8 KV
+   10 new tokens, W8A8 / W4A8 prefill; K1 = 96, K2 = 320 launches), one
+   profiled call and one single request (K2 only); with int8 experts, a batch of 8 (int8 KV
    cache, W8A8 prefill; K3 = 96 launches), one profiled call and a single
    request (no K3), then ICL config 5 on the same tree (B=4, three images
    per row, 1789 spliced tokens, no activation quant; K3 = 96, K4 = 32,
@@ -98,12 +99,6 @@ def rel_err(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
-def within_one_bf16_ulp(a, b) -> bool:
-    """|a - b| <= 2^-7 |b| elementwise: at most one bf16 ulp apart."""
-    a, b = a.float(), b.float()
-    return bool(((a - b).abs() <= b.abs() * 2.0 ** -7).all())
-
-
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
@@ -113,12 +108,13 @@ def sass_phase(lib_path, build_log: str) -> None:
     instructions in each instance of the tensor-core kernels (HMMA in
     w8_mma_kernel: K7 on bf16 x, K3 int8-w / bf16; int4h_mma_kernel: K9 on
     bf16 x; flash_fwd_mma_kernel, flash_dq_mma_kernel and
-    flash_dkv_mma_kernel: K4, K5 and K6 on bf16; IMMA in s8_mma_kernel: K8)
-    and, for contrast, in the CUDA-core kernels (K3 W8A8 / f32, K7 f32 x,
-    K9 f32 x, K4 / K5 / K6 f32). Fails if a tensor-core instance holds none.
-    From
-    this run's nvcc log (ptxas -v), each tensor-core instance's registers
-    and spill stores; fails on a spill."""
+    flash_dkv_mma_kernel: K4, K5 and K6 on bf16; IMMA in s8_mma_kernel:
+    K8 (int8_matmul.cu, 4 instances), K3 W8A8 (gmm.cu, 4) and K1 W4A8
+    (gmm_int4h.cu, 2)) and, for contrast, in the CUDA-core kernels (K3
+    f32 pairs, K1 bf16 x, K2, K7 f32 x, K9 f32 x, K4 / K5 / K6 f32). Fails
+    if a tensor-core instance holds none or an instance count changes.
+    From this run's nvcc log (ptxas -v), each tensor-core instance's
+    registers and spill stores; fails on a spill."""
     import re
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -136,7 +132,7 @@ def sass_phase(lib_path, build_log: str) -> None:
     hmma = {"w8_mma_kernel": 12, "int4h_mma_kernel": 8,
             "flash_fwd_mma_kernel": 1, "flash_dq_mma_kernel": 1,
             "flash_dkv_mma_kernel": 1}       # kernel -> its instances
-    imma = {"s8_mma_kernel": 4}
+    imma = {"s8_mma_kernel": 10}
     bad = []
     for kern, n in list(hmma.items()) + list(imma.items()):
         col = 1 if kern in hmma else 2
@@ -146,12 +142,14 @@ def sass_phase(lib_path, build_log: str) -> None:
         if len(got) != n or not all(c for _, c in got):
             bad.append((kern, got))
     other = [(h, i) for f, h, i in fns
-             if any(k in f for k in ("gmm_kernel", "int8_matmul_kernel",
+             if any(k in f for k in ("gmm_kernel", "gmm_int4h_kernel",
+                                     "gateup_kernel", "down_kernel",
+                                     "int8_matmul_kernel",
                                      "int4h_matmul_f32_kernel",
                                      "flash_fwd_kernel", "flash_dq_kernel",
                                      "flash_dkv_kernel"))]
-    log(f"[sass] CUDA-core kernels (K3 W8A8 / f32, K7 f32 x, K9 f32 x, "
-        f"K4 / K5 / K6 f32): {sum(h for h, _ in other)} HMMA, "
+    log(f"[sass] CUDA-core kernels (K3 f32 pairs, K1 bf16 x, K2, K7 f32 x, "
+        f"K9 f32 x, K4 / K5 / K6 f32): {sum(h for h, _ in other)} HMMA, "
         f"{sum(i for _, i in other)} IMMA in {len(other)} instances")
     if bad:
         raise AssertionError(f"tensor-core kernels without HMMA / IMMA or "
@@ -192,7 +190,13 @@ def _random_int4h(gen, e, k, n, dev):
 def k1_phase(gen, dev, results):
     """gmm_int4h at the flagship prefill: S = 16 x 623 rows top-1 routed
     over 2 experts, two-ended aligned to Sp = 10752 (bm 512), gate/up
-    (K 4096 -> N 11264) and down (K 11264 -> N 4096)."""
+    (K 4096 -> N 11264) and down (K 11264 -> N 4096). A8 (the s8 tensor
+    cores): exact integer sums and the plain version's rounded epilogue
+    in its order -> bit-equal (the equal share is printed). bf16 x (f32
+    FMA): f32 sums in another order -> rel 1e-4. Yardsticks: the integer
+    products alone on the nibbles widened to int8 (per-expert
+    torch._int_mm, row-major and column-major weight) and, for bf16 x,
+    the bf16 products on the widened nibbles (_grouped_library_ms)."""
     import torch
     from medplib_tpu_torch.ops.cuda import gmm as G
     s, bm = 16 * 623, 512
@@ -211,8 +215,11 @@ def k1_phase(gen, dev, results):
             rel = rel_err(got, want)
             if mode == "A8":
                 # integer sums are exact on both sides; the epilogue is the
-                # same rounded f32 ops -> equal up to one bf16 ulp
-                ok, tol = within_one_bf16_ulp(got, want), "<= 1 bf16 ulp"
+                # same rounded f32 ops in the same order -> bit-equal
+                ok = torch.equal(got, want)
+                tol = (f"bit-equal: {ok}, "
+                       f"{float((got == want).float().mean()) * 100:.4f}% "
+                       f"equal")
             else:
                 # f32 sums over K in another order
                 ok, tol = rel <= 1e-4, "rel Frobenius <= 1e-4"
@@ -225,19 +232,26 @@ def k1_phase(gen, dev, results):
                 f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
             if not ok:
                 raise AssertionError(f"K1 {name} {mode} disagrees with plain")
+            # the routed rows' products; bytes of every operand
+            bms, by = bound(nbytes(xin, packed, scale, tile_gid, got) + (
+                nbytes(a_s) if a_s is not None else 0), 2 * s * k * n,
+                INT8_OPS if mode == "A8" else BF16_FLOPS)
+            # yardstick: the products alone, on the nibbles widened to
+            # int8 (A8) or bf16
+            wide = G.unpack_pairs(packed)
+            lib_ms, lib = _grouped_library_ms(
+                xin, wide if mode == "A8" else wide.to(torch.bfloat16),
+                tile_gid, bm)
+            log(f"[K1 gmm_int4h {name} {mode}] {2 * s * k * n / ms / 1e9:.1f}"
+                f" T{'OP' if mode == 'A8' else 'FLOP'}/s of the routed rows' "
+                f"products, bound {bms:.4f} ms "
+                f"({by}), {lib} on the widened nibbles {lib_ms:.3f} ms "
+                f"({ms / lib_ms:.2f}x)")
+            del wide
             if mode == "A8" and name == "gate/up":
-                # the routed rows' products; bytes of every operand
-                bms, by = bound(nbytes(xin, packed, scale, tile_gid, a_s,
-                                       got), 2 * s * k * n, INT8_OPS)
-                # yardstick: the integer products alone, on the nibbles
-                # widened to int8, as K3's W8A8 row
-                lib_ms, lib = _grouped_library_ms(
-                    xin, G.unpack_pairs(packed), tile_gid, bm)
                 results["gmm_int4h"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms)
-                log(f"[K1 gmm_int4h] bound {bms:.4f} ms ({by}), {lib} on "
-                    f"the nibbles widened to int8 {lib_ms:.3f} ms")
 
 
 def k2_phase(gen, dev, results):
@@ -311,8 +325,10 @@ def _grouped_library_ms(xin, w, tile_gid, bm):
     """The library yardstick for one grouped matmul over an aligned
     buffer, w [E, K, N]: torch._grouped_mm (one call) for bf16 operands
     where the installed torch has it; else the sum of one torch call per
-    expert over its contiguous tiles (torch._int_mm for int8 x,
-    torch.matmul on the bf16-cast weight otherwise). -> (ms, label)."""
+    expert over its contiguous tiles: for int8 x torch._int_mm, timed on
+    the row-major [K, N] expert weight and on the same weight
+    column-major, the faster of the two taken (both in the label); else
+    torch.matmul on the bf16-cast weight. -> (ms, label)."""
     import torch
     gid = tile_gid.long()
     ends = [int((gid <= g).sum()) * bm for g in range(w.shape[0])]
@@ -322,15 +338,21 @@ def _grouped_library_ms(xin, w, tile_gid, bm):
         wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
         return cuda_time(lambda: torch._grouped_mm(xin, wt, offs=offs)), \
             "torch._grouped_mm"
-    if xin.dtype == torch.int8:
-        fn, label = torch._int_mm, "sum of per-expert torch._int_mm"
-    else:
-        fn, label = torch.matmul, \
-            "sum of per-expert torch.matmul (bf16 weight)"
-        xin, w = xin.to(torch.bfloat16), w.to(torch.bfloat16)
     starts = [0] + ends[:-1]
-    return sum(cuda_time(lambda a=a, b=b, g=g: fn(xin[a:b], w[g]))
-               for g, (a, b) in enumerate(zip(starts, ends)) if b > a), label
+    spans = [(g, a, b) for g, (a, b) in enumerate(zip(starts, ends)) if b > a]
+    if xin.dtype == torch.int8:
+        w_row = w.contiguous()
+        w_col = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+        row, col = (sum(cuda_time(lambda a=a, b=b, g=g:
+                                  torch._int_mm(xin[a:b], wt[g]))
+                        for g, a, b in spans) for wt in (w_row, w_col))
+        return min(row, col), (f"sum of per-expert torch._int_mm "
+                               f"(column-major weight {col:.3f} ms, "
+                               f"row-major {row:.3f} ms; the faster)")
+    xin, w = xin.to(torch.bfloat16), w.to(torch.bfloat16)
+    return sum(cuda_time(lambda a=a, b=b, g=g: torch.matmul(xin[a:b], w[g]))
+               for g, a, b in spans), \
+        "sum of per-expert torch.matmul (bf16 weight)"
 
 
 # (mode, routed rows S, K, N, transposed weights)
@@ -352,9 +374,10 @@ def k3_phase(gen, dev, results):
     gate/up K 4096 -> N 11264 and down K 11264 -> N 4096); int8-w (bf16 x)
     at the ICL prefill (S = 4 x 1789, Sp = 7680), both shapes; float bf16
     at the ICL gate/up shape; transposed weights (W8A8 and int8-w) at a
-    small shape. Tolerances: W8A8 sums are exact integers on both sides
-    and the epilogue the same rounded f32 ops -> within one bf16 ulp
-    (the equal share is printed); the bf16-x modes (tensor cores) sum the
+    small shape. Tolerances: W8A8 (s8 tensor cores) sums are exact
+    integers on both sides and the epilogue the same rounded f32 ops in
+    the same order -> bit-equal (the equal share is printed); the bf16-x
+    modes (bf16 tensor cores) sum the
     same exact products in f32 in another order -> sum_order_close per
     expert (the largest error / bound is printed). The rate is the routed
     rows' products over the kernel time."""
@@ -387,8 +410,9 @@ def k3_phase(gen, dev, results):
         err = float((got.float() - want.float()).abs().max())
         rel = rel_err(got, want)
         if mode == "W8A8":
-            ok, tol = within_one_bf16_ulp(got, want), "<= 1 bf16 ulp"
-            tol += f", {float((got == want).float().mean()) * 100:.4f}% equal"
+            ok = torch.equal(got, want)
+            tol = (f"bit-equal: {ok}, "
+                   f"{float((got == want).float().mean()) * 100:.4f}% equal")
         else:
             ok, eq, ratio = grouped_sum_order_close(got, want, xin, w, w_s,
                                                     tile_gid, bm, trans)
@@ -409,7 +433,8 @@ def k3_phase(gen, dev, results):
         log(f"[K3 gmm {mode}{' transposed' if trans else ''}] "
             f"Sp={x_al.shape[0]} K={k} N={n}: max_abs_err={err:.3e} "
             f"rel={rel:.3e} ({tol}) kernel {ms:.3f} ms "
-            f"({ops / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} ms, bound "
+            f"({ops / ms / 1e9:.1f} T{'OP' if mode == 'W8A8' else 'FLOP'}"
+            f"/s), plain {pms:.3f} ms, bound "
             f"{bms:.4f} ms ({by}), {lib} {lib_ms:.3f} ms "
             f"({ms / lib_ms:.2f}x)")
         if not ok:
@@ -697,7 +722,7 @@ def ragged_phase(gen, dev):
         got = G.gmm(xin, w, gid, ws, aa, bm)
         want = G.gmm_plain(xin, w, gid, ws, aa, bm)
         if aa is not None:
-            ok, detail = within_one_bf16_ulp(got, want), "within one bf16 ulp"
+            ok, detail = torch.equal(got, want), "bit-equal to plain"
         else:
             ok, eq, ratio = grouped_sum_order_close(got, want, xin, w, ws,
                                                     gid, bm, False)
@@ -711,8 +736,8 @@ def ragged_phase(gen, dev):
     xq, a_s = G.quantize_rows(x_al)
     got = G.gmm_int4h(xq, packed, s1, gid, a_s, bm)
     want = G.gmm_int4h_plain(xq, packed, s1, gid, a_s, bm)
-    report("K1 A8", within_one_bf16_ulp(got, want) and got.shape[1] == n1,
-           f"K={k1} N={n1}: within one bf16 ulp")
+    report("K1 A8", torch.equal(got, want) and got.shape[1] == n1,
+           f"K={k1} N={n1}: bit-equal to plain")
     q, kk, v = (torch.randn((1, 1024, 2, 256), generator=gen, device=dev)
                 for _ in range(3))
     n0 = FA.flash_forward.launches
@@ -1402,7 +1427,8 @@ def serve_single(name, run, cfg, new, **want):
 
 def main_path(dev, results, card):
     """The int4h-expert flagship: B=16 under W4A8 / W8A8 prefill (K1 at
-    prefill, K2 at decode), then one request (sort prefill)."""
+    prefill, K2 at decode), one profiled call, then one request (sort
+    prefill)."""
     import torch
     from medplib_tpu_torch.config import flagship_cfg
     from medplib_tpu_torch.models import medplib
@@ -1431,6 +1457,7 @@ def main_path(dev, results, card):
         gmm_int4h=3 * L, moe_ffn_decode_int4h=L * NEW)
     for n in ("gmm_int4h", "moe_ffn_decode_int4h"):
         results[n]["launches"] = counts[n]
+    profile_step(lambda: run(batch))
     # B=1: 623 tokens take the capacity-sort prefill; decode still K2
     serve_single("main", lambda: run(single), cfg, NEW,
                  moe_ffn_decode_int4h=L * NEW)

@@ -9,9 +9,9 @@
 //   out[r, n] = acc * w_scale[g, 0, n] (int8 w) * a_scale[r] (int8 x)
 //
 // Modes, as the Pallas kernel's `_kernel`:
-//   - W8A8: x int8, w int8; products on __dp4a into s32 (exact); the
-//     epilogue converts the sum to f32 and multiplies by w_scale, then by
-//     a_scale, each product rounded (__fmul_rn), in the reference's order.
+//   - W8A8: x int8, w int8; s32 sums (exact); the epilogue converts the sum
+//     to f32 and multiplies by w_scale, then by a_scale, each product
+//     rounded (__fmul_rn), in the reference's order.
 //   - int8-w: x bf16 (the wrapper rounds f32 x to bf16 first, as the
 //     reference casts both operands to bf16), w int8; f32 sums of exact
 //     products, scaled by w_scale at the epilogue.
@@ -23,43 +23,37 @@
 // rows, K = 4096 / N = 11264 and K = 11264 / N = 4096) one call does
 // ~0.26 T MACs against ~92 MB of int8 weights, at the ICL prefill (Sp =
 // 7680) ~0.35 T: compute bound (thousands of operations per byte). So the
-// bf16-x modes (int8-w, bf16 w) run bf16 mma.sync from a cp.async ring on
-// the tensor cores (int8w_mma.cuh, grouped: a block reads its expert from
-// tile_gid). The kernel below keeps the modes the bf16 tensor cores cannot
-// take exactly: W8A8 on __dp4a (s8 mma is later work) and the f32 pairs on
-// f32 FMA, from shared-memory tiles (TM x 64 output tile, 64-deep K
-// chunks, 4 x 4 outputs per thread). Ragged K chunks and column tiles are
-// zero-filled in shared memory and the stores are guarded.
+// modes run on the tensor cores from a cp.async ring, a block reading its
+// expert from tile_gid: W8A8 on s8 mma.sync m16n8k32 (s8_mma.cuh, exact
+// s32 sums, bit-equal to the plain version), the bf16-x modes (int8-w,
+// bf16 w) on bf16 mma.sync (int8w_mma.cuh). The kernel below keeps the f32
+// pairs, which the bf16 tensor cores cannot take exactly, on f32 FMA from
+// shared-memory tiles (TM x 64 output tile, 64-deep K chunks, 4 x 4
+// outputs per thread). Ragged K chunks and column tiles are zero-filled in
+// shared memory and the stores are guarded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "int8w_mma.cuh"
+#include "s8_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTN = 64;    // output columns per tile
 constexpr int kKC = 64;    // reduction depth per chunk
-constexpr int kPadW = 17;  // int32 words per smem row (W8A8), +1 pad
-constexpr int kPadF = 65;  // floats per smem row (float modes), +1 pad
+constexpr int kPadF = 65;  // floats per smem row, +1 pad
 
 enum DType { kI8 = 0, kBF16 = 1, kF32 = 2 };
 
 template <int T>
 struct Elem;
 template <>
-struct Elem<kI8> {
-  using type = int8_t;
-  static constexpr int kVec = 16;  // elements per 16-byte load
-};
-template <>
 struct Elem<kBF16> {
   using type = __nv_bfloat16;
-  static constexpr int kVec = 8;
+  static constexpr int kVec = 8;  // elements per 16-byte load
 };
 template <>
 struct Elem<kF32> {
@@ -77,7 +71,7 @@ __device__ __forceinline__ float to_f32(typename Elem<T>::type v) {
   if constexpr (T == kBF16)
     return __bfloat162float(v);
   else
-    return (float)v;
+    return v;
 }
 
 // One 16-byte vector of a T-typed row: the values as floats, zero where
@@ -97,34 +91,20 @@ __device__ __forceinline__ void load_vec(const void* p, bool ok,
 template <int XT, int TM>
 __device__ void load_x(const void* __restrict__ x, int K, size_t m0, int k0,
                        Smem& sm) {
-  const int tid = threadIdx.x;
+  using E = typename Elem<XT>::type;
   constexpr int V = Elem<XT>::kVec, PER_ROW = kKC / V;
-  if constexpr (XT == kI8) {
-    int* xs = reinterpret_cast<int*>(sm.x);
-    for (int v = tid; v < TM * PER_ROW; v += kThreads) {
-      const int row = v / PER_ROW, kq = v % PER_ROW, k = k0 + kq * V;
-      int4 d = make_int4(0, 0, 0, 0);
-      if (k < K)
-        d = *reinterpret_cast<const int4*>(static_cast<const int8_t*>(x) +
-                                           (m0 + row) * K + k);
-      int* dst = xs + row * kPadW + kq * 4;
-      dst[0] = d.x; dst[1] = d.y; dst[2] = d.z; dst[3] = d.w;
-    }
-  } else {
-    using E = typename Elem<XT>::type;
-    for (int v = tid; v < TM * PER_ROW; v += kThreads) {
-      const int row = v / PER_ROW, kq = v % PER_ROW, k = k0 + kq * V;
-      float f[V];
-      load_vec<XT>(static_cast<const E*>(x) + (m0 + row) * K + k, k < K, f);
-      float* dst = sm.x + row * kPadF + kq * V;
+  for (int v = threadIdx.x; v < TM * PER_ROW; v += kThreads) {
+    const int row = v / PER_ROW, kq = v % PER_ROW, k = k0 + kq * V;
+    float f[V];
+    load_vec<XT>(static_cast<const E*>(x) + (m0 + row) * K + k, k < K, f);
+    float* dst = sm.x + row * kPadF + kq * V;
 #pragma unroll
-      for (int t = 0; t < V; ++t) dst[t] = f[t];
-    }
+    for (int t = 0; t < V; ++t) dst[t] = f[t];
   }
 }
 
 // ---- weight chunk, reduction rows k0.., columns n0.. of one expert ->
-// smem column-major [kTN cols][kKC k] (bytes for W8A8, floats otherwise)
+// smem column-major [kTN cols][kKC k]
 template <int WT>
 __device__ void load_w(const void* __restrict__ w, int K, int N, int n0,
                        int k0, bool trans, Smem& sm) {
@@ -132,26 +112,17 @@ __device__ void load_w(const void* __restrict__ w, int K, int N, int n0,
   constexpr int V = Elem<WT>::kVec;
   const int tid = threadIdx.x;
   const E* wp = static_cast<const E*>(w);
-  int8_t* wb = reinterpret_cast<int8_t*>(sm.w);
   if (trans) {
     // w [N, K]: row n holds the reduction axis contiguously
     constexpr int PER_ROW = kKC / V;
     for (int v = tid; v < kTN * PER_ROW; v += kThreads) {
       const int c = v / PER_ROW, kq = v % PER_ROW;
       const int n = n0 + c, k = k0 + kq * V;
-      const bool ok = n < N && k < K;
-      if constexpr (WT == kI8) {
-        int4 d = make_int4(0, 0, 0, 0);
-        if (ok) d = *reinterpret_cast<const int4*>(wp + (size_t)n * K + k);
-        int* dst = reinterpret_cast<int*>(sm.w) + c * kPadW + kq * 4;
-        dst[0] = d.x; dst[1] = d.y; dst[2] = d.z; dst[3] = d.w;
-      } else {
-        float f[V];
-        load_vec<WT>(wp + (size_t)n * K + k, ok, f);
-        float* dst = sm.w + c * kPadF + kq * V;
+      float f[V];
+      load_vec<WT>(wp + (size_t)n * K + k, n < N && k < K, f);
+      float* dst = sm.w + c * kPadF + kq * V;
 #pragma unroll
-        for (int t = 0; t < V; ++t) dst[t] = f[t];
-      }
+      for (int t = 0; t < V; ++t) dst[t] = f[t];
     }
   } else {
     // w [K, N]: row k holds the columns contiguously; transpose into smem
@@ -159,19 +130,10 @@ __device__ void load_w(const void* __restrict__ w, int K, int N, int n0,
     for (int v = tid; v < kKC * PER_ROW; v += kThreads) {
       const int r = v / PER_ROW, cq = v % PER_ROW;
       const int k = k0 + r, n = n0 + cq * V;
-      const bool ok = k < K && n < N;
-      if constexpr (WT == kI8) {
-        int4 d = make_int4(0, 0, 0, 0);
-        if (ok) d = *reinterpret_cast<const int4*>(wp + (size_t)k * N + n);
-        const int8_t* b = reinterpret_cast<const int8_t*>(&d);
+      float f[V];
+      load_vec<WT>(wp + (size_t)k * N + n, k < K && n < N, f);
 #pragma unroll
-        for (int t = 0; t < V; ++t) wb[(cq * V + t) * kPadW * 4 + r] = b[t];
-      } else {
-        float f[V];
-        load_vec<WT>(wp + (size_t)k * N + n, ok, f);
-#pragma unroll
-        for (int t = 0; t < V; ++t) sm.w[(cq * V + t) * kPadF + r] = f[t];
-      }
+      for (int t = 0; t < V; ++t) sm.w[(cq * V + t) * kPadF + r] = f[t];
     }
   }
 }
@@ -179,13 +141,9 @@ __device__ void load_w(const void* __restrict__ w, int K, int N, int n0,
 template <int XT, int WT, int TM>
 __global__ void __launch_bounds__(kThreads)
 gmm_kernel(const void* __restrict__ x, const void* __restrict__ w,
-           const int* __restrict__ tile_gid,
-           const float* __restrict__ w_scale,
-           const float* __restrict__ a_scale, void* __restrict__ out,
-           int K, int N, int bm, int trans, int out_bf16) {
-  constexpr bool A8 = XT == kI8;
+           const int* __restrict__ tile_gid, void* __restrict__ out, int K,
+           int N, int bm, int trans, int out_bf16) {
   constexpr int R = TM / 16;
-  using Acc = typename std::conditional<A8, int, float>::type;
   __shared__ Smem sm;
 
   const int n0 = blockIdx.x * kTN;
@@ -195,86 +153,58 @@ gmm_kernel(const void* __restrict__ x, const void* __restrict__ w,
                    (size_t)g * K * N;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  Acc acc[R][4];
+  float acc[R][4];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < K; k0 += kKC) {
     __syncthreads();  // previous chunk fully consumed
     load_x<XT, TM>(x, K, m0, k0, sm);
     load_w<WT>(wg, K, N, n0, k0, trans != 0, sm);
     __syncthreads();
-    if constexpr (A8) {
-      const int* xs = reinterpret_cast<const int*>(sm.x);
-      const int* ws = reinterpret_cast<const int*>(sm.w);
 #pragma unroll 4
-      for (int k4 = 0; k4 < kKC / 4; ++k4) {
-        int xa[R], wb[4];
+    for (int k = 0; k < kKC; ++k) {
+      float xa[R], wb[4];
 #pragma unroll
-        for (int i = 0; i < R; ++i) xa[i] = xs[(ty + 16 * i) * kPadW + k4];
+      for (int i = 0; i < R; ++i) xa[i] = sm.x[(ty + 16 * i) * kPadF + k];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) wb[j] = ws[(tx + 16 * j) * kPadW + k4];
+      for (int j = 0; j < 4; ++j) wb[j] = sm.w[(tx + 16 * j) * kPadF + k];
 #pragma unroll
-        for (int i = 0; i < R; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = __dp4a(xa[i], wb[j], acc[i][j]);
-      }
-    } else {
-#pragma unroll 4
-      for (int k = 0; k < kKC; ++k) {
-        float xa[R], wb[4];
-#pragma unroll
-        for (int i = 0; i < R; ++i) xa[i] = sm.x[(ty + 16 * i) * kPadF + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wb[j] = sm.w[(tx + 16 * j) * kPadF + k];
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(xa[i], wb[j], acc[i][j]);
-      }
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], wb[j], acc[i][j]);
     }
   }
 
-  const float* ws = w_scale ? w_scale + (size_t)g * N : nullptr;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const size_t r = m0 + ty + 16 * i;
-    const float as = (A8 && a_scale) ? a_scale[r] : 1.0f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
-      float v;
-      if constexpr (A8)
-        v = __int2float_rn(acc[i][j]);
-      else
-        v = acc[i][j];
-      if (ws) v = __fmul_rn(v, ws[n]);
-      if (A8 && a_scale) v = __fmul_rn(v, as);
       if (out_bf16)
-        static_cast<__nv_bfloat16*>(out)[r * N + n] = __float2bfloat16_rn(v);
+        static_cast<__nv_bfloat16*>(out)[r * N + n] =
+            __float2bfloat16_rn(acc[i][j]);
       else
-        static_cast<float*>(out)[r * N + n] = v;
+        static_cast<float*>(out)[r * N + n] = acc[i][j];
     }
   }
 }
 
 template <int XT, int WT>
-int launch(const void* x, const void* w, const int* tile_gid,
-           const float* w_scale, const float* a_scale, void* out, int sp,
-           int k, int n, int bm, int tm, int trans, int out_bf16,
+int launch(const void* x, const void* w, const int* tile_gid, void* out,
+           int sp, int k, int n, int bm, int tm, int trans, int out_bf16,
            cudaStream_t stream) {
   dim3 grid((n + kTN - 1) / kTN, sp / tm);
   if (tm == 64)
     gmm_kernel<XT, WT, 64><<<grid, kThreads, 0, stream>>>(
-        x, w, tile_gid, w_scale, a_scale, out, k, n, bm, trans, out_bf16);
+        x, w, tile_gid, out, k, n, bm, trans, out_bf16);
   else
     gmm_kernel<XT, WT, 16><<<grid, kThreads, 0, stream>>>(
-        x, w, tile_gid, w_scale, a_scale, out, k, n, bm, trans, out_bf16);
+        x, w, tile_gid, out, k, n, bm, trans, out_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -298,17 +228,21 @@ extern "C" int gmm_launch(const void* x, const void* w, const void* tile_gid,
   const int* gid = static_cast<const int*>(tile_gid);
   const float* ws = static_cast<const float*>(w_scale);
   const float* as = static_cast<const float*>(a_scale);
-  if (xt == kBF16 && wt == kI8)  // the tensor cores
+  // the tensor cores
+  if (xt == kI8 && wt == kI8)
+    return s8mma::launch<s8mma::kWsAs>(
+        static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), as, ws,
+        gid, bm, out, sp, n, k, trans, !out_bf16, s);
+  if (xt == kBF16 && wt == kI8)
     return w8mma::launch<w8mma::kWI8>(x, w, ws, gid, out, sp, n, k, bm,
                                       trans, !out_bf16, s);
   if (xt == kBF16 && wt == kBF16)
     return w8mma::launch<w8mma::kWBF16>(x, w, nullptr, gid, out, sp, n, k,
                                         bm, trans, !out_bf16, s);
-#define GMM_CASE(X, W)                                                    \
-  if (xt == X && wt == W)                                                 \
-    return launch<X, W>(x, w, gid, ws, as, out, sp, k, n, bm, tm, trans,  \
-                        out_bf16, s);
-  GMM_CASE(kI8, kI8)
+#define GMM_CASE(X, W)                                                   \
+  if (xt == X && wt == W)                                                \
+    return launch<X, W>(x, w, gid, out, sp, k, n, bm, tm, trans, out_bf16, \
+                        s);
   GMM_CASE(kF32, kF32)
   GMM_CASE(kBF16, kF32)
   GMM_CASE(kF32, kBF16)

@@ -1,6 +1,7 @@
-// Shared tile routine of the int4 "interleaved pairs" kernels
-// (gmm_int4h.cu, moe_decode_int4h.cu; int4_matmul.cu uses the nibble
-// helpers).
+// Shared tile routine of the int4 "interleaved pairs" FMA / __dp4a kernels
+// (moe_decode_int4h.cu in both modes, gmm_int4h.cu on bf16 x; gmm_int4h's
+// A8 mode runs on the s8 tensor cores, s8_mma.cuh; int4_matmul.cu uses the
+// nibble helpers).
 //
 // Weights are packed int8 [K/2, N] (one expert): logical reduction row 2r is
 // the LOW nibble of packed row r, row 2r+1 its HIGH nibble, both

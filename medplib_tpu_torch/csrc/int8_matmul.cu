@@ -168,9 +168,9 @@ extern "C" int w8a8_matmul_launch(const void* x_q, const void* a_scale,
                                   void* out, int m, int k, int n, int out_t,
                                   int trans, void* stream) {
   if (out_t != kBF16 && out_t != kF32) return (int)cudaErrorInvalidValue;
-  return s8mma::launch(static_cast<const int8_t*>(x_q),
-                       static_cast<const int8_t*>(w),
-                       static_cast<const float*>(a_scale),
-                       static_cast<const float*>(w_scale), out, m, n, k,
-                       trans, out_t == kF32, static_cast<cudaStream_t>(stream));
+  return s8mma::launch<s8mma::kAsWs>(
+      static_cast<const int8_t*>(x_q), static_cast<const int8_t*>(w),
+      static_cast<const float*>(a_scale), static_cast<const float*>(w_scale),
+      nullptr, 0, out, m, n, k, trans, out_t == kF32,
+      static_cast<cudaStream_t>(stream));
 }

@@ -13,11 +13,13 @@ kernels or raise.
 
 What bounds the kernels on the H100, and what the designs do about it, is
 noted at the top of each source (both compute bound at the flagship
-prefill). `gmm` on bf16 x (int8-w and bf16 experts; f32 x against int8
-experts is rounded to bf16 first, as the reference does) runs bf16
-mma.sync on the tensor cores (csrc/int8w_mma.cuh); W8A8 stays on __dp4a
-and the f32 pairs on f32 FMA (csrc/gmm.cu); K1 is a first __dp4a /
-f32-FMA version.
+prefill). On the tensor cores: `gmm` in W8A8 and `gmm_int4h` in W4A8 on
+s8 mma.sync (csrc/s8_mma.cuh: exact s32 sums, the int4h nibbles widened
+to s8 in registers, bit-equal to the plain versions), `gmm` on bf16 x
+(int8-w and bf16 experts; f32 x against int8 experts is rounded to bf16
+first, as the reference does) on bf16 mma.sync (csrc/int8w_mma.cuh). The
+f32 pairs of `gmm` (csrc/gmm.cu) and `gmm_int4h` on bf16 x
+(csrc/gmm_int4h.cu) stay on f32 FMA.
 """
 
 from __future__ import annotations
@@ -298,8 +300,10 @@ def gmm_int4h(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     _check_cuda("tile_gid", tile_gid, torch.int32, (sp // block_m,), dev)
     if int8_x:
         _check_cuda("a_scale", a_scale, torch.float32, (sp, 1), dev)
-    # the kernel's tiles are 64 columns wide and unguarded: N % 64 == 0
-    xk, pk, sk = pad_operands(xk, packed, scale, 1, 64, 1, 2)
+    # the tensor-core kernel (A8) guards N at 16, the float kernel's tiles
+    # are 64 columns wide and unguarded
+    xk, pk, sk = pad_operands(xk, packed, scale, 1, 16 if int8_x else 64,
+                              1, 2)
     n_run = pk.shape[2]
     out = torch.empty((sp, n_run), device=dev,
                       dtype=torch.bfloat16 if int8_x else torch.float32)

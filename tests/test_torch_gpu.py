@@ -37,26 +37,33 @@ def _int4h(gen, e, k, n, dev):
     return packed, scale
 
 
-@pytest.mark.parametrize("block_m", [64, 32])
-@pytest.mark.parametrize("a8", [True, False])
-def test_gmm_int4h_kernel_matches_plain(dev, block_m, a8):
-    """A8: exact integer sums, same epilogue ops -> within one bf16 ulp.
-    bf16 x: f32 sums in another order -> rel 1e-5."""
+# (block_m, A8, K, N): A8 (the s8 tensor cores) at the 16-row tile
+# (block_m 16, 32) and the 64-row tile (64, 512: two tiles of one expert
+# each), K = 768 with N = 208 (the wrapper pads N to 16); bf16 x (FMA)
+@pytest.mark.parametrize("block_m,a8,k,n", [
+    (64, True, 512, 192), (32, True, 512, 192), (16, True, 512, 192),
+    (512, True, 512, 192), (64, True, 768, 208), (16, True, 768, 208),
+    (64, False, 512, 192), (32, False, 512, 192), (512, False, 768, 208),
+])
+def test_gmm_int4h_kernel_matches_plain(dev, block_m, a8, k, n):
+    """A8: exact integer sums, the plain version's rounded epilogue in its
+    order -> bit-equal. bf16 x: f32 sums in another order -> rel 1e-5."""
     from medplib_tpu_torch.ops.cuda import gmm as G
-    gen = torch.Generator(device=dev).manual_seed(0)
-    packed, scale = _int4h(gen, 2, 512, 192, dev)
-    xs = torch.randn((300, 512), generator=gen, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(block_m + k)
+    packed, scale = _int4h(gen, 2, k, n, dev)
+    xs = torch.randn((300, k), generator=gen, device=dev)
     idx = torch.randint(0, 2, (300,), generator=gen, device=dev)
     x_al, _, gid = G.align_groups(xs, idx, 2, block_m)
+    assert int(gid.min()) == 0 and int(gid.max()) == 1
     xin, a_s = G.quantize_rows(x_al) if a8 else (x_al, None)
     n0 = G.gmm_int4h.launches
     got = G.gmm_int4h(xin, packed, scale, gid, a_s, block_m)
     want = G.gmm_int4h_plain(xin, packed, scale, gid, a_s, block_m)
     torch.cuda.synchronize()
     assert G.gmm_int4h.launches == n0 + 1
+    assert got.shape == (x_al.shape[0], n)
     if a8:
-        d = (got.float() - want.float()).abs()
-        assert bool((d <= want.float().abs() * 2.0 ** -7).all())
+        assert torch.equal(got, want)
     else:
         assert float((got - want).norm() / want.norm()) < 1e-5
 
@@ -291,13 +298,31 @@ def _gmm_sum_order_close(got, want, x, w, ws, gid, block_m, transposed):
     return ok
 
 
-# (x dtype, w dtype, transposed, N, block_m): W8A8; int8-w with bf16 and
-# f32 x; float bf16 / f32; transposed weights; N not a multiple of the
-# 64-column tile; 16-row tiles (block_m 32); the main path's block_m 512,
-# whose two tiles hold one expert each
+def _k8_order(x, w, gid, ws, a_s, bm, transposed):
+    """f32 (acc * a_s) * w_s per expert: K8's epilogue order, not K3's."""
+    rows = gid.long().repeat_interleave(bm)
+    out = torch.zeros((x.shape[0], ws.shape[-1]), device=x.device)
+    for g in range(w.shape[0]):
+        sel = rows == g
+        wg = w[g].t() if transposed else w[g]
+        acc = (x[sel].double() @ wg.double()).float()
+        out[sel] = (acc * a_s[sel]) * ws[g]
+    return out
+
+
+# (x dtype, w dtype, transposed, N, block_m): W8A8 (the s8 tensor cores)
+# in both layouts at block_m 16, 32 (16-row tiles), 64 and 512; int8-w
+# with bf16 and f32 x; float bf16 / f32; transposed weights; N not a
+# multiple of the 64-column tile; the main path's block_m 512, whose two
+# tiles hold one expert each
 @pytest.mark.parametrize("xd,wd,transposed,n,block_m", [
     (torch.int8, torch.int8, False, 192, 64),
     (torch.int8, torch.int8, True, 208, 32),
+    (torch.int8, torch.int8, False, 208, 16),
+    (torch.int8, torch.int8, True, 192, 16),
+    (torch.int8, torch.int8, False, 192, 32),
+    (torch.int8, torch.int8, True, 192, 64),
+    (torch.int8, torch.int8, True, 208, 512),
     (torch.bfloat16, torch.int8, False, 192, 64),
     (torch.float32, torch.int8, True, 192, 64),
     (torch.bfloat16, torch.bfloat16, False, 208, 64),
@@ -310,11 +335,13 @@ def _gmm_sum_order_close(got, want, x, w, ws, gid, block_m, transposed):
     (torch.int8, torch.int8, False, 192, 512),
 ])
 def test_gmm_kernel_matches_plain(dev, xd, wd, transposed, n, block_m):
-    """K3 against gmm_plain over a two-ended E=2 buffer, K = 2176 (a
-    ragged last 64-deep chunk), int8 weights with -128. W8A8: exact
-    integer sums, same epilogue ops -> within one bf16 ulp. Otherwise the
-    same products summed in another order (_sum_order_close; f32 outputs
-    also rel 1e-5)."""
+    """K3 against gmm_plain over a two-ended E=2 buffer (a gap tile of
+    zero rows), K = 2176 (a ragged last 128-deep stage), int8 weights with
+    -128. W8A8: exact integer sums, the same rounded epilogue ops in the
+    same order -> bit-equal, in bf16 and in f32 output; K8's order
+    (acc * a_s) * w_s differs from it in f32. Otherwise the same products
+    summed in another order (_sum_order_close; f32 outputs also rel
+    1e-5)."""
     from medplib_tpu_torch.ops.cuda import gmm as G
     gen = torch.Generator(device=dev).manual_seed(n + block_m)
     k, e = 2176, 2
@@ -342,8 +369,15 @@ def test_gmm_kernel_matches_plain(dev, xd, wd, transposed, n, block_m):
     assert G.gmm.launches == n0 + 1
     assert got.dtype == want.dtype and got.shape == (x_al.shape[0], n)
     if xd == torch.int8:
-        d = (got.float() - want.float()).abs()
-        assert bool((d <= want.float().abs() * 2.0 ** -7).all())
+        assert torch.equal(got, want)
+        f32 = dict(block_m=block_m, out_dtype=torch.float32,
+                   transposed=transposed)
+        got32 = G.gmm(x_al, w, gid, ws, a_s, **f32)
+        want32 = G.gmm_plain(x_al, w, gid, ws, a_s, **f32)
+        torch.cuda.synchronize()
+        assert torch.equal(got32, want32)
+        assert not torch.equal(got32, _k8_order(x_al, w, gid, ws, a_s,
+                                                block_m, transposed))
     else:
         xb = x_al.to(torch.bfloat16) if wd == torch.int8 else x_al
         assert _gmm_sum_order_close(got, want, xb, w, ws, gid, block_m,
@@ -581,8 +615,7 @@ def test_ragged_widths_match_plain(dev, kernel, transposed):
     assert got.dtype == want.dtype and got.shape == want.shape
     assert got.shape[1] == n
     if exact:       # integer sums, the same rounded epilogue
-        d = (got.float() - want.float()).abs()
-        assert bool((d <= want.float().abs() * 2.0 ** -7).all())
+        assert torch.equal(got, want)
     elif fn is G.gmm:   # f32 sums in another order
         assert _gmm_sum_order_close(got, want, x_al, w, ws, gid, bm,
                                     transposed)

@@ -99,9 +99,11 @@ def test_pad_keeps_gmm(mode, transposed):
 
 @pytest.mark.parametrize("a8", [True, False])
 def test_pad_keeps_gmm_int4h(a8):
-    """K1 pads N to a multiple of its 64-column tile."""
+    """K1 pads N to the multiple its kernel takes: 16 in A8 (the s8
+    tensor-core kernel guards N at 16), 64 on bf16 x (the float kernel's
+    unguarded 64-column tile)."""
     rng = _rng(4)
-    e, s, bm, k, n = 2, 70, 32, 512, 208
+    e, s, bm, k, n = 2, 70, 32, 512, 200
     xs = torch.from_numpy(rng.normal(size=(s, k)).astype(np.float32))
     idx = torch.from_numpy(rng.integers(0, e, size=(s,)))
     x_al, _, gid = G.align_groups(xs, idx, e, bm)
@@ -112,8 +114,9 @@ def test_pad_keeps_gmm_int4h(a8):
     a_s = None
     if a8:
         x_al, a_s = G.quantize_rows(x_al)
-    xp, pp, sp = pad_operands(x_al, packed, scale, 1, 64, 1, 2)
-    assert pp.shape[2] == 256 and xp is x_al
+    xp, pp, sp = pad_operands(x_al, packed, scale, 1, 16 if a8 else 64, 1,
+                              2)
+    assert pp.shape[2] == (208 if a8 else 256) and xp is x_al
     got = G.gmm_int4h_plain(xp, pp, sp, gid, a_s, bm)[:, :n]
     want = G.gmm_int4h_plain(x_al, packed, scale, gid, a_s, bm)
     _close(got.float(), want.float(), a8)
