@@ -2,16 +2,19 @@
 """Smoke run of the PyTorch + CUDA port (medplib_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k2-equal-share ROOT   (K2 alone, see
+                                                   k2_equal_share)
 
 1. Requires a CUDA device (exits non-zero otherwise) and prints the card's
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from medplib_tpu_torch/csrc with nvcc
    and counts, with cuobjdump, the tensor-core instructions of each
    instance of the tensor-core kernels (HMMA: K7 on bf16 x, K3 int8-w /
-   bf16, K9 on bf16 x, K4 / K5 / K6 on bf16; IMMA: K8, K3 W8A8, K1 W4A8).
+   bf16, K9 and K1 on bf16 x, K2 on bf16 x, K4 / K5 / K6 on bf16; IMMA:
+   K8, K3 W8A8, K1 W4A8, K2 A8).
 3. Kernel phases: each kernel at the shapes its main path gives it (K1,
    K2 in A8 and bf16-x modes at the flagship serving shapes, K2 also at
-   B=80 rows; K3 in W8A8 at the int8-expert flagship shapes, int8-w and
+   block_n 128 / 256 / 512 and at B=80 rows; K3 in W8A8 at the int8-expert flagship shapes, int8-w and
    float bf16 at the ICL shapes, transposed at a small shape; K7
    int8_matmul and K9 int4h_matmul at the packed dense serving shapes,
    prefill and decode, both layouts; K8 w8a8_matmul, on no path, at the
@@ -107,12 +110,15 @@ def sass_phase(lib_path, build_log: str) -> None:
     """cuobjdump --dump-sass of the built library: the tensor-core
     instructions in each instance of the tensor-core kernels (HMMA in
     w8_mma_kernel: K7 on bf16 x, K3 int8-w / bf16; int4h_mma_kernel: K9 on
-    bf16 x; flash_fwd_mma_kernel, flash_dq_mma_kernel and
-    flash_dkv_mma_kernel: K4, K5 and K6 on bf16; IMMA in s8_mma_kernel:
-    K8 (int8_matmul.cu, 4 instances), K3 W8A8 (gmm.cu, 4) and K1 W4A8
-    (gmm_int4h.cu, 2)) and, for contrast, in the CUDA-core kernels (K3
-    f32 pairs, K1 bf16 x, K2, K7 f32 x, K9 f32 x, K4 / K5 / K6 f32). Fails
-    if a tensor-core instance holds none or an instance count changes.
+    bf16 x (int4_matmul.cu, 8 instances) and K1 on float x (gmm_int4h.cu,
+    2); flash_fwd_mma_kernel, flash_dq_mma_kernel and
+    flash_dkv_mma_kernel: K4, K5 and K6 on bf16; moe_gateup_kernel and
+    moe_down_kernel<false>: K2 on bf16 x; IMMA in s8_mma_kernel: K8
+    (int8_matmul.cu, 4 instances), K3 W8A8 (gmm.cu, 4) and K1 W4A8
+    (gmm_int4h.cu, 2); moe_gateup_kernel and moe_down_kernel<true>: K2
+    A8) and, for contrast, in the CUDA-core kernels (K3 f32 pairs, K7 f32
+    x, K9 f32 x, K4 / K5 / K6 f32). Fails if a tensor-core instance holds
+    none or an instance count changes.
     From this run's nvcc log (ptxas -v), each tensor-core instance's
     registers and spill stores; fails on a spill."""
     import re
@@ -129,10 +135,12 @@ def sass_phase(lib_path, build_log: str) -> None:
         elif fns:
             fns[-1][1] += bool(re.search(r"\bHMMA\b", line))
             fns[-1][2] += bool(re.search(r"\bIMMA\b", line))
-    hmma = {"w8_mma_kernel": 12, "int4h_mma_kernel": 8,
+    hmma = {"w8_mma_kernel": 12, "int4h_mma_kernel": 10,
             "flash_fwd_mma_kernel": 1, "flash_dq_mma_kernel": 1,
-            "flash_dkv_mma_kernel": 1}       # kernel -> its instances
-    imma = {"s8_mma_kernel": 10}
+            "flash_dkv_mma_kernel": 1, "moe_gateup_kernelILb0": 1,
+            "moe_down_kernelILb0": 1}        # kernel -> its instances
+    imma = {"s8_mma_kernel": 10, "moe_gateup_kernelILb1": 1,
+            "moe_down_kernelILb1": 1}
     bad = []
     for kern, n in list(hmma.items()) + list(imma.items()):
         col = 1 if kern in hmma else 2
@@ -142,14 +150,12 @@ def sass_phase(lib_path, build_log: str) -> None:
         if len(got) != n or not all(c for _, c in got):
             bad.append((kern, got))
     other = [(h, i) for f, h, i in fns
-             if any(k in f for k in ("gmm_kernel", "gmm_int4h_kernel",
-                                     "gateup_kernel", "down_kernel",
-                                     "int8_matmul_kernel",
+             if any(k in f for k in ("gmm_kernel", "int8_matmul_kernel",
                                      "int4h_matmul_f32_kernel",
                                      "flash_fwd_kernel", "flash_dq_kernel",
                                      "flash_dkv_kernel"))]
-    log(f"[sass] CUDA-core kernels (K3 f32 pairs, K1 bf16 x, K2, K7 f32 x, "
-        f"K9 f32 x, K4 / K5 / K6 f32): {sum(h for h, _ in other)} HMMA, "
+    log(f"[sass] CUDA-core kernels (K3 f32 pairs, K7 f32 x, K9 f32 x, "
+        f"K4 / K5 / K6 f32): {sum(h for h, _ in other)} HMMA, "
         f"{sum(i for _, i in other)} IMMA in {len(other)} instances")
     if bad:
         raise AssertionError(f"tensor-core kernels without HMMA / IMMA or "
@@ -192,8 +198,10 @@ def k1_phase(gen, dev, results):
     over 2 experts, two-ended aligned to Sp = 10752 (bm 512), gate/up
     (K 4096 -> N 11264) and down (K 11264 -> N 4096). A8 (the s8 tensor
     cores): exact integer sums and the plain version's rounded epilogue
-    in its order -> bit-equal (the equal share is printed). bf16 x (f32
-    FMA): f32 sums in another order -> rel 1e-4. Yardsticks: the integer
+    in its order -> bit-equal (the equal share is printed; also with no
+    a_scale and an f32 output). bf16 x (K9's bf16 tensor-core tile
+    grouped by tile_gid): f32 sums in another order -> rel 1e-4.
+    Yardsticks: the integer
     products alone on the nibbles widened to int8 (per-expert
     torch._int_mm, row-major and column-major weight) and, for bf16 x,
     the bf16 products on the widened nibbles (_grouped_library_ms)."""
@@ -248,47 +256,82 @@ def k1_phase(gen, dev, results):
                 f"({by}), {lib} on the widened nibbles {lib_ms:.3f} ms "
                 f"({ms / lib_ms:.2f}x)")
             del wide
+            if mode == "A8":
+                # the reference's defaults: no a_scale (ones), f32 output
+                got = G.gmm_int4h(xin, packed, scale, tile_gid, None, bm,
+                                  out_dtype=torch.float32)
+                want = G.gmm_int4h_plain(xin, packed, scale, tile_gid, None,
+                                         bm, out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                log(f"[K1 gmm_int4h {name} A8] a_scale None, f32 out: "
+                    f"bit-equal {torch.equal(got, want)}")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K1 {name} A8 f32 out disagrees")
+                del got, want
             if mode == "A8" and name == "gate/up":
                 results["gmm_int4h"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms)
 
 
-def k2_phase(gen, dev, results):
-    """moe_ffn_decode_int4h at the flagship decode: B=16, H=4096,
-    M=11264, 2 experts (one layer)."""
+def _k2_rows(gen, dev, b, h=4096, e=2):
+    """b decode rows of width h routed over e experts."""
     import torch
-    from medplib_tpu_torch.ops.cuda import moe_decode as D
-    b, h, m, e = 16, 4096, 11264, 2
-    experts = {}
-    for name, (k, n) in (("gate_proj", (h, m)), ("up_proj", (h, m)),
-                         ("down_proj", (m, h))):
-        packed, scale = _random_int4h(gen, e, k, n, dev)
-        experts[name] = {"kernel": packed, "scale4h": scale}
     x = (torch.randn((b, h), generator=gen, device=dev) * 0.5).to(
         torch.bfloat16)
     idx = torch.randint(0, e, (b,), generator=gen, device=dev).to(
         torch.int32)
     gate = torch.rand((b,), generator=gen, device=dev) * 0.5 + 0.5
-    for mode, a8 in (("A8", True), ("bf16", False)):
-        got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, a8)
-        want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e, a8)
+    return x, idx, gate
+
+
+def _k2_inputs(gen, dev, b, h=4096, m=11264, e=2):
+    """One layer of random int4h experts at the flagship decode widths and
+    b rows routed over them."""
+    experts = {}
+    for name, (k, n) in (("gate_proj", (h, m)), ("up_proj", (h, m)),
+                         ("down_proj", (m, h))):
+        packed, scale = _random_int4h(gen, e, k, n, dev)
+        experts[name] = {"kernel": packed, "scale4h": scale}
+    return (experts,) + _k2_rows(gen, dev, b, h, e)
+
+
+def k2_phase(gen, dev, results):
+    """moe_ffn_decode_int4h at the flagship decode: B=16, H=4096,
+    M=11264, 2 experts (one layer), A8 and bf16 x at the default block_n
+    (512), A8 also at block_n 128 / 256 / 512, then B=80 (two counted
+    launches). Each against its plain version at rel Frobenius 1e-3, with
+    the share of bit-equal elements printed."""
+    import torch
+    from medplib_tpu_torch.ops.cuda import moe_decode as D
+    b, e = 16, 2
+    experts, x, idx, gate = _k2_inputs(gen, dev, b)
+    h, m = x.shape[1], experts["gate_proj"]["kernel"].shape[-1]
+    cases = [("A8", True, None), ("bf16", False, None), ("A8", True, 128),
+             ("A8", True, 256), ("A8", True, 512)]
+    for mode, a8, bn in cases:
+        kw = dict(block_n=bn, int8_x=a8)
+        got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, **kw)
+        want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         rel = rel_err(got, want)
+        equal = float((got == want).float().mean()) * 100
         # same op order on both sides; exp() may differ in the last bit,
         # which can flip a rare act-quant / bf16 rounding by one step
         ok = rel <= 1e-3
         ms = cuda_time(lambda: D.moe_ffn_decode_int4h(x, experts, idx, gate,
-                                                      e, a8), iters=20)
+                                                      e, **kw), iters=20)
         pms = cuda_time(lambda: D.moe_ffn_decode_int4h_plain(
-            x, experts, idx, gate, e, a8), iters=5)
-        log(f"[K2 moe_ffn_decode_int4h {mode}] B={b} H={h} M={m}: "
-            f"max_abs_err={err:.3e} rel={rel:.3e} (rel Frobenius <= 1e-3) "
-            f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+            x, experts, idx, gate, e, **kw), iters=5)
+        log(f"[K2 moe_ffn_decode_int4h {mode}] B={b} H={h} M={m} "
+            f"block_n={bn or D._pick_bn(m // 2)}: max_abs_err={err:.3e} "
+            f"rel={rel:.3e} (rel Frobenius <= 1e-3), {equal:.4f}% "
+            f"bit-equal; kernel {ms:.3f} ms, plain {pms:.3f} ms")
         if not ok:
-            raise AssertionError(f"K2 {mode} disagrees with plain")
-        if mode == "A8":
+            raise AssertionError(f"K2 {mode} block_n={bn} disagrees with "
+                                 f"plain")
+        if mode == "A8" and bn is None:
             # the weights of the experts this batch routes to, read once
             used = [int(u) for u in torch.unique(idx).tolist()]
             wbytes = sum(nbytes(node["kernel"][used], node["scale4h"][used])
@@ -299,26 +342,51 @@ def k2_phase(gen, dev, results):
                 max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=None)
             log(f"[K2 moe_ffn_decode_int4h] bound {bms:.4f} ms ({by}: "
-                f"{len(used)} experts' weights), one PyTorch call for the "
-                f"same function: none (no call routes rows to int4 "
-                f"experts and fuses gate / up, silu and down)")
+                f"{len(used)} experts' weights; {wbytes / ms / 1e6:.1f} "
+                f"GB/s of them), one PyTorch call for the same function: "
+                f"none (no call routes rows to int4 experts and fuses "
+                f"gate / up, silu and down); its kernels over 100 calls:")
+            profile_step(lambda: [D.moe_ffn_decode_int4h(
+                x, experts, idx, gate, e, **kw) for _ in range(100)], top=6)
     # more than 64 rows: one launch per 64 rows
-    b = 80
-    x = (torch.randn((b, h), generator=gen, device=dev) * 0.5).to(
-        torch.bfloat16)
-    idx = torch.randint(0, e, (b,), generator=gen, device=dev).to(
-        torch.int32)
-    gate = torch.rand((b,), generator=gen, device=dev) * 0.5 + 0.5
+    x, idx, gate = _k2_rows(gen, dev, 80, h=h)
     n0 = D.moe_ffn_decode_int4h.launches
-    got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, True)
-    want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e, True)
+    got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, int8_x=True)
+    want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e,
+                                        int8_x=True)
     torch.cuda.synchronize()
     rel = rel_err(got, want)
     launches = D.moe_ffn_decode_int4h.launches - n0
-    log(f"[K2 moe_ffn_decode_int4h A8] B={b}: {launches} launches, "
+    log(f"[K2 moe_ffn_decode_int4h A8] B=80: {launches} launches, "
         f"rel={rel:.3e} (rel Frobenius <= 1e-3)")
     if rel > 1e-3 or launches != 2:
         raise AssertionError("K2 at B=80 disagrees with plain")
+
+
+def k2_equal_share(root: str) -> None:
+    """`--k2-equal-share ROOT`: K2 in A8 at the flagship decode (B=16,
+    the default block_n) on inputs from seed 0, from the
+    package under ROOT (this checkout, or another commit's unpacked
+    tree): the share of elements bit-equal to its plain version, and its
+    time. Run for two trees in one call to compare their kernels."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from medplib_tpu_torch.ops.cuda import _build
+    from medplib_tpu_torch.ops.cuda import moe_decode as D
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load_library()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    experts, x, idx, gate = _k2_inputs(gen, dev, 16)
+    got = D.moe_ffn_decode_int4h(x, experts, idx, gate, 2, int8_x=True)
+    want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, 2,
+                                        int8_x=True)
+    torch.cuda.synchronize()
+    ms = cuda_time(lambda: D.moe_ffn_decode_int4h(x, experts, idx, gate, 2,
+                                                  int8_x=True), iters=20)
+    log(f"[K2 equal share] {D.__file__}: "
+        f"{float((got == want).float().mean()) * 100:.4f}% bit-equal, "
+        f"rel={rel_err(got, want):.3e}, kernel {ms:.3f} ms; {gpu_line()}")
 
 
 def _grouped_library_ms(xin, w, tile_gid, bm):
@@ -1639,6 +1707,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--k2-equal-share"]:
+        k2_equal_share(sys.argv[2])
+        return 0
     sys.path.insert(0, HERE)
     from medplib_tpu_torch.ops.cuda import _build
 

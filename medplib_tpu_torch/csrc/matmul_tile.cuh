@@ -1,7 +1,7 @@
 // Shared tile routines of the dense matmul kernels on the CUDA cores
-// (int8_matmul.cu: K7 on f32 x; int4_matmul.cu: K9 on f32 x). K7 and K9
-// on bf16 x run on the tensor cores (int8w_mma.cuh, int4_matmul.cu), and
-// so does K8 (s8_mma.cuh).
+// (int8_matmul.cu: K7 on f32 x; int4_matmul.cu: K9 on f32 x, with the
+// int4h nibble helpers). K7 and K9 on bf16 x run on the tensor cores
+// (int8w_mma.cuh, int4h_mma.cuh), and so does K8 (s8_mma.cuh).
 //
 // A block of 256 threads computes a TM x 64 output tile (TM = 64 or 16)
 // over 64-deep reduction chunks staged in shared memory: the activation
@@ -33,6 +33,14 @@ struct Smem {
   float x[64 * kPadF];
   float w[kTN * kPadF];
 };
+
+// sign-extending nibble extraction from a sign-extended packed int4h byte
+__device__ __forceinline__ int lo_nibble(int b) {
+  return (int)((unsigned)b << 28) >> 28;
+}
+__device__ __forceinline__ int hi_nibble(int b) {
+  return (int)((unsigned)b << 24) >> 28;
+}
 
 // Activation chunk [TM, kKC] of rows m0.., columns k0.. (x row-major f32
 // [M, K]) -> smem floats. Rows >= M and columns >= K are zero; K % 16 == 0

@@ -1,7 +1,7 @@
-// Warp-level tensor-core building blocks of the dense matmul kernels
-// (int4_matmul.cu: K9 on bf16 x; int8w_mma.cuh: K7 on bf16 x and K3's
-// int8-w / bf16 modes; s8_mma.cuh: K8). A kernel adds only its B tile and
-// decode.
+// Warp-level tensor-core building blocks of the matmul kernels
+// (int4h_mma.cuh: K9 on bf16 x and K1 on float x; int8w_mma.cuh: K7 on
+// bf16 x and K3's int8-w / bf16 modes; s8_mma.cuh: K8, K3 W8A8, K1 W4A8;
+// moe_decode_int4h.cu: K2). A kernel adds only its B tile and decode.
 //
 //   - cp.async copies (16 or 4 bytes, the rest zero-filled through the
 //     source-size operand) into a ring of pipeline stages in dynamic shared
@@ -14,7 +14,8 @@
 //     bf16, for flash_attention.cu's P V, dS K, dK and dV) and mma.sync
 //     m16n8k16 (bf16 x bf16 -> f32);
 //   - the int4 nibble -> bf16x2 B-register decode;
-//   - the epilogue store of eight neighbouring outputs of one row.
+//   - the epilogue store of eight neighbouring outputs of one row (bf16 or
+//     f32).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), lane = 4 g + t:
 //   A a0a1: row g, k 2t..2t+1; a2a3: row g+8; a4a5: row g, k 2t+8..;
@@ -189,6 +190,21 @@ __device__ __forceinline__ void store_row8_bf16(__nv_bfloat16* out, int row,
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       if (col0 + i < N) o[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+// The same eight outputs in f32: two 16-byte stores where the row is whole
+// and aligned, else guarded element stores.
+__device__ __forceinline__ void store_row8_f32(float* out, int row, int col0,
+                                               int N, const float (&v)[8]) {
+  float* o = out + (size_t)row * N + col0;
+  if ((N & 3) == 0 && col0 + 8 <= N) {
+    reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (col0 + i < N) o[i] = v[i];
   }
 }
 

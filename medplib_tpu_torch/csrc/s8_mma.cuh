@@ -1,7 +1,9 @@
 // Tensor-core s8 x s8 -> s32 matmul with the W8A8 epilogues: the kernel of
 // K8 (int8_matmul.cu: w8a8_matmul / w8a8_matmul_t), of K3's W8A8 mode
 // (gmm.cu, grouped over experts) and of K1's W4A8 mode (gmm_int4h.cu:
-// int4h pairs widened to s8 in registers), built from mma_tile.cuh.
+// int4h pairs widened to s8 in registers), built from mma_tile.cuh. K2's
+// A8 kernels (moe_decode_int4h.cu) take its kPairs loader, widening,
+// transpose and mma on their own 16-row tiles.
 //
 //   acc[m, n] = sum_k x_q[m, k] * w[k, n]       (mma.sync m16n8k32, s32)
 //   K8 (kAsWs):   out = (out dtype)(__fmul_rn(__fmul_rn(float(acc),
@@ -10,8 +12,8 @@
 //                                   w_scale[n]), a_scale[m]))
 //   K1 (kHalves): acc_lo / acc_hi over the first / second half of k (the
 //                two scale groups), p = __fmul_rn(float(acc_lo), s0[n]),
-//                out = bf16(__fmul_rn(__fadd_rn(p, __fmul_rn(float(acc_hi),
-//                                               s1[n])), a_scale[m]))
+//                out = (out dtype)(__fmul_rn(__fadd_rn(p,
+//                          __fmul_rn(float(acc_hi), s1[n])), a_scale[m]))
 //
 // The s32 sums are exact, so the order of the sums is free and the result
 // is bit-equal to the plain versions (exact integer sums, the same f32
@@ -470,7 +472,7 @@ int launch_tile(const int8_t* x, const int8_t* w, const float* a_scale,
 // x_q int8 [m, k] @ w -> out [m, n], bf16 (f32 when out_f32), with a_scale
 // f32 [m] and w_scale f32 [n], either null for ones. EPI kAsWs (K8) /
 // kWsAs (K3): w int8 [k, n], or [n, k] when trans. kHalves (K1): w the
-// int4h pairs [k/2, n], w_scale [2, n] (s0, s1), k/2 % 128 == 0, bf16 out.
+// int4h pairs [k/2, n], w_scale [2, n] (s0, s1), k/2 % 128 == 0.
 // Grouped when tile_gid is given: w [E, ...], w_scale [E, ...], row block
 // i of bm rows on expert tile_gid[i], bm % 16 == 0, m % bm == 0. The
 // caller checks m > 0, k % 16 == 0, n % 16 == 0, contiguity and 16-byte

@@ -58,7 +58,7 @@ def _declare(lib):
     lib.gmm_int4h_launch.restype = i
     lib.gmm_launch.argtypes = [vp] * 6 + [i] * 9 + [vp]
     lib.gmm_launch.restype = i
-    lib.moe_decode_int4h_launch.argtypes = [vp] * 14 + [i] * 6 + [vp]
+    lib.moe_decode_int4h_launch.argtypes = [vp] * 16 + [i] * 8 + [vp]
     lib.moe_decode_int4h_launch.restype = i
     f = ctypes.c_float
     lib.flash_fwd_launch.argtypes = [vp] * 6 + [i] * 5 + [f, vp]

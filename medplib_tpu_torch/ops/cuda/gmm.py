@@ -17,9 +17,10 @@ prefill). On the tensor cores: `gmm` in W8A8 and `gmm_int4h` in W4A8 on
 s8 mma.sync (csrc/s8_mma.cuh: exact s32 sums, the int4h nibbles widened
 to s8 in registers, bit-equal to the plain versions), `gmm` on bf16 x
 (int8-w and bf16 experts; f32 x against int8 experts is rounded to bf16
-first, as the reference does) on bf16 mma.sync (csrc/int8w_mma.cuh). The
-f32 pairs of `gmm` (csrc/gmm.cu) and `gmm_int4h` on bf16 x
-(csrc/gmm_int4h.cu) stay on f32 FMA.
+first, as the reference does) on bf16 mma.sync (csrc/int8w_mma.cuh), and
+`gmm_int4h` on float x on K9's bf16 mma.sync tile grouped by tile_gid
+(csrc/int4h_mma.cuh). The f32 pairs of `gmm` (csrc/gmm.cu) stay on f32
+FMA.
 """
 
 from __future__ import annotations
@@ -91,17 +92,24 @@ def align_groups(xs: torch.Tensor, expert_idx: torch.Tensor,
 def gmm_int4h_plain(x: torch.Tensor, packed: torch.Tensor,
                     scale: torch.Tensor, tile_gid: torch.Tensor,
                     a_scale: torch.Tensor | None = None,
-                    block_m: int = 512) -> torch.Tensor:
+                    block_m: int = 512, block_n: int = 512,
+                    out_dtype: torch.dtype | None = None,
+                    allow_pad: bool = True,
+                    block_k: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of K1, any device. A8 (int8 x): the two
     half-K products are integer sums below 2^24 (127 * 8 * K/2 for
     K/2 <= 16384), so float32 products of the integer operands are exact
-    (TF32 must be off on a GPU). bf16 mode: x rounded to bf16, exact
-    products, f32 sums. Epilogue order as the kernel:
-    (lo * s0 + hi * s1) * a_scale."""
+    (TF32 must be off on a GPU); a missing a_scale is ones. bf16 mode: x
+    rounded to bf16, exact products, f32 sums. Epilogue order as the
+    kernel: (lo * s0 + hi * s1) * a_scale in f32, cast to out_dtype
+    (default bf16 for int8 x, else x.dtype). block_n, allow_pad and
+    block_k are the TPU kernel's tiling knobs (see `gmm_int4h`)."""
     sp, k = x.shape
     e, _, n = packed.shape
     half = k // 2
     int8_x = x.dtype == torch.int8
+    if out_dtype is None:
+        out_dtype = torch.bfloat16 if int8_x else x.dtype
     xf = x.float() if int8_x else x.to(torch.bfloat16).float()
     rows_gid = tile_gid.long().repeat_interleave(block_m)
     out = torch.zeros((sp, n), dtype=torch.float32, device=x.device)
@@ -114,10 +122,10 @@ def gmm_int4h_plain(x: torch.Tensor, packed: torch.Tensor,
         lo = xg[:, :half] @ w[:half]
         hi = xg[:, half:] @ w[half:]
         y = lo * scale[g, 0].float() + hi * scale[g, 1].float()
-        if int8_x:
+        if int8_x and a_scale is not None:
             y = y * a_scale[sel].float()
         out[sel] = y
-    return out.to(torch.bfloat16 if int8_x else x.dtype)
+    return out.to(out_dtype)
 
 
 def _check_cuda(name, t, dtype, shape, device):
@@ -262,14 +270,26 @@ gmm.launches = 0
 
 def gmm_int4h(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
               tile_gid: torch.Tensor, a_scale: torch.Tensor | None = None,
-              block_m: int = 512) -> torch.Tensor:
+              block_m: int = 512, block_n: int = 512,
+              out_dtype: torch.dtype | None = None, allow_pad: bool = True,
+              block_k: int | None = None) -> torch.Tensor:
     """Grouped matmul over int4h expert weights (kernel K1).
 
-    x [Sp, K] group-aligned rows: int8 with a_scale [Sp, 1] f32 (W4A8), or
-    float (rounded to bf16 for the products, f32 accumulation); packed
-    [E, K/2, N] int8 pairs layout; scale [E, 2, 1, N] f32 per-half scales;
-    tile_gid [Sp // block_m] int32. -> [Sp, N], bf16 for W4A8, else x.dtype.
-    """
+    x [Sp, K] group-aligned rows: int8 with a_scale [Sp, 1] f32 (W4A8; a
+    missing a_scale is ones, as in the reference), or float (rounded to
+    bf16 for the products, f32 accumulation); packed [E, K/2, N] int8
+    pairs layout; scale [E, 2, 1, N] f32 per-half scales; tile_gid
+    [Sp // block_m] int32. -> [Sp, N] in out_dtype (default bf16 for int8
+    x, else x.dtype), the f32 result cast once.
+
+    block_n, allow_pad and block_k are the TPU kernel's tiling knobs:
+    accepted and ignored here (the card's kernels tile by their own
+    shapes and zero-pad N to a multiple of 16 where it is not: ops/cuda/
+    pad.py). None of them changes an A8 result (exact integer sums). In
+    the float mode block_k moves the reference's f32 summation order (it
+    sets the K blocks the Pallas kernel accumulates one after another);
+    the port's kernel sums in its own order, within the same f32
+    summation bound."""
     sp, k = x.shape
     e, k2, n = packed.shape
     if 2 * k2 != k or tuple(scale.shape) != (e, 2, 1, n):
@@ -281,10 +301,11 @@ def gmm_int4h(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"Sp={sp} must be a multiple of block_m={block_m} "
                          f"with one tile_gid per tile")
     int8_x = x.dtype == torch.int8
-    if int8_x and a_scale is None:
-        raise ValueError("int8 x needs a_scale [Sp, 1]")
+    if out_dtype is None:
+        out_dtype = torch.bfloat16 if int8_x else x.dtype
     if x.device.type == "cpu":
-        return gmm_int4h_plain(x, packed, scale, tile_gid, a_scale, block_m)
+        return gmm_int4h_plain(x, packed, scale, tile_gid, a_scale, block_m,
+                               block_n, out_dtype, allow_pad, block_k)
     if not x.is_cuda:
         raise ValueError(f"gmm_int4h: unsupported device {x.device}")
 
@@ -294,31 +315,31 @@ def gmm_int4h(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"the CUDA kernel needs block_m % 16 == 0 "
                          f"(block_m={block_m})")
     xk = x if int8_x else x.to(torch.bfloat16)
+    a_s = a_scale if int8_x else None
     _check_cuda("x", xk, xk.dtype, (sp, k), dev)
     _check_cuda("packed", packed, torch.int8, (e, k2, n), dev)
     _check_cuda("scale", scale, torch.float32, (e, 2, 1, n), dev)
     _check_cuda("tile_gid", tile_gid, torch.int32, (sp // block_m,), dev)
-    if int8_x:
-        _check_cuda("a_scale", a_scale, torch.float32, (sp, 1), dev)
-    # the tensor-core kernel (A8) guards N at 16, the float kernel's tiles
-    # are 64 columns wide and unguarded
-    xk, pk, sk = pad_operands(xk, packed, scale, 1, 16 if int8_x else 64,
-                              1, 2)
+    if a_s is not None:
+        _check_cuda("a_scale", a_s, torch.float32, (sp, 1), dev)
+    # both tensor-core kernels guard N at 16 (16-byte weight copies)
+    xk, pk, sk = pad_operands(xk, packed, scale, 1, 16, 1, 2)
     n_run = pk.shape[2]
+    # A8 rounds to bf16 in its epilogue; everything else leaves f32
+    out_bf16 = int8_x and out_dtype == torch.bfloat16
     out = torch.empty((sp, n_run), device=dev,
-                      dtype=torch.bfloat16 if int8_x else torch.float32)
-    tm = 64 if block_m % 64 == 0 else 32 if block_m % 32 == 0 else 16
+                      dtype=torch.bfloat16 if out_bf16 else torch.float32)
     lib = load_library()
     err = lib.gmm_int4h_launch(
         xk.data_ptr(), pk.data_ptr(), sk.data_ptr(),
-        tile_gid.data_ptr(), a_scale.data_ptr() if int8_x else None,
-        out.data_ptr(), sp, k, n_run, block_m, tm, int(int8_x),
+        tile_gid.data_ptr(), a_s.data_ptr() if a_s is not None else None,
+        out.data_ptr(), sp, k, n_run, block_m, int(int8_x), int(out_bf16),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "gmm_int4h")
     gmm_int4h.launches += 1
     if n_run != n:
         out = out[:, :n].contiguous()
-    return out if int8_x else out.to(x.dtype)
+    return out.to(out_dtype)
 
 
 gmm_int4h.launches = 0

@@ -15,6 +15,7 @@ and its dispatches (medplib_tpu/ops/moe.py).
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -108,8 +109,9 @@ def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
              block_m: int = 512, stacked: bool = False):
     """Top-1 expert MLP via the grouped matmuls (K3 / K1) over a
     group-aligned buffer, or, for decode tiles (block_m <= 64) on the
-    whole-stack path with int4h experts, the fused decode kernel K2 in A8
-    mode."""
+    whole-stack path with int4h experts, the fused decode kernel K2, in
+    A8 unless MEDPLIB_DECODE_A8=0 (the JAX caller's variable and
+    default)."""
     from medplib_tpu_torch.ops.cuda.gmm import align_groups
     from medplib_tpu_torch.ops.cuda.moe_decode import (
         fused_decode_eligible, moe_ffn_decode_int4h)
@@ -117,8 +119,10 @@ def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
     e = logits.shape[-1]
     idx, gate_s, aux = _route_top1(logits)
     if stacked and block_m <= 64 and fused_decode_eligible(experts, e):
-        y = moe_ffn_decode_int4h(xs, experts, idx.to(torch.int32), gate_s,
-                                 e, int8_x=True)
+        # A8 unless MEDPLIB_DECODE_A8=0, as the JAX caller reads it
+        y = moe_ffn_decode_int4h(
+            xs, experts, idx.to(torch.int32), gate_s, e,
+            int8_x=os.environ.get("MEDPLIB_DECODE_A8", "1") == "1")
         return y.to(dtype), aux
     x_al, dest, tile_gid = align_groups(xs, idx, e, block_m)
     out_al = _gmm_ffn(x_al, tile_gid, experts, dtype, block_m, stacked)

@@ -46,6 +46,23 @@ def _microbatch(batches: medplib.Batch, i: int) -> medplib.Batch:
     return medplib.Batch(*[None if x is None else x[i] for x in batches])
 
 
+def accumulation_path(ga: int) -> str:
+    """How a step sums its microbatch gradients, read from the environment
+    variables the JAX train step reads, with their defaults: "direct" (one
+    microbatch), "unrolled" (ga <= MEDPLIB_TRAIN_UNROLL_MAX, default 8, or
+    MEDPLIB_TRAIN_UNROLL_GA set: sums in the leaf dtype) or "scan" (above
+    that, or MEDPLIB_TRAIN_FORCE_SCAN set: sums into f32 zeros)."""
+    env = os.environ
+    if env.get("MEDPLIB_TRAIN_FORCE_SCAN"):
+        return "scan"
+    if ga == 1:
+        return "direct"
+    if env.get("MEDPLIB_TRAIN_UNROLL_GA") or ga <= int(
+            env.get("MEDPLIB_TRAIN_UNROLL_MAX", "8")):
+        return "unrolled"
+    return "scan"
+
+
 def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
                     seg_flag: bool = True):
     """One update over `grad_accumulation_steps` microbatches.
@@ -54,7 +71,8 @@ def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
     -> step(state, batches) -> (new state, metrics: dict of 0-dim tensors).
     LoRA dropout seeds fold tcfg.seed, the global step and the microbatch
     index, so every update draws fresh masks and the whole schedule is
-    reproducible."""
+    reproducible. The microbatch gradients and metrics are summed as
+    `accumulation_path` says, then divided by ga."""
     ga = tcfg.grad_accumulation_steps
     drop_rate = tcfg.lora_dropout if tcfg.lora_enable else 0.0
     base_seed = tcfg.seed ^ 0x10A4
@@ -83,13 +101,20 @@ def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
             return ([torch.zeros_like(p) if gi is None else gi
                      for gi, p in zip(g, train_lv)], metrics)
 
+        path = accumulation_path(ga)
         grads, metrics = grads_of(0)
-        if ga > 1:
-            # unrolled mean over the microbatches (sums in the leaf dtype)
-            for i in range(1, ga):
-                g, m = grads_of(i)
-                grads = [a + b for a, b in zip(grads, g)]
-                metrics = {k: metrics[k] + m[k] for k in metrics}
+        if path == "scan":
+            # the reference's scan sums into f32 zeros, so bf16 leaves get
+            # f32 gradients (and the optimizer f32 moments)
+            grads = [torch.zeros_like(g, dtype=torch.float32) + g
+                     for g in grads]
+            metrics = {k: torch.zeros_like(v, dtype=torch.float32) + v
+                       for k, v in metrics.items()}
+        for i in range(1, ga):
+            g, m = grads_of(i)
+            grads = [a + b for a, b in zip(grads, g)]
+            metrics = {k: metrics[k] + m[k] for k in metrics}
+        if path != "direct":
             grads = [g / ga for g in grads]
             metrics = {k: v / ga for k, v in metrics.items()}
 

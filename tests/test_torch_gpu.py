@@ -37,17 +37,19 @@ def _int4h(gen, e, k, n, dev):
     return packed, scale
 
 
-# (block_m, A8, K, N): A8 (the s8 tensor cores) at the 16-row tile
+# (block_m, A8, K, N): both modes on the tensor cores, at the 16-row tile
 # (block_m 16, 32) and the 64-row tile (64, 512: two tiles of one expert
-# each), K = 768 with N = 208 (the wrapper pads N to 16); bf16 x (FMA)
+# each), K = 768 with N = 208 (the wrapper pads N to 16)
 @pytest.mark.parametrize("block_m,a8,k,n", [
     (64, True, 512, 192), (32, True, 512, 192), (16, True, 512, 192),
     (512, True, 512, 192), (64, True, 768, 208), (16, True, 768, 208),
     (64, False, 512, 192), (32, False, 512, 192), (512, False, 768, 208),
+    (16, False, 512, 192), (16, False, 768, 208),
 ])
 def test_gmm_int4h_kernel_matches_plain(dev, block_m, a8, k, n):
     """A8: exact integer sums, the plain version's rounded epilogue in its
-    order -> bit-equal. bf16 x: f32 sums in another order -> rel 1e-5."""
+    order -> bit-equal. bf16 x: f32 sums in another order, the plain
+    version's rounded fold -> rel 1e-5."""
     from medplib_tpu_torch.ops.cuda import gmm as G
     gen = torch.Generator(device=dev).manual_seed(block_m + k)
     packed, scale = _int4h(gen, 2, k, n, dev)
@@ -66,6 +68,38 @@ def test_gmm_int4h_kernel_matches_plain(dev, block_m, a8, k, n):
         assert torch.equal(got, want)
     else:
         assert float((got - want).norm() / want.norm()) < 1e-5
+
+
+@pytest.mark.parametrize("block_m", [16, 64])
+@pytest.mark.parametrize("a8", [True, False])
+def test_gmm_int4h_out_dtype_and_ones_on_card(dev, block_m, a8):
+    """The reference's arguments on the card: out_dtype f32 and bf16 in
+    both modes, A8 without a_scale (ones), block_n / block_k / allow_pad
+    passed and ignored. A8 bit-equal to plain in either dtype; bf16 x
+    rel 1e-5 in f32 (and its bf16 output is that f32 result rounded)."""
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    gen = torch.Generator(device=dev).manual_seed(7 + block_m)
+    packed, scale = _int4h(gen, 2, 512, 208, dev)
+    xs = torch.randn((300, 512), generator=gen, device=dev)
+    idx = torch.randint(0, 2, (300,), generator=gen, device=dev)
+    x_al, _, gid = G.align_groups(xs, idx, 2, block_m)
+    xin = G.quantize_rows(x_al)[0] if a8 else x_al
+    kw = dict(block_n=128, block_k=256, allow_pad=False)
+    outs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        got = G.gmm_int4h(xin, packed, scale, gid, None, block_m,
+                          out_dtype=dt, **kw)
+        want = G.gmm_int4h_plain(xin, packed, scale, gid, None, block_m,
+                                 out_dtype=dt)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == (x_al.shape[0], 208)
+        if a8:
+            assert torch.equal(got, want)
+        elif dt == torch.float32:
+            assert float((got - want).norm() / want.norm()) < 1e-5
+        outs[dt] = got
+    assert torch.equal(outs[torch.float32].to(torch.bfloat16),
+                       outs[torch.bfloat16])
 
 
 @pytest.mark.parametrize("b", [16, 5, 40, 80])
@@ -87,13 +121,73 @@ def test_moe_decode_kernel_matches_plain(dev, b, a8):
     idx = torch.randint(0, e, (b,), generator=gen, device=dev)
     gate = torch.rand((b,), generator=gen, device=dev)
     n0 = D.moe_ffn_decode_int4h.launches
-    got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, a8)
-    want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e, a8)
+    got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, int8_x=a8)
+    want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e,
+                                        int8_x=a8)
     torch.cuda.synchronize()
     assert D.moe_ffn_decode_int4h.launches == n0 + (b + 63) // 64
     assert got.shape == (b, h) and got.dtype == torch.bfloat16
     assert float((got.float() - want.float()).norm()
                  / want.float().norm()) < 1e-3
+
+
+@pytest.mark.parametrize("block_n", [128, 256])
+@pytest.mark.parametrize("b", [1, 16, 33, 80])
+@pytest.mark.parametrize("a8", [True, False])
+def test_moe_decode_block_n_on_card(dev, a8, b, block_n):
+    """K2 with block_n 128 / 256 (M/2 = 768, where _pick_bn gives 384) in
+    both modes, at B = 1 / 16 / 33 / 80 (16, 16, 64 and 64 + 16 padded
+    rows): rel 1e-3 as above, one counted launch per 64 rows, and a
+    block_n the kernel cannot tile raises."""
+    from medplib_tpu_torch.ops.cuda import moe_decode as D
+    gen = torch.Generator(device=dev).manual_seed(100 * b + block_n)
+    e, h, m = 2, 512, 1536
+    experts = {}
+    for name, (k, n) in (("gate_proj", (h, m)), ("up_proj", (h, m)),
+                         ("down_proj", (m, h))):
+        p, s = _int4h(gen, e, k, n, dev)
+        experts[name] = {"kernel": p, "scale4h": s}
+    x = (torch.randn((b, h), generator=gen, device=dev) * 0.5).to(
+        torch.bfloat16)
+    idx = torch.randint(0, e, (b,), generator=gen, device=dev)
+    gate = torch.rand((b,), generator=gen, device=dev)
+    n0 = D.moe_ffn_decode_int4h.launches
+    got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, block_n=block_n,
+                                 int8_x=a8)
+    want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e,
+                                        block_n=block_n, int8_x=a8)
+    torch.cuda.synchronize()
+    assert D.moe_ffn_decode_int4h.launches == n0 + (b + 63) // 64
+    assert got.shape == (b, h) and got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).norm()
+                 / want.float().norm()) < 1e-3
+    with pytest.raises(ValueError):
+        D.moe_ffn_decode_int4h(x, experts, idx, gate, e, block_n=192,
+                               int8_x=a8)
+
+
+@pytest.mark.parametrize("a8", [True, False])
+def test_moe_decode_f32_rows_on_card(dev, a8):
+    """f32 x (B = 5): the kernel's first launch quantizes (A8) or rounds
+    (bf16) the f32 rows as the plain version does, and the output is f32:
+    rel 1e-3 as above."""
+    from medplib_tpu_torch.ops.cuda import moe_decode as D
+    gen = torch.Generator(device=dev).manual_seed(3)
+    e, h, m = 2, 512, 1536
+    experts = {}
+    for name, (k, n) in (("gate_proj", (h, m)), ("up_proj", (h, m)),
+                         ("down_proj", (m, h))):
+        p, s = _int4h(gen, e, k, n, dev)
+        experts[name] = {"kernel": p, "scale4h": s}
+    x = torch.randn((5, h), generator=gen, device=dev) * 0.5
+    idx = torch.randint(0, e, (5,), generator=gen, device=dev)
+    gate = torch.rand((5,), generator=gen, device=dev)
+    got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, int8_x=a8)
+    want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e,
+                                        int8_x=a8)
+    torch.cuda.synchronize()
+    assert got.shape == (5, h) and got.dtype == torch.float32
+    assert float((got - want).norm() / want.norm()) < 1e-3
 
 
 def test_long_prompt_attention_takes_flash(dev):
