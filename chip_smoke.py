@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-equal-share ROOT   (K2 alone, see
                                                    k2_equal_share)
+    python3 chip_smoke.py --icl-profile ROOT      (ICL config 5 alone, see
+                                                   icl_profile)
 
 1. Requires a CUDA device (exits non-zero otherwise) and prints the card's
    name and power limit as nvidia-smi reports them.
@@ -32,9 +34,13 @@
 4. Small-input checks, card (kernels) against CPU (plain versions): the
    generate slice at a tiny width with int4h experts (K1, K2), with int8
    experts and the int8 KV cache (K3), and over a packed dense tree in
-   int8 under W8A8 (K7) and in int4h (K9); and two QLoRA train steps of a
-   tiny model with head_dim 128 and a 1039-token spliced row (flash
-   route).
+   int8 under W8A8 (K7) and in int4h (K9); region VQA with the region
+   adapter and with the geo sampler, the ICL compressor with the mask
+   encoder, and sampled decode from the same per-row seeds (equal stream
+   keys on both); the geo sampler's point, FPS and kNN indices at full
+   width (1024-d features, 24 x 24 masks, B·M = 16), which must be
+   equal; and two QLoRA train steps of a tiny model with head_dim 128 and
+   a 1039-token spliced row (flash route).
 5. Serving main paths, MedPLIB-7b-2e at full width (32 layers x 2
    experts, int8 attention / lm_head / projector), random weights from a
    seed: with int4h experts, a batch of 16 grounding requests (T_in=48,
@@ -44,6 +50,17 @@
    request (no K3), then ICL config 5 on the same tree (B=4, three images
    per row, 1789 spliced tokens, no activation quant; K3 = 96, K4 = 32,
    one profiled call).
+   Released checkpoint -> sampled region VQA (region_path): the bf16
+   flagship with the 576 -> 256 compressor and the region adapter turned
+   into a released-layout state dict (utils/hf_export.medplib_to_hf) and
+   loaded back (utils/export.load_reference_checkpoint), leaf for leaf
+   equal; run_all.py config 3 on it (B=2, region marker, compressor,
+   ground=False, 16 new tokens; no kernel launch: sort prefill, no fused
+   decode for bf16 experts, rows under the flash gate); then the tree
+   quantized for serving (int4h experts) and a batch of 16 region
+   requests, half sampled from per-row seeds, half greedy (K1 = 96, K2 =
+   320, one profiled call; repeat calls equal, other seeds move only
+   sampled rows) and one request (K2 = 320).
    Then packed dense serving (the dense MedPLIB-7B, pack_inference): int8
    B=16 under W8A8 (K7 = 704) and int4h B=12 (K9 = 704), each with one
    profiled call and a single request after it.
@@ -387,6 +404,41 @@ def k2_equal_share(root: str) -> None:
     log(f"[K2 equal share] {D.__file__}: "
         f"{float((got == want).float().mean()) * 100:.4f}% bit-equal, "
         f"rel={rel_err(got, want):.3e}, kernel {ms:.3f} ms; {gpu_line()}")
+
+
+def icl_profile(root: str) -> None:
+    """`--icl-profile ROOT`: ICL config 5 (the int8-expert flagship with
+    icl_enable, B=4, three images per row, 10 new tokens) from the package
+    under ROOT: the tokens' sum, one host-clock call after a warm one and
+    one profiled call. A short call of its own cross-checks the profile
+    that int8_path takes late in the long run; run it for two trees in one
+    call to compare them."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from medplib_tpu_torch.config import flagship_cfg
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.ops.cuda import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(flagship_cfg(32, moe=True), icl_enable=True)
+    params = init_flagship(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev, expert_bits=8)
+    batch = make_icl_batch(cfg, 4, 64, np.random.default_rng(0), dev)
+
+    def run():
+        r = medplib.generate(params, cfg, batch, max_new_tokens=10)
+        torch.cuda.synchronize()
+        return r
+
+    first = run()
+    t0 = time.time()
+    run()
+    log(f"[ICL profile] {medplib.__file__}: tokens sum "
+        f"{int(first.output_ids.sum())}, {time.time() - t0:.3f} s a call; "
+        f"{gpu_line()}")
+    profile_step(run, top=6)
 
 
 def _grouped_library_ms(xin, w, tile_gid, bm):
@@ -1144,27 +1196,33 @@ def _tiny_moe_tree(cfg, expert_bits):
     return tree_to_numpy(quantize_flagship_moe(p, expert_bits, 8))
 
 
-def _tiny_card_vs_cpu(dev, name, cfg, host, kv_quant, actq=True, **want):
-    """Generate B=16 x T_in=64 (1264 spliced tokens, 4 new tokens; W8A8
-    prefill with actq) with the same tiny params `host` (a numpy tree) on
-    the CPU (plain versions) and on the card (kernels); tokens and masks
-    must agree and the card must launch exactly `want`."""
+def _tiny_card_vs_cpu(dev, name, cfg, host, kv_quant, actq=True, make=None,
+                      gen_kw=None, **want):
+    """Generate (by default B=16 x T_in=64: 1264 spliced tokens; 4 new
+    tokens; W8A8 prefill with actq) with the same tiny params `host` (a
+    numpy tree) on the CPU (plain versions) and on the card (kernels);
+    tokens and masks must agree and the card must launch exactly `want`.
+    make(where) builds another batch; gen_kw adds generate arguments."""
     from medplib_tpu_torch.models import medplib
     from medplib_tpu_torch.utils.convert import tree_from_numpy
     from medplib_tpu_torch.utils.quantize import dynamic_act_quant
+    make = make or (lambda where: make_batch(
+        cfg, 16, 64, np.random.default_rng(0), where))
     out = {}
     for where in ("cpu", dev):
-        b = make_batch(cfg, 16, 64, np.random.default_rng(0), where)
+        b = make(where)
         reset_counts()
         with dynamic_act_quant(actq):
             r = medplib.generate(tree_from_numpy(host, where), cfg, b,
-                                 max_new_tokens=4, kv_quant=kv_quant)
+                                 max_new_tokens=4, kv_quant=kv_quant,
+                                 **(gen_kw or {}))
         out[str(where)] = (r, kernel_counts())
     (rc, nc), (rg, ng) = out["cpu"], out[str(dev)]
     same = float((rc.output_ids == rg.output_ids.cpu()).float().mean())
     mrel = rel_err(rg.pred_masks.cpu(), rc.pred_masks)
-    log(f"[{name}] B=16 T_in=64 tiny slice, card vs CPU plain: tokens "
-        f"equal {same * 100:.1f}%, mask rel err {mrel:.3e}")
+    bsz, t_in = b.input_ids.shape
+    log(f"[{name}] B={bsz} T_in={t_in} tiny slice, card vs CPU plain: "
+        f"tokens equal {same * 100:.1f}%, mask rel err {mrel:.3e}")
     expect_counts(name + ", CPU", nc)
     expect_counts(name + ", card", ng, **want)
     # last-bit differences between the card's and the CPU's float sums can
@@ -1211,6 +1269,138 @@ def small_packed_check(dev, bits):
     kernel = "int8_matmul" if bits == 8 else "int4h_matmul"
     _tiny_card_vs_cpu(dev, f"small packed int{bits} check", cfg, host,
                       False, actq=bits == 8, **{kernel: 20})
+
+
+def region_batch(cfg, b, t, rng, dev, seg=True):
+    """benchmarks/run_all.py _vqa_batch(region=True) on make_batch's batch:
+    a region marker at 4 with a g/3 x g/3 mask (g the CLIP grid side), the
+    image sentinel expanding to the model's tokens per image; without
+    `seg` no <SEG> in the prompt (pure VQA)."""
+    import torch
+    from medplib_tpu_torch.config import REGION_TOKEN_INDEX
+    from medplib_tpu_torch.models.medplib import image_tokens_per_image
+    batch = make_batch(cfg, b, t, rng, dev)
+    ids = batch.input_ids.clone()
+    ids[:, 4] = REGION_TOKEN_INDEX
+    if not seg:
+        ids[:, t - 3] = 9
+    g = int(round(cfg.vision.num_patches ** 0.5))
+    rm = torch.zeros((b, 1, g, g), device=dev)
+    rm[:, :, : max(1, g // 3), : max(1, g // 3)] = 1.0
+    return batch._replace(
+        input_ids=ids, region_masks=rm,
+        region_valid=torch.ones_like(batch.region_valid),
+        image_token_lengths=torch.full_like(batch.image_token_lengths,
+                                            image_tokens_per_image(cfg)))
+
+
+def icl_mask_batch(cfg, b, t, rng, dev):
+    """Three image slots per row (query + 2 in-context examples), the last
+    an example MASK for the mask encoder (image_is_mask), <SEG> at T-3."""
+    import torch
+    batch = make_icl_batch(cfg, b, t, rng, dev)
+    ms = cfg.projector.mask_input_size
+    is_mask = torch.zeros_like(batch.image_token_lengths)
+    is_mask[:, 2] = 1
+    lens = torch.full_like(batch.image_token_lengths,
+                           cfg.projector.compress_tokens)
+    lens[:, 2] = cfg.projector.mask_encoder_tokens
+    masks = torch.as_tensor((rng.uniform(size=(b, 3, ms, ms)) > 0.5).astype(
+        np.float32)).to(dev)
+    return batch._replace(image_token_lengths=lens, image_is_mask=is_mask,
+                          mask_images=masks)
+
+
+def small_region_checks(dev):
+    """The region / ICL / sampling modules card vs CPU on the tiny MoE model
+    (f32, no quantization; B <= 4, so no kernel launches): region VQA with
+    the adapter and with the geo sampler, the ICL compressor with the mask
+    encoder, sampled decode from the same per-row seeds (the streams' keys
+    must be equal on both); then the geo sampler's point sampling, FPS and
+    kNN indices at full width (1024-d CLIP features, 24 x 24 masks, B·M =
+    16), which must be equal, and its output within 1e-4."""
+    import dataclasses as dc
+
+    import torch
+    from medplib_tpu_torch import config as C
+    from medplib_tpu_torch.models import geo_sampler, medplib
+    from medplib_tpu_torch.ops import sampling
+    from medplib_tpu_torch.utils.convert import tree_to_numpy
+
+    def tree(cfg, seed):
+        p = medplib.init_medplib(torch.Generator().manual_seed(seed), cfg,
+                                 torch.float32, "cpu")
+        p["llm"]["embed_tokens"]["embedding"] *= 50.0
+        return tree_to_numpy(p)
+
+    base = tiny_serving_cfg(256, 4)
+    for geo in (False, True):
+        cfg = dc.replace(base, projector=dc.replace(
+            base.projector, region_adapter=True, region_geo_sampler=geo))
+        _tiny_card_vs_cpu(
+            dev, f"small region check ({'geo sampler' if geo else 'adapter'})",
+            cfg, tree(cfg, 4), False, actq=False,
+            make=lambda w, c=cfg: region_batch(c, 3, 16,
+                                               np.random.default_rng(1), w),
+            gen_kw=dict(rp_flag=True))
+    icfg = C.with_icl(base, token_compress=True, mask_encoder=True)
+    _tiny_card_vs_cpu(
+        dev, "small ICL compressor + mask encoder check", icfg,
+        tree(icfg, 5), False, actq=False,
+        make=lambda w: icl_mask_batch(icfg, 2, 16, np.random.default_rng(2),
+                                      w))
+    seeds = [3, 1, 4, 1]
+    keys = [sampling.row_keys(seeds, 4, w) for w in ("cpu", dev)]
+    if not torch.equal(keys[0], keys[1].cpu()):
+        raise AssertionError("the sampling streams' keys differ on the card")
+    g = [sampling.gumbel_rows(k, 1000).cpu() for k in keys]
+    log(f"[small sampled check] per-row keys equal on the card; Gumbel "
+        f"noise max abs diff {float((g[0] - g[1]).abs().max()):.2e}")
+    _tiny_card_vs_cpu(
+        dev, "small sampled check", base, tree(base, 6), False, actq=False,
+        make=lambda w: make_batch(base, 4, 16, np.random.default_rng(3), w),
+        gen_kw=dict(do_sample=True, temperature=torch.tensor(
+            [0.8, 1.0, 0.0, 1.3]), top_p=0.9, rng=seeds))
+
+    # the geo sampler at full width
+    rng = np.random.default_rng(7)
+    b, m, gs, c = 4, 4, 24, 1024
+    masks = (rng.uniform(size=(b, m, gs, gs))
+             > rng.uniform(0.2, 0.97, size=(b, m, 1, 1))).astype(np.float32)
+    masks[0, 0] = 1.0
+    fmap = rng.normal(size=(b, gs * gs, c)).astype(np.float32)
+    params = geo_sampler.init_geo_sampler(torch.Generator().manual_seed(8),
+                                          c, 4096, device="cpu")
+    runs = {}
+    for where in ("cpu", dev):
+        mk = torch.as_tensor(masks).to(where)
+        pts = geo_sampler.sample_mask_points(mk.reshape(b * m, gs, gs), 512)
+        idx = [pts]
+        for nsub in (128, 32):
+            f = geo_sampler.farthest_point_sample(pts, nsub)
+            new = torch.gather(pts, 1, f[..., None].expand(-1, -1, 2))
+            idx += [f, geo_sampler.knn(pts, new, 24)]
+            pts = new
+        out = geo_sampler.apply_geo_sampler(
+            _to(params, where), torch.as_tensor(fmap).to(where), mk,
+            torch.ones((b, m), dtype=torch.bool, device=where))
+        runs[str(where)] = ([x.cpu() for x in idx], out.cpu())
+    (ic, oc), (ig, og) = runs["cpu"], runs[str(dev)]
+    same = {n: torch.equal(x, y) for n, x, y in zip(
+        ("points", "FPS 128", "kNN 24 of 512", "FPS 32", "kNN 24 of 128"),
+        ic, ig)}
+    eq = all(same.values())
+    orel = rel_err(og, oc)
+    log(f"[small geo check] B·M={b * m} masks 24 x 24, 1024-d features, "
+        f"card vs CPU equal: {same}; output rel err {orel:.3e} (<= 1e-4)")
+    if not eq or orel > 1e-4:
+        raise AssertionError("the geo sampler disagrees with the CPU")
+
+
+def _to(tree, where):
+    from medplib_tpu_torch.utils import tree as tree_util
+    return tree_util.unflatten(tree, [x.to(where)
+                                      for x in tree_util.leaves(tree)])
 
 
 def qlora_params(cfg, gen, dtype, dev, lora_b_scale=0.0):
@@ -1447,7 +1637,8 @@ def check_result(r, cfg, b, new):
     assert r.output_ids.shape == (b, new)
     assert int(r.output_ids.min()) >= 0
     assert int(r.output_ids.max()) < cfg.vocab_size_padded
-    assert tuple(r.pred_masks.shape) == (b, 1, 256, 256)
+    s = cfg.sam.image_size
+    assert tuple(r.pred_masks.shape) == (b, 1, s, s)
     assert bool(torch.isfinite(r.pred_masks.float()).all())
 
 
@@ -1530,6 +1721,178 @@ def main_path(dev, results, card):
     serve_single("main", lambda: run(single), cfg, NEW,
                  moe_ffn_decode_int4h=L * NEW)
     return masks_per_s, peak
+
+
+def init_bf16_flagship(cfg, gen, dev):
+    """Random bf16 MedPLIB-7b-2e (with cfg's projector extras) without the
+    dead dense MLP stack: the dense skeleton, stripped, then the experts
+    written into one [L, E, ...] stack a layer at a time (no whole-stack
+    float32 temporaries)."""
+    import torch
+    from medplib_tpu_torch.config import MoeConfig
+    from medplib_tpu_torch.models import medplib, moe_llama
+    from medplib_tpu_torch.ops.initializers import normal
+
+    bf = torch.bfloat16
+    params = medplib.init_medplib(
+        gen, dataclasses.replace(cfg, moe=MoeConfig()), bf, dev)
+    params["llm"] = moe_llama.strip_dense_mlp(params["llm"], cfg.llm,
+                                              cfg.moe)
+    L, E = cfg.llm.num_layers, cfg.moe.num_experts
+    H, M = cfg.llm.hidden_size, cfg.llm.intermediate_size
+    experts = {n: {"kernel": torch.empty((L, E) + shape, dtype=bf,
+                                         device=dev)}
+               for n, shape in (("gate_proj", (H, M)), ("up_proj", (H, M)),
+                                ("down_proj", (M, H)))}
+    for i in range(L):
+        one = moe_llama.init_experts(gen, cfg.llm, cfg.moe, bf, dev)
+        for n in experts:
+            experts[n]["kernel"][i] = one[n]["kernel"]
+    params["llm"]["layers"]["moe"] = {
+        "router": {"kernel": normal(gen, (L, H, E), bf, dev, H ** -0.5)},
+        "experts": experts}
+    return params
+
+
+def region_path(dev, results, card):
+    """Released checkpoint -> sampled region VQA on MedPLIB-7b-2e at full
+    width (32 layers x 2 experts), random bf16 weights from a seed:
+
+    1. the bf16 tree with the 576 -> 256 compressor and the region adapter
+       (~11.4 B parameters) -> a merged-HF state dict in the released
+       layout (utils/hf_export.medplib_to_hf, views of the tree) ->
+       utils/export.load_reference_checkpoint; the loaded tree must equal
+       the source leaf for leaf (torch.equal; CLIP and the compressor,
+       which the merged export does not carry, keep their initialized
+       leaves, the dense-MLP placeholder is stripped as serving does);
+       then the source is freed;
+    2. benchmarks/run_all.py config 3 as written (bench_region): B=2,
+       T_in=48, a region marker at 4 with a g/3 x g/3 mask, the
+       compressor (303 spliced tokens a row), generate(rp_flag=True,
+       ground=False), 16 new tokens, ms/sample, one profiled call.
+       Launches: none (606
+       prefill tokens take the capacity-sort path, bf16 experts have no
+       fused decode, 303-token rows stay below the flash gate);
+    3. quantize_flagship_moe(expert_bits=4) of the loaded tree (int4h
+       experts padded to M=11264, int8 attention / lm_head / projector);
+    4. region VQA in the serving form: B=16, T_in=48 with <SEG> (623
+       spliced tokens, no compressor), dynamic_act_quant, 10 new tokens,
+       grounding on; rows 0-7 sampled (t=0.7, top_p=0.9, one seed per
+       row), rows 8-15 greedy (t=0): K1 = 96, K2 = 320; one profiled
+       call; a repeat gives the same tokens (serve_batch), other seeds
+       change a sampled row and no greedy row; then one B=1 request (sort
+       prefill: K2 = 320, no K1)."""
+    import torch
+    from medplib_tpu_torch.config import flagship_cfg
+    from medplib_tpu_torch.models import medplib, moe_llama
+    from medplib_tpu_torch.utils import tree as tree_util
+    from medplib_tpu_torch.utils.export import load_reference_checkpoint
+    from medplib_tpu_torch.utils.hf_export import medplib_to_hf
+    from medplib_tpu_torch.utils.quantize import (dynamic_act_quant,
+                                                  quantize_flagship_moe)
+
+    base = flagship_cfg(32, moe=True)
+    cfg = dataclasses.replace(base, projector=dataclasses.replace(
+        base.projector, token_compress=True, region_adapter=True))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    src = init_bf16_flagship(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    torch.cuda.synchronize()
+    n_param = sum(x.numel() for x in tree_util.leaves(src))
+    log(f"[region] bf16 MedPLIB-7b-2e + compressor + region adapter: "
+        f"{n_param / 1e9:.3f} B parameters, built in {time.time() - t0:.1f}"
+        f" s; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    t0 = time.time()
+    sd = medplib_to_hf(src, cfg)
+    n_keys = len(sd)
+    _, params = load_reference_checkpoint(state_dict=sd, cfg=cfg,
+                                          device=dev)
+    del sd
+    params["llm"] = moe_llama.strip_dense_mlp(params["llm"], cfg.llm,
+                                              cfg.moe)
+    params["clip"] = src["clip"]
+    params["mm_token_compressor"] = src["mm_token_compressor"]
+    torch.cuda.synchronize()
+    t_load = time.time() - t0
+    got, want = (tree_util.leaves_with_paths(params),
+                 tree_util.leaves_with_paths(src))
+    same_paths = [p for p, _ in got] == [p for p, _ in want]
+    unequal = [p for (p, a), (_, w) in zip(got, want)
+               if a.dtype != w.dtype or not torch.equal(a, w)]
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[region] released-layout state dict ({n_keys} keys) loaded in "
+        f"{t_load:.3f} s: {len(got)} leaves, paths equal "
+        f"{same_paths}, leaves not torch.equal {len(unequal)}; peak "
+        f"allocated {load_peak:.2f} GiB")
+    if not same_paths or unequal:
+        raise AssertionError(f"the loader round trip changed the tree: "
+                             f"{unequal[:4]}")
+    del src, got, want
+    torch.cuda.empty_cache()
+
+    # 2. run_all.py config 3
+    B3, T3, NEW3 = 2, 48, 16
+    b3 = region_batch(cfg, B3, T3, np.random.default_rng(0), dev, seg=False)
+    spliced = T3 + cfg.projector.compress_tokens - 1
+    log(f"[config 3] B={B3}, T_in={T3}, region marker at 4, compressor -> "
+        f"{spliced} spliced tokens a row, ground=False, {NEW3} new tokens")
+
+    def run3():
+        r = medplib.generate(params, cfg, b3, max_new_tokens=NEW3,
+                             rp_flag=True, ground=False)
+        torch.cuda.synchronize()
+        return r
+
+    per_s3, peak3, _ = serve_batch("config 3", run3, cfg, B3, NEW3, card)
+    cfg3_ms = 1e3 / per_s3
+    profile_step(run3)
+
+    # 3. the serving quantization
+    t0 = time.time()
+    params = quantize_flagship_moe(params, expert_bits=4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[region] quantize_flagship_moe(expert_bits=4) in "
+        f"{time.time() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # 4. sampled region VQA, B=16, and one request
+    scfg = dataclasses.replace(cfg, projector=dataclasses.replace(
+        cfg.projector, token_compress=False))
+    B, T, NEW = 16, 48, 10
+    L = scfg.llm.num_layers
+    batch = region_batch(scfg, B, T, np.random.default_rng(0), dev)
+    single = region_batch(scfg, 1, T, np.random.default_rng(1), dev)
+    temps = torch.tensor([0.7] * (B // 2) + [0.0] * (B // 2), device=dev)
+    seeds = torch.arange(1000, 1000 + B, device=dev)
+
+    def run(b, t, rng):
+        with dynamic_act_quant(True):
+            r = medplib.generate(params, scfg, b, max_new_tokens=NEW,
+                                 rp_flag=True, do_sample=True,
+                                 temperature=t, top_p=0.9, rng=rng)
+        torch.cuda.synchronize()
+        return r
+
+    masks_per_s, peak, counts = serve_batch(
+        "region", lambda: run(batch, temps, seeds), scfg, B, NEW, card,
+        gmm_int4h=3 * L, moe_ffn_decode_int4h=L * NEW)
+    profile_step(lambda: run(batch, temps, seeds))
+    first = run(batch, temps, seeds).output_ids
+    other = run(batch, temps, seeds + B).output_ids
+    h = B // 2
+    moved = int((other[:h] != first[:h]).any(-1).sum())
+    log(f"[region] other seeds: {moved} of {h} sampled rows changed, greedy "
+        f"rows equal {torch.equal(other[h:], first[h:])}")
+    if moved == 0 or not torch.equal(other[h:], first[h:]):
+        raise AssertionError("region: the per-row seeds do not steer the "
+                             "sampled rows alone")
+    serve_single("region", lambda: run(single, temps[:1], seeds[:1]), scfg,
+                 NEW, moe_ffn_decode_int4h=L * NEW)
+    return dict(cfg3_ms=cfg3_ms, cfg3_peak=peak3, load_peak=load_peak,
+                masks_per_s=masks_per_s, peak=peak)
 
 
 def make_icl_batch(cfg, b, t, rng, dev):
@@ -1710,6 +2073,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--k2-equal-share"]:
         k2_equal_share(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--icl-profile"]:
+        icl_profile(sys.argv[2])
+        return 0
     sys.path.insert(0, HERE)
     from medplib_tpu_torch.ops.cuda import _build
 
@@ -1741,8 +2107,11 @@ def main() -> int:
     small_int8_check(dev)
     small_packed_check(dev, 8)
     small_packed_check(dev, 4)
+    small_region_checks(dev)
     train_check(dev)
     masks_per_s, peak = main_path(dev, results, card)
+    torch.cuda.empty_cache()
+    region = region_path(dev, results, card)
     torch.cuda.empty_cache()
     int8 = int8_path(dev, results, card)
     torch.cuda.empty_cache()
@@ -1756,7 +2125,11 @@ def main() -> int:
                for n, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[result] serving int4h B=16 {masks_per_s:.3f} masks/s, peak "
-          f"{peak:.2f} GiB; int8 B=8 {int8['masks_per_s']:.3f} masks/s, "
+          f"{peak:.2f} GiB; config 3 (bf16, compressor, region) B=2 "
+          f"{region['cfg3_ms']:.1f} ms/sample, peak "
+          f"{region['cfg3_peak']:.2f} GiB; sampled region VQA int4h B=16 "
+          f"{region['masks_per_s']:.3f} masks/s, peak {region['peak']:.2f} "
+          f"GiB; int8 B=8 {int8['masks_per_s']:.3f} masks/s, "
           f"peak {int8['peak']:.2f} GiB; ICL B=4 "
           f"{int8['icl_ms_per_sample']:.1f} ms/sample, peak "
           f"{int8['icl_peak']:.2f} GiB; packed dense int8 B=16 "

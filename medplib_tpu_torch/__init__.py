@@ -4,16 +4,19 @@ The JAX package `medplib_tpu` is the reference; this package mirrors its
 layout and function names so each counterpart is easy to find:
 
   config          the model and training dataclasses (equal to
-                  medplib_tpu's) + the flagship configuration
-  ops             norms / rope / attention / splice / moe (plain torch)
+                  medplib_tpu's), the flagship configuration, with_icl
+  ops             norms / rope / attention / splice / moe / sampling
+                  (plain torch)
   ops/cuda        wrappers of the hand-written Hopper kernels (csrc/*.cu),
                   each with its plain PyTorch version beside it
-  models          llama / moe_llama / clip / projector / sam_med2d /
-                  losses / medplib (generate, model_forward)
+  models          llama / moe_llama / clip / projector (+ ICL compressor,
+                  mask encoder, region pooling) / geo_sampler / sam_med2d
+                  / losses / medplib (generate, model_forward)
   train           lora (linears, injection, dropout, trainable mask,
                   merge), optimizer (AdamW to optax's semantics), trainer
-  utils           weight bridge (convert), quantization, tree views,
-                  checkpoints, logging
+  utils           released-checkpoint loader (hf_weights, export) and its
+                  inverse (hf_export), weight bridge (convert),
+                  quantization, tree views, checkpoints, logging
 
 It imports torch and numpy, never jax.
 """

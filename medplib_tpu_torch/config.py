@@ -3,11 +3,13 @@
 The classes carry the same names, fields and defaults as the JAX package's
 (tests/test_torch_modules.py holds them equal), but live here so that the
 port, and the GPU machine that runs it, never import the JAX package.
-`flagship_cfg` is the counterpart of __graft_entry__._flagship_cfg.
+`flagship_cfg` is the counterpart of __graft_entry__._flagship_cfg, and
+`with_icl` of the JAX package's config.with_icl.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -195,3 +197,28 @@ def flagship_cfg(num_layers: int = 32, moe: bool = True) -> MedplibConfig:
     return MedplibConfig(llm=LlamaConfig(num_layers=num_layers), moe=moe_cfg,
                          seg=SegConfig(), seg_token_idx=32000,
                          vocab_size_padded=32320)
+
+
+def with_icl(cfg: MedplibConfig, *, token_compress: bool = False,
+             compress_tokens: Optional[int] = None,
+             mask_encoder: bool = False,
+             mask_encoder_tokens: Optional[int] = None,
+             max_icl_examples: int = 3) -> MedplibConfig:
+    """The ICL flags on a model config (the reference's --icl_enable,
+    --mm_token_compress, --mm_compressed_token_count, --icl_mask_encoder,
+    --mask_encoder_token_count). Configs with a CLIP input below 100
+    pixels get proportionally small ICL sizes."""
+    tiny = cfg.vision.image_size < 100
+    if compress_tokens is None:
+        compress_tokens = (max(cfg.vision.num_patches // 2, 1) if tiny
+                           else cfg.projector.compress_tokens)
+    if mask_encoder_tokens is None:
+        mask_encoder_tokens = 4 if tiny else cfg.projector.mask_encoder_tokens
+    proj = dataclasses.replace(
+        cfg.projector, token_compress=bool(token_compress),
+        compress_tokens=compress_tokens, mask_encoder=bool(mask_encoder),
+        mask_encoder_tokens=mask_encoder_tokens,
+        mask_input_size=(cfg.vision.image_size if tiny
+                         else cfg.projector.mask_input_size))
+    return dataclasses.replace(cfg, projector=proj, icl_enable=True,
+                               max_icl_examples=max_icl_examples)

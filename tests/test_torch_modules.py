@@ -6,6 +6,7 @@ Unless a test says otherwise the tolerance is 1e-5 (relative and
 absolute): the same math in float32, summed in another order."""
 
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -114,19 +115,42 @@ def test_convert_keeps_paths_dtypes_and_bytes():
     np.testing.assert_array_equal(back["l"][0]["q"], np.arange(6))
 
 
+_BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
+              "sys.modules['medplib_tpu'] = None; ")
+
+
 def test_port_imports_no_jax():
-    """The port must import on a machine without JAX."""
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['medplib_tpu'] = None; "
-            "import medplib_tpu_torch.models.medplib, "
-            "medplib_tpu_torch.ops.cuda.gmm, "
-            "medplib_tpu_torch.ops.cuda.moe_decode, "
-            "medplib_tpu_torch.ops.cuda.flash_attention, "
-            "medplib_tpu_torch.train.optimizer, "
-            "medplib_tpu_torch.train.trainer; print('ok')")
+    """Every module of the port, found by walking the package, imports on
+    a machine without JAX and without the JAX package; so does
+    chip_smoke.py (as a module: its main does not run)."""
+    code = _BLOCK_JAX + (
+        "import pkgutil, importlib, medplib_tpu_torch as pkg; "
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "import chip_smoke; print(len(names))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+                         text=True, timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr
+    import medplib_tpu_torch
+    import pkgutil
+    want = {m.name for m in pkgutil.walk_packages(
+        medplib_tpu_torch.__path__, "medplib_tpu_torch.")}
+    assert int(out.stdout.strip()) == len(want), (out.stdout, want)
+    assert {"medplib_tpu_torch.utils.export",
+            "medplib_tpu_torch.models.geo_sampler",
+            "medplib_tpu_torch.ops.sampling"} <= want
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(token_compress=True), dict(mask_encoder=True),
+    dict(token_compress=True, compress_tokens=100, mask_encoder=True,
+         mask_encoder_tokens=32, max_icl_examples=5)])
+@pytest.mark.parametrize("tiny", [False, True])
+def test_with_icl_matches_reference(kw, tiny):
+    j = jc.MedplibConfig.tiny() if tiny else jc.MedplibConfig()
+    assert port_cfg(jc.with_icl(j, **kw)) == tc.with_icl(port_cfg(j), **kw)
 
 
 # ---------------------------------------------------------------------------
