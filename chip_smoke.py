@@ -39,13 +39,26 @@
    encoder, and sampled decode from the same per-row seeds (equal stream
    keys on both); the geo sampler's point, FPS and kNN indices at full
    width (1024-d features, 24 x 24 masks, B·M = 16), which must be
-   equal; and two QLoRA train steps of a tiny model with head_dim 128 and
-   a 1039-token spliced row (flash route).
+   equal; two QLoRA train steps of a tiny model with head_dim 128 and
+   a 1039-token spliced row (flash route); and the serving engine
+   (serve/engine.BatchedEngine) on the tiny int4h MoE model, 4 slots, 8
+   grouped requests with 256-token prefill chunks (K1 at a 1024-row
+   extend, K2 at decode): equal tokens, masks from Request.ground().
 5. Serving main paths, MedPLIB-7b-2e at full width (32 layers x 2
    experts, int8 attention / lm_head / projector), random weights from a
    seed: with int4h experts, a batch of 16 grounding requests (T_in=48,
    10 new tokens, W8A8 / W4A8 prefill; K1 = 96, K2 = 320 launches), one
-   profiled call and one single request (K2 only); with int8 experts, a batch of 8 (int8 KV
+   profiled call and one single request (K2 only); then the serving
+   engine on the same tree (engine_path): E1, run_all.py config 8 with
+   BENCH_ENGINE_MOE=1 (12 slots, 24 greedy requests of 32 tokens, int8
+   KV, per-request admission: K2 only; run twice, equal tokens; first
+   tokens equal to a B=1 stream_prefill; two <SEG> requests grounded),
+   E2, the same with group_admission and 256-token prefill chunks (K1 on
+   bf16 x at each 4096-row extend), E3, config 10's traffic (8 slots, 7
+   background streams of 512 tokens, 12 probes: TTFT and the background
+   stall), every launch count checked against the decode steps and
+   extends the engine dispatched, and one profiled decode chunk. With
+   int8 experts, a batch of 8 (int8 KV
    cache, W8A8 prefill; K3 = 96 launches), one profiled call and a single
    request (no K3), then ICL config 5 on the same tree (B=4, three images
    per row, 1789 spliced tokens, no activation quant; K3 = 96, K4 = 32,
@@ -74,6 +87,7 @@ power limit, the last stdout line, printed only on success, is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1720,7 +1734,482 @@ def main_path(dev, results, card):
     # B=1: 623 tokens take the capacity-sort prefill; decode still K2
     serve_single("main", lambda: run(single), cfg, NEW,
                  moe_ffn_decode_int4h=L * NEW)
-    return masks_per_s, peak
+    return masks_per_s, peak, params
+
+
+# ---------------------------------------------------------------------------
+# serving engine (serve/engine.py): continuous batching, chunked prefill
+# ---------------------------------------------------------------------------
+
+class EngineTally:
+    """What an engine dispatched: decode steps and the rows of each
+    chunked-prefill extend (counted by wrapping the medplib functions the
+    engine calls; the package itself holds no counter)."""
+
+    def __init__(self):
+        self.steps = 0
+        self.extends = []
+
+    def k1_extends(self) -> int:
+        """Extends of >= 1024 rows: the grouped matmul (K1) dispatch."""
+        return sum(rows >= 1024 for rows in self.extends)
+
+
+@contextlib.contextmanager
+def engine_tally():
+    """Count the decode steps and extends of the engine calls made inside
+    the block."""
+    from medplib_tpu_torch.models import medplib
+    tally = EngineTally()
+    dec, ext = medplib.stream_decode_chunk, medplib.stream_prefill_chunk
+
+    def count_dec(params, cfg, state, chunk, *a, **k):
+        tally.steps += chunk
+        return dec(params, cfg, state, chunk, *a, **k)
+
+    def count_ext(params, cfg, carry, embeds, *a, **k):
+        tally.extends.append(embeds.shape[0] * a[-1])
+        return ext(params, cfg, carry, embeds, *a, **k)
+
+    medplib.stream_decode_chunk = count_dec
+    medplib.stream_prefill_chunk = count_ext
+    try:
+        yield tally
+    finally:
+        medplib.stream_decode_chunk = dec
+        medplib.stream_prefill_chunk = ext
+
+
+def drain(r, timeout=600.0):
+    """A request's token chunks, each read with a deadline; its error, if
+    any, raises."""
+    out = []
+    while True:
+        item = r.chunks.get(timeout=timeout)
+        if item is None:
+            if r.error is not None:
+                raise r.error
+            return out
+        out.append(item)
+
+
+def engine_request(cfg, i, t, rng, dev, seg=False):
+    """run_all.py config 8 / 10's request: the bench batch at B=1 with
+    ids[0, 5] = 100 + i and, unless `seg`, no <SEG> (pure VQA)."""
+    b = make_batch(cfg, 1, t, rng, dev)
+    ids = b.input_ids.clone()
+    ids[0, 5] = 100 + i
+    if not seg:
+        ids[0, t - 3] = 7
+    return b._replace(input_ids=ids)
+
+
+def warm_engine(eng, b1):
+    """config 8's warm-up: the engine's prefill at every power-of-2 batch
+    <= slots (stream_prefill, or begin -> extends -> finish with
+    prefill_chunk)."""
+    import torch
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.serve.engine import _concat
+    bucket = 1
+    with torch.no_grad():
+        while bucket <= eng.slots:
+            b = _concat([b1] * bucket, eng.device)
+            pc = eng.prefill_chunk
+            if pc:
+                e, am, sm, carry = medplib.stream_prefill_begin(
+                    eng.params, eng.cfg, b, eng._cache_budget, pc,
+                    kv_quant=eng.kv_quant)
+                for ci in range(e.shape[1] // pc):
+                    carry = medplib.stream_prefill_chunk(
+                        eng.params, eng.cfg, carry, e, am, sm, ci * pc, pc)
+                st = medplib.stream_prefill_finish(eng.params, eng.cfg,
+                                                   carry, am)
+            else:
+                st = medplib.stream_prefill(eng.params, eng.cfg, b,
+                                            eng._cache_budget,
+                                            kv_quant=eng.kv_quant)
+            st.tok.tolist()
+            del st
+            bucket *= 2
+
+
+def expect_engine(name, eng, reqs, counts, tally, layers):
+    """Every request ended without error, nothing is left active, and the
+    kernels launched as the dispatched work says: K1 3 per layer for each
+    extend of >= 1024 rows, K2 once per layer per decode step (<= 64
+    slots)."""
+    bad = [r.error for r in reqs if r.error is not None]
+    if bad or eng.active_requests:
+        raise AssertionError(f"{name}: errors {bad[:2]}, active "
+                             f"{eng.active_requests}")
+    expect_counts(f"{name} ({tally.steps} decode steps, extends "
+                  f"{tally.extends})", counts,
+                  gmm_int4h=3 * layers * tally.k1_extends(),
+                  moe_ffn_decode_int4h=layers * tally.steps)
+
+
+def engine_wave(eng, batches, timeout=600.0):
+    """Submit every request at once and drain them all -> (requests,
+    tokens per request, seconds)."""
+    t0 = time.time()
+    reqs = [eng.submit(b, temperature=0.0) for b in batches]
+    toks = [[t for c in drain(r, timeout) for t in c] for r in reqs]
+    return reqs, toks, time.time() - t0
+
+
+def stream_reference(params, cfg, batch, budget, chunk, kv_quant):
+    """The B=1 stream path of one request -> (first token, the tokens of
+    `budget` decode steps as the engine delivers them; none at 0)."""
+    import torch
+    from medplib_tpu_torch.models import medplib
+    with torch.no_grad():
+        st = medplib.stream_prefill(params, cfg, batch, budget,
+                                    kv_quant=kv_quant)
+        first = int(st.tok[0])
+        toks, steps = [], 0
+        while steps < budget:
+            st, ct, cd = medplib.stream_decode_chunk(params, cfg, st, chunk)
+            for t, d in zip(ct[0].tolist(), cd[0].tolist()):
+                if not d and t > 0 and len(toks) < budget:
+                    toks.append(t)
+            steps += chunk
+            if bool(cd[0, -1]) or bool(st.done[0]):
+                break
+    return first, toks
+
+
+def engine_e1_e2(params, cfg, dev, card, group):
+    """run_all.py config 8 with BENCH_ENGINE_MOE=1 on the int4h flagship:
+    12 slots, 24 distinct greedy VQA requests (T_in=48, 623 spliced
+    tokens, no <SEG>), 32 new tokens, decode chunks of 8, int8 KV. E1:
+    per-request admission, run twice (the tokens must repeat), first
+    tokens equal to a B=1 stream_prefill (whole streams compared with
+    the B=1 stream path for the first 8 requests, reported), then two
+    requests with <SEG> grounded. E2 (group): group_admission with
+    prefill_chunk=256, so a group of 12 pads to 16 rows x 768 tokens:
+    three extends of 4096 rows through K1 on bf16 x."""
+    import torch
+    from medplib_tpu_torch.serve.engine import BatchedEngine
+
+    name = "E2" if group else "E1"
+    slots, n_req, new, T, chunk = 12, 24, 32, 48, 8
+    L = cfg.llm.num_layers
+    rng = np.random.default_rng(0)
+    eng = BatchedEngine(cfg, params, slots=slots, max_new_tokens=new,
+                        chunk=chunk, kv_quant=True, group_admission=group,
+                        prefill_chunk=256 if group else None)
+    admits = []
+    if group:
+        admit = eng._admit
+
+        def timed_admit(g):
+            t0 = time.time()
+            admit(g)
+            admits.append((len(g), time.time() - t0))
+
+        eng._admit = timed_admit
+    out = {}
+    try:
+        t0 = time.time()
+        warm_engine(eng, engine_request(cfg, 999, T, rng, dev))
+        for r in [eng.submit(engine_request(cfg, 1000 + i, T, rng, dev),
+                             temperature=0.0) for i in range(2)]:
+            drain(r)
+        log(f"[{name}] warm-up {time.time() - t0:.1f} s")
+        batches = [engine_request(cfg, i, T, rng, dev) for i in range(n_req)]
+        waves = 1 if group else 2
+        runs = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(waves):
+            admits.clear()
+            reset_counts()
+            with engine_tally() as tally:
+                reqs, toks, dt = engine_wave(eng, batches)
+            expect_engine(name, eng, reqs, kernel_counts(), tally, L)
+            n_tok = sum(len(t) for t in toks)
+            log(f"[{name}] {n_req} requests, {n_tok} tokens in {dt:.3f} s "
+                f"-> {n_tok / dt:.3f} tok/s, {n_req / dt:.3f} req/s; "
+                f"{tally.steps} decode steps, extends {tally.extends}")
+            runs.append((toks, dt, n_tok, tally))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        toks, dt, n_tok, tally = runs[0]
+        out.update(tok_s=n_tok / dt, req_s=n_req / dt, peak=peak)
+        log(f"[{name}] peak allocated {peak:.2f} GiB on {card}")
+        if group:
+            if tally.k1_extends() < 1:
+                raise AssertionError("E2: no extend of >= 1024 rows (K1)")
+            big = [t for k, t in admits if k > 1]
+            log(f"[E2] admissions (group size, s): {admits}")
+            out["group_admit_s"] = max(big) if big else None
+        else:
+            if runs[1][0] != toks:
+                raise AssertionError("E1: a repeated wave gave other tokens")
+            # every first token against a B=1 prefill; whole streams (B=1
+            # decode, ~3.5 s a request) for the first n_ref requests
+            firsts, same, n_ref = [], 0, 8
+            for k, (b, got) in enumerate(zip(batches, toks)):
+                first, ref = stream_reference(
+                    params, cfg, b, new if k < n_ref else 0, chunk, True)
+                firsts.append(first == got[0])
+                same += k < n_ref and ref == got
+            log(f"[E1] first tokens equal to B=1 stream_prefill "
+                f"{sum(firsts)}/{n_req}; whole streams equal to the B=1 "
+                f"stream path {same}/{n_ref} (reported: decode at M = 1 "
+                f"and M = {slots} may take other cuBLAS tiles)")
+            if not all(firsts):
+                raise AssertionError("E1: a first token differs from B=1")
+            out["stream_equal"] = same / n_ref
+            seg_reqs = [eng.submit(engine_request(cfg, 2000 + i, T, rng, dev,
+                                                  seg=True),
+                                   temperature=0.0) for i in range(2)]
+            for r in seg_reqs:
+                drain(r)
+                masks, valid = r.ground()
+                s = cfg.sam.image_size
+                if (tuple(masks.shape) != (1, 1, s, s)
+                        or not bool(torch.isfinite(masks).all())
+                        or not bool(valid.all())):
+                    raise AssertionError("E1: grounding gave bad masks")
+            log(f"[E1] 2 <SEG> requests grounded: masks (1, 1, {s}, {s}) "
+                f"finite")
+        if eng.active_requests:
+            raise AssertionError(f"{name}: requests left active")
+    finally:
+        eng.shutdown()
+    return out
+
+
+def engine_e3(params, cfg, dev, card):
+    """run_all.py config 10's traffic (BENCH_TTFT_PREFILL_CHUNK=256) on
+    the int4h flagship: 8 slots, int8 KV, decode chunks of 8; 7
+    background greedy streams of 512 tokens, then 12 probes of 16 tokens
+    (T_in=48) submitted one after another under that load. TTFT =
+    submit -> first chunk at the client; the background streams' largest
+    gap between chunk arrivals during the probes (ms, and in units of the
+    median gap). A retired slot keeps decoding past its cache here."""
+    import threading
+
+    from medplib_tpu_torch.serve.engine import BatchedEngine
+
+    slots, new, T, probes = 8, 512, 48, 12
+    L = cfg.llm.num_layers
+    rng = np.random.default_rng(0)
+    eng = BatchedEngine(cfg, params, slots=slots, max_new_tokens=new,
+                        chunk=8, kv_quant=True, prefill_chunk=256)
+    try:
+        drain(eng.submit(engine_request(cfg, 0, T, rng, dev),
+                         temperature=0.0, max_new_tokens=8))
+        gaps, started, probe_t0 = [], set(), [float("inf")]
+        errors = []
+
+        def consume(r):
+            last, first = time.time(), True
+            try:
+                while True:
+                    item = r.chunks.get(timeout=600)
+                    if item is None:
+                        break
+                    now = time.time()
+                    if first:
+                        started.add(id(r))
+                        first = False
+                    if last >= probe_t0[0]:
+                        gaps.append(now - last)
+                    last = now
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        reset_counts()
+        with engine_tally() as tally:
+            bg = [eng.submit(engine_request(cfg, 1 + i, T, rng, dev),
+                             temperature=0.0, max_new_tokens=new)
+                  for i in range(slots - 1)]
+            threads = [threading.Thread(target=consume, args=(r,),
+                                        daemon=True) for r in bg]
+            for t in threads:
+                t.start()
+            deadline = time.time() + 300
+            while len(started) < slots - 1:
+                if time.time() > deadline or any(r.error for r in bg):
+                    raise AssertionError("E3: the background load did not "
+                                         "start")
+                time.sleep(0.05)
+            probe_t0[0] = time.time()
+            ttfts, preqs = [], []
+            for i in range(probes):
+                t0 = time.time()
+                r = eng.submit(engine_request(cfg, 100 + i, T, rng, dev),
+                               temperature=0.0, max_new_tokens=16)
+                if r.chunks.get(timeout=600) is None:
+                    raise AssertionError(f"E3: probe {i} failed: "
+                                         f"{r.error!r}")
+                ttfts.append(time.time() - t0)
+                r.cancel()
+                drain(r)
+                preqs.append(r)
+            for r in bg:
+                r.cancel()
+            for t in threads:
+                t.join(timeout=600)
+            stall_steps = tally.steps
+        if errors:
+            raise AssertionError(f"E3: a background stream failed: "
+                                 f"{errors[0]!r}")
+        expect_engine("E3", eng, bg + preqs, kernel_counts(), tally, L)
+        length = eng._state.cache.length
+        past = int((length > eng._state.cache.k.shape[2]).sum())
+    finally:
+        eng.shutdown()
+    ttfts.sort()
+    gaps.sort()
+    period = gaps[len(gaps) // 2]
+    out = dict(ttft_p50=ttfts[len(ttfts) // 2] * 1e3,
+               ttft_p99=ttfts[-1] * 1e3, stall_ms=gaps[-1] * 1e3,
+               stall_chunks=gaps[-1] / max(period, 1e-6))
+    log(f"[E3] {probes} probes under {slots - 1} background streams: TTFT "
+        f"p50 {out['ttft_p50']:.1f} ms, p99 {out['ttft_p99']:.1f} ms; "
+        f"background stall max {out['stall_ms']:.1f} ms = "
+        f"{out['stall_chunks']:.2f} x the median gap "
+        f"({period * 1e3:.1f} ms); {stall_steps} decode steps; slots past "
+        f"their cache at the end: {past}; {card}")
+    return out
+
+
+def engine_profile(params, cfg, dev, slots=12, chunk=8):
+    """One decode chunk of `slots` rows (int8 KV, greedy), as the engine
+    dispatches it, and one B=1 extend of 256 tokens under the profiler:
+    kernels, wall and idle share."""
+    import torch
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.serve.engine import _concat
+    rng = np.random.default_rng(5)
+    b = _concat([engine_request(cfg, i, 48, rng, dev) for i in range(slots)],
+                dev)
+    with torch.no_grad():
+        st = medplib.stream_prefill(params, cfg, b, 4 * chunk, kv_quant=True)
+        holder = [st]
+
+        def one_chunk():
+            holder[0], toks, _ = medplib.stream_decode_chunk(
+                params, cfg, holder[0], chunk)
+            toks.tolist()
+
+        one_chunk()
+        log(f"[engine profile] one decode chunk of {chunk} steps, "
+            f"{slots} slots, int8 KV:")
+        profile_step(one_chunk)
+        del st, holder
+        # E3's unit of admission work: one B=1 extend of 256 tokens
+        e, am, sm, carry = medplib.stream_prefill_begin(
+            params, cfg, engine_request(cfg, 50, 48, rng, dev), 4 * chunk,
+            256, kv_quant=True)
+
+        def one_extend():
+            medplib.stream_prefill_chunk(params, cfg, carry, e, am, sm, 0,
+                                         256).last_hidden.tolist()
+
+        one_extend()
+        log("[engine profile] one extend of 256 tokens, B=1, int8 KV:")
+        profile_step(one_extend)
+
+
+def engine_path(dev, results, card, params):
+    """The serving engine on main_path's int4h flagship tree: E1, E2, E3
+    (each with every launch count set to 0 just before it and read just
+    after), then one profiled decode chunk."""
+    import torch
+    from medplib_tpu_torch.config import flagship_cfg
+    cfg = flagship_cfg(32, moe=True)
+    out = {}
+    for name, run in (
+            ("E1", lambda: engine_e1_e2(params, cfg, dev, card, False)),
+            ("E2", lambda: engine_e1_e2(params, cfg, dev, card, True)),
+            ("E3", lambda: engine_e3(params, cfg, dev, card)),
+            ("profile", lambda: engine_profile(params, cfg, dev))):
+        t0 = time.time()
+        out[name] = run()
+        torch.cuda.empty_cache()
+        log(f"[{name}] done in {time.time() - t0:.1f} s")
+    return out
+
+
+def small_engine_check(dev):
+    """The tiny MoE serving model (int4h experts) through BatchedEngine on
+    the CPU (plain versions) and on the card (kernels): 4 slots, 8
+    requests (T_in=64: 79 spliced tokens, <SEG> in the prompt), group
+    admission, prefill_chunk 256, so a group of 3-4 pads to 4 rows x 256 =
+    1024 rows: the grouped matmul (K1). Tokens equal; masks from ground()
+    within _tiny_card_vs_cpu's tolerance; the card launches K1 and K2 as
+    counted. Then idle_slot_run on both: equal tokens, and a slot's
+    length past its cache on the card."""
+    from medplib_tpu_torch.serve.engine import BatchedEngine
+    from medplib_tpu_torch.utils.convert import tree_from_numpy
+    cfg = tiny_serving_cfg(512, 8)
+    host = _tiny_moe_tree(cfg, 4)
+    out = {}
+    for where in ("cpu", dev):
+        params = tree_from_numpy(host, where)
+        rng = np.random.default_rng(0)
+        batches = [engine_request(cfg, i, 64, rng, where, seg=True)
+                   for i in range(8)]
+        eng = BatchedEngine(cfg, params, slots=4, max_new_tokens=8, chunk=4,
+                            group_admission=True, prefill_chunk=256)
+        try:
+            reset_counts()
+            with engine_tally() as tally:
+                reqs, toks, _ = engine_wave(eng, batches, timeout=300)
+            counts = kernel_counts()
+            masks = [r.ground()[0].cpu() for r in reqs]
+        finally:
+            eng.shutdown()
+        if where == "cpu":
+            expect_counts("small engine check, CPU", counts)
+        else:
+            expect_engine("small engine check, card", eng, reqs, counts,
+                          tally, cfg.llm.num_layers)
+        if tally.k1_extends() < 1:
+            raise AssertionError("small engine check: no extend of >= 1024 "
+                                 "rows")
+        out[str(where)] = (toks, masks)
+    (tc, mc), (tg, mg) = out["cpu"], out[str(dev)]
+    import torch
+    mrel = max(rel_err(g, c) for g, c in zip(mg, mc))
+    log(f"[small engine check] 8 requests, card vs CPU: tokens equal "
+        f"{tc == tg}, mask rel err max {mrel:.3e}")
+    if tc != tg or mrel > 5e-2 or not all(bool(torch.isfinite(m).all())
+                                          for m in mg):
+        raise AssertionError("small engine check: the card disagrees with "
+                             "the CPU")
+    idle = [idle_slot_run(cfg, tree_from_numpy(host, w), w)
+            for w in ("cpu", dev)]
+    log(f"[small engine check] a retired slot decodes past its cache "
+        f"(int8 KV; final lengths {idle[1][1]} of {idle[1][2]} positions "
+        f"on the card): tokens equal to the CPU {idle[0][0] == idle[1][0]}")
+    if idle[0][0] != idle[1][0] or max(idle[1][1]) <= idle[1][2]:
+        raise AssertionError("small engine check: the idle-slot run "
+                             "disagrees or no slot passed its cache")
+
+
+def idle_slot_run(cfg, params, where):
+    """2 slots, int8 KV, no EOS: a request runs its 8 steps and retires at
+    the end of its cache while a later one decodes on, so the retired
+    slot's length walks past the cache (its K/V writes are dropped, as in
+    JAX). -> (tokens of both, final lengths, cache positions)."""
+    from medplib_tpu_torch.serve.engine import BatchedEngine
+    rng = np.random.default_rng(1)
+    first, late = (engine_request(cfg, i, 64, rng, where) for i in (0, 1))
+    eng = BatchedEngine(cfg, params, slots=2, max_new_tokens=8, chunk=4,
+                        kv_quant=True, eos_id=-1)
+    try:
+        r0 = eng.submit(first, temperature=0.0)
+        r0.chunks.get(timeout=300)          # admitted: its first token
+        r1 = eng.submit(late, temperature=0.0)
+        toks = [[t for c in drain(r, 300) for t in c] for r in (r0, r1)]
+        cache = eng._state.cache
+        return toks, cache.length.tolist(), cache.k.shape[2]
+    finally:
+        eng.shutdown()
 
 
 def init_bf16_flagship(cfg, gen, dev):
@@ -2109,7 +2598,10 @@ def main() -> int:
     small_packed_check(dev, 4)
     small_region_checks(dev)
     train_check(dev)
-    masks_per_s, peak = main_path(dev, results, card)
+    small_engine_check(dev)
+    masks_per_s, peak, params = main_path(dev, results, card)
+    engine = engine_path(dev, results, card, params)
+    del params
     torch.cuda.empty_cache()
     region = region_path(dev, results, card)
     torch.cuda.empty_cache()
@@ -2136,7 +2628,15 @@ def main() -> int:
           f"{packed[8][0]:.3f} masks/s, peak {packed[8][1]:.2f} GiB; packed "
           f"dense int4h B=12 {packed[4][0]:.3f} masks/s, peak "
           f"{packed[4][1]:.2f} GiB; training {tokens_per_s:.1f} "
-          f"tokens/s, peak {train_peak:.2f} GiB; {card}", flush=True)
+          f"tokens/s, peak {train_peak:.2f} GiB; engine E1 "
+          f"{engine['E1']['tok_s']:.3f} tok/s, {engine['E1']['req_s']:.3f} "
+          f"req/s, peak {engine['E1']['peak']:.2f} GiB; E2 "
+          f"{engine['E2']['tok_s']:.3f} tok/s, {engine['E2']['req_s']:.3f} "
+          f"req/s; E3 TTFT p50 {engine['E3']['ttft_p50']:.1f} ms, p99 "
+          f"{engine['E3']['ttft_p99']:.1f} ms, stall max "
+          f"{engine['E3']['stall_ms']:.1f} ms "
+          f"({engine['E3']['stall_chunks']:.2f} chunks); {card}",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

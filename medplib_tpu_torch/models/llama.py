@@ -13,10 +13,11 @@ Packed trees (`pack_inference`): q/k/v fuse into one transposed
 on K7 (ops/cuda/int8_matmul), an int4h one on K9 (ops/cuda/int4_matmul),
 a float one on the LoRA linear.
 
-KV cache: prefill and decode write the cache IN PLACE (the JAX package
-returns a new cache), so a decode loop never copies it. With quant=True it
-holds int8 k / v and f32 per-token-per-head scales (ops/attention.py
-quantize_kv, decode_attention_quant).
+KV cache: prefill, decode and the chunked-prefill extend write the cache
+IN PLACE (the JAX package returns a new cache), so a decode loop never
+copies it. With quant=True it holds int8 k / v and f32
+per-token-per-head scales (ops/attention.py quantize_kv,
+decode_attention_quant).
 
 Training: `forward(..., remat=True)` runs each decoder layer under
 torch.utils.checkpoint (the counterpart of jax.checkpoint on the scan
@@ -38,6 +39,8 @@ from medplib_tpu_torch.ops.moe import _silu
 from medplib_tpu_torch.ops.attention import (causal_attention,
                                              decode_attention,
                                              decode_attention_quant,
+                                             extend_attention,
+                                             extend_attention_quant,
                                              quantize_kv)
 from medplib_tpu_torch.ops.initializers import dense_init, embed_init
 from medplib_tpu_torch.ops.norms import rms_norm
@@ -214,22 +217,36 @@ def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: LlamaConfig,
                          ) -> torch.Tensor:
     """x [B, 1, H]. Writes this token's k/v at row position `length` of the
     layer's cache views (in place; quantized with their scales when
-    k_scale / v_scale are given) and attends to the first length+1."""
+    k_scale / v_scale are given) and attends to the first length+1.
+
+    A row whose length has reached the cache's size writes nothing, as
+    JAX's scatter drops an out-of-bounds update: an idle serving slot keeps
+    decoding past its cache (serve/engine.py). Such a row writes back the
+    value already at its clamped position, so no host sync is needed."""
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
     q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
     b = x.shape[0]
     bidx = torch.arange(b, device=x.device)
     pos = length.long()
+    ok = pos < k_cache.shape[1]
+    pos = pos.clamp(max=k_cache.shape[1] - 1)
+
+    def put(cache, new):
+        keep = ok.reshape((b,) + (1,) * (new.dim() - 1))
+        cache[bidx, pos] = torch.where(keep, new.to(cache.dtype),
+                                       cache[bidx, pos])
+
     if k_scale is not None:
         kq, ksc = quantize_kv(k[:, 0])
         vq, vsc = quantize_kv(v[:, 0])
-        k_cache[bidx, pos], k_scale[bidx, pos] = kq, ksc
-        v_cache[bidx, pos], v_scale[bidx, pos] = vq, vsc
+        for cache, new in ((k_cache, kq), (k_scale, ksc), (v_cache, vq),
+                           (v_scale, vsc)):
+            put(cache, new)
         attn = decode_attention_quant(q, k_cache, k_scale, v_cache, v_scale,
                                       length + 1)
     else:
-        k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
-        v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+        put(k_cache, k[:, 0])
+        put(v_cache, v[:, 0])
         attn = decode_attention(q, k_cache, v_cache, length + 1)
     x = x + linear(p["attn"]["o_proj"], attn.reshape(b, 1, -1))
     h = rms_norm(x, p["post_attention_layernorm"]["weight"],
@@ -306,6 +323,51 @@ def forward_decode(params: Params, cfg: LlamaConfig,
                                  cache.length, mlp_apply, *scales)
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     cache.length = cache.length + 1
+    return x, cache
+
+
+def forward_extend(params: Params, cfg: LlamaConfig,
+                   input_embeds: torch.Tensor, cache: KVCache, c0,
+                   mlp_apply: MlpApply = dense_mlp_layer):
+    """Chunked-prefill extend: input_embeds [B, C, H] are the prompt
+    tokens at absolute positions [c0, c0 + C) (c0 a Python int or a 0-d
+    tensor). Each layer writes their K/V into [c0, c0 + C) of its cache
+    view in place (int8 values and scales for a quantized cache) and
+    attends each query causally to everything written so far.
+    cache.length is NOT advanced: the caller sets it from the prompt mask
+    after the last chunk (medplib.stream_prefill_finish).
+    -> (hidden_post_norm [B, C, H], cache)."""
+    b, c, _ = input_embeds.shape
+    c0 = int(c0)
+    if c0 < 0 or c0 + c > cache.k.shape[2]:
+        raise ValueError(f"extend chunk [{c0}, {c0 + c}) does not fit the "
+                         f"cache of {cache.k.shape[2]} positions")
+    dev = input_embeds.device
+    positions = (c0 + torch.arange(c, device=dev))[None].expand(b, c)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    x = input_embeds
+    for i in range(cfg.num_layers):
+        p = layer_params(params["layers"], i)
+        h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
+        q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
+        span = slice(c0, c0 + c)
+        if cache.quantized:
+            cache.k[i, :, span], cache.k_scale[i, :, span] = quantize_kv(k)
+            cache.v[i, :, span], cache.v_scale[i, :, span] = quantize_kv(v)
+            attn = extend_attention_quant(q, cache.k[i], cache.k_scale[i],
+                                          cache.v[i], cache.v_scale[i], c0)
+        else:
+            cache.k[i, :, span] = k.to(cache.k.dtype)
+            cache.v[i, :, span] = v.to(cache.v.dtype)
+            attn = extend_attention(q.to(cache.k.dtype), cache.k[i],
+                                    cache.v[i], c0)
+        x = x + linear(p["attn"]["o_proj"],
+                       attn.to(x.dtype).reshape(b, c, -1))
+        h = rms_norm(x, p["post_attention_layernorm"]["weight"],
+                     cfg.rms_norm_eps)
+        y, _ = mlp_apply(p, h)
+        x = x + y
+    x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     return x, cache
 
 

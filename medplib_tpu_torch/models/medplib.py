@@ -9,13 +9,17 @@ one image per row or several (the in-context config: query + example
 images or example masks through the mask encoder, each spliced at its own
 sentinel, optionally through the 576 -> 256 token compressor), with region
 inputs (rp_flag: the region adapter + closed-form pooling, or the geo
-sampler), and the dense training forward `model_forward` (CE + mask
-losses, frozen CLIP and SAM encoders, per-layer remat). Streaming and MoE
-training are not ported yet.
+sampler), the streaming entry points of the serving engine
+(stream_prefill / stream_decode_chunk, the chunked prefill
+stream_prefill_begin -> stream_prefill_chunk -> stream_prefill_finish,
+ground_seg_slots / stream_ground; generate runs on the same decode step),
+and the dense training forward `model_forward` (CE + mask losses, frozen
+CLIP and SAM encoders, per-layer remat). MoE training is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -347,6 +351,76 @@ def _seg_slot_write(seg_emb, seg_count, cap, is_seg):
     return seg_emb, seg_count + can.to(seg_count.dtype)
 
 
+def _first_token(params, cfg: MedplibConfig, last_hidden, seg_emb,
+                 seg_count, b, dev, do_sample, temperature, top_p,
+                 rng: sampling.Seed):
+    """The first new token from each row's last prompt hidden [B, 1, H]
+    (a SEG there captures that hidden) -> (tok, seg_emb, seg_count,
+    last_cap, stream keys after one split)."""
+    key, sub = sampling.split_rows(sampling.row_keys(rng, b, dev))
+    tok = sampling.select_token(
+        llama.logits(params["llm"], last_hidden)[:, 0], sub, do_sample,
+        temperature, top_p)
+    first_cap = text_hidden_fcs(params["text_hidden_fcs"], last_hidden)[:, 0]
+    seg_emb, seg_count = _seg_slot_write(seg_emb, seg_count, first_cap,
+                                         tok == cfg.seg_token_idx)
+    return tok, seg_emb, seg_count, first_cap.to(seg_emb.dtype), key
+
+
+def _make_decode_step(params, cfg: MedplibConfig, eos_id: int,
+                      do_sample: bool, temperature, top_p, dev):
+    """The decode step shared by generate and stream_decode_chunk.
+
+    carry = (cache, tok, done, seg_emb [B, S, D], seg_count [B],
+    last_cap [B, D], keys [B, 2]) -> (carry, (tok, done) as they came in).
+    A SEG emitted now captures THIS step's hidden state (the state of the
+    pass that predicted it). temperature / top_p: numbers or per-row
+    values, moved to the device once here."""
+    fcs = params["text_hidden_fcs"]
+    if do_sample:
+        temperature = sampling.per_row(temperature, dev)
+        top_p = sampling.per_row(top_p, dev)
+
+    def step(carry):
+        cache, tok, done, seg_emb, seg_count, last_cap, key = carry
+        emb = llama.embed(params["llm"], tok[:, None])
+        hidden, cache = _llm_decode(params, cfg, emb, cache)
+        sub = None
+        if do_sample:
+            key, sub = sampling.split_rows(key)
+        new_tok = sampling.select_token(
+            llama.logits(params["llm"], hidden)[:, 0], sub, do_sample,
+            temperature, top_p).to(tok.dtype)
+        is_seg = (new_tok == cfg.seg_token_idx) & ~done
+        cap = text_hidden_fcs(fcs, hidden)[:, 0]
+        seg_emb, seg_count = _seg_slot_write(seg_emb, seg_count, cap, is_seg)
+        last_cap = torch.where(done[:, None], last_cap,
+                               cap.to(last_cap.dtype))
+        new_tok = torch.where(done, torch.zeros_like(new_tok), new_tok)
+        new_done = done | (new_tok == eos_id)
+        return ((cache, new_tok, new_done, seg_emb, seg_count, last_cap,
+                 key), (tok, done))
+
+    return step
+
+
+def _prompt_segs(params, hidden, seg_mask, max_segs, dtype):
+    """Prompt-side SEG captures, left-packed -> (seg_emb, seg_count)."""
+    p_emb, p_valid, _ = splice_ops.gather_seg_embeddings(
+        text_hidden_fcs(params["text_hidden_fcs"], hidden), seg_mask,
+        max_segs)
+    seg_emb = torch.where(p_valid[..., None], p_emb,
+                          torch.zeros_like(p_emb)).to(dtype)
+    return seg_emb, p_valid.sum(1).to(torch.int32)
+
+
+def _last_hidden(hidden, attn_mask):
+    """Hidden state [B, 1, H] of each row's last real prompt token."""
+    last_idx = (attn_mask.sum(-1) - 1).clamp(min=0).long()
+    return torch.gather(
+        hidden, 1, last_idx[:, None, None].expand(-1, 1, hidden.shape[-1]))
+
+
 @torch.no_grad()
 def generate(params: Params, cfg: MedplibConfig, batch: Batch,
              max_new_tokens: int = 64, eos_id: int = 2,
@@ -368,71 +442,230 @@ def generate(params: Params, cfg: MedplibConfig, batch: Batch,
     per-token-per-head scales."""
     b = batch.input_ids.shape[0]
     dev = batch.input_ids.device
-    embeds, _, attn_mask, seg_mask_prompt, _ = splice_batch(
+    state = stream_prefill(params, cfg, batch, max_new_tokens, rp_flag,
+                           max_segs, do_sample, temperature, top_p, rng,
+                           kv_quant)
+    state, output_ids, dones = stream_decode_chunk(
+        params, cfg, state, max_new_tokens, eos_id, do_sample, temperature,
+        top_p)
+    num_generated = (~dones).sum(1)
+    has_seg = state.seg_count > 0
+    seg_valid = (torch.arange(max_segs, device=dev)[None, :]
+                 < state.seg_count[:, None])
+    o = out_size or cfg.sam.image_size
+    if ground:
+        pred, _ = ground_seg_slots(params, cfg, batch.images_sam,
+                                   state.seg_emb, state.seg_count,
+                                   state.last_cap, o)
+    else:               # pure VQA: no SAM forward
+        pred = torch.zeros((b, max_segs, o, o), device=dev)
+    return GenerateResult(output_ids=output_ids, num_generated=num_generated,
+                          pred_masks=pred, seg_valid=seg_valid,
+                          has_seg=has_seg)
+
+
+# ---------------------------------------------------------------------------
+# streaming generation (serving): prefill once, then decode in chunks so
+# text can stream to the client mid-generation
+# ---------------------------------------------------------------------------
+
+class StreamState(NamedTuple):
+    cache: llama.KVCache      # written in place by every decode step
+    tok: torch.Tensor         # [B] next input token
+    done: torch.Tensor        # [B] bool
+    seg_emb: torch.Tensor     # [B, S, out_dim] captured SEG slots
+    seg_count: torch.Tensor   # [B] number of filled slots
+    last_cap: torch.Tensor    # [B, out_dim] latest projected hidden
+    rng: torch.Tensor         # [B, 2] per-row sampling streams
+
+
+@torch.no_grad()
+def stream_prefill(params: Params, cfg: MedplibConfig, batch: Batch,
+                   max_new_tokens: int, rp_flag: bool = False,
+                   max_segs: int = 1, do_sample: bool = False,
+                   temperature=1.0, top_p=1.0, rng: sampling.Seed = None,
+                   kv_quant: bool = False) -> StreamState:
+    """Splice + prefill into a cache of T + max_new_tokens positions ->
+    the state for stream_decode_chunk, whose first token is already
+    chosen (SEG capture as in generate: prompt SEGs, then a SEG as the
+    first token captures the last prompt hidden). temperature / top_p:
+    numbers or per-row values; rng as in generate."""
+    b = batch.input_ids.shape[0]
+    dev = batch.input_ids.device
+    embeds, _, attn_mask, seg_mask, _ = splice_batch(
         params, cfg, batch, need_region=rp_flag)
     cache = llama.KVCache.init(cfg.llm, b, embeds.shape[1] + max_new_tokens,
                                dtype=embeds.dtype, device=dev,
                                quant=kv_quant)
     hidden, cache, _ = _llm_forward(params, cfg, embeds, attn_mask, cache,
                                     train=False)
-    last_idx = (attn_mask.sum(-1) - 1).clamp(min=0).long()
-    last_hidden = torch.gather(
-        hidden, 1, last_idx[:, None, None].expand(-1, 1, hidden.shape[-1]))
-    fcs = params["text_hidden_fcs"]
-    key = sub = None
-    if do_sample:       # per-row streams; the values move to the device once
-        temperature = sampling.per_row(temperature, dev)
-        top_p = sampling.per_row(top_p, dev)
-        key, sub = sampling.split_rows(sampling.row_keys(rng, b, dev))
-    next_tok = sampling.select_token(
-        llama.logits(params["llm"], last_hidden)[:, 0], sub, do_sample,
-        temperature, top_p)
+    seg_emb, seg_count = _prompt_segs(params, hidden, seg_mask, max_segs,
+                                      embeds.dtype)
+    tok, seg_emb, seg_count, last_cap, key = _first_token(
+        params, cfg, _last_hidden(hidden, attn_mask), seg_emb, seg_count, b,
+        dev, do_sample, temperature, top_p, rng)
+    return StreamState(cache=cache, tok=tok,
+                       done=torch.zeros((b,), dtype=torch.bool, device=dev),
+                       seg_emb=seg_emb, seg_count=seg_count,
+                       last_cap=last_cap, rng=key)
 
+
+@torch.no_grad()
+def stream_decode_chunk(params: Params, cfg: MedplibConfig,
+                        state: StreamState, chunk: int, eos_id: int = 2,
+                        do_sample: bool = False, temperature=1.0, top_p=1.0):
+    """Decode `chunk` tokens from the state (its cache is written in
+    place) -> (new state, tokens [B, chunk], done-before-step
+    [B, chunk]). The first token out is the one the state carried in."""
+    step = _make_decode_step(params, cfg, eos_id, do_sample, temperature,
+                             top_p, state.tok.device)
+    carry, toks, dones = tuple(state), [], []
+    for _ in range(chunk):
+        carry, (t, d) = step(carry)
+        toks.append(t)
+        dones.append(d)
+    return (StreamState(*carry), torch.stack(toks, dim=1),
+            torch.stack(dones, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill (serving): the prompt is prefilled in fixed-size chunks
+# so the engine can run decode chunks of the other slots between them.
+# begin (splice + empty cache) -> N x chunk (extend) -> finish (first
+# token).
+# ---------------------------------------------------------------------------
+
+class PrefillCarry(NamedTuple):
+    cache: llama.KVCache      # length stays 0 until finish
+    seg_emb: torch.Tensor     # [B, S, out_dim] prompt SEG slots so far
+    seg_count: torch.Tensor   # [B]
+    last_hidden: torch.Tensor  # [B, H] hidden at each row's last real pos
+
+
+@torch.no_grad()
+def stream_prefill_begin(params: Params, cfg: MedplibConfig, batch: Batch,
+                         max_new_tokens: int, chunk_tokens: int,
+                         rp_flag: bool = False, max_segs: int = 1,
+                         kv_quant: bool = False,
+                         cache_len: Optional[int] = None):
+    """Splice the prompt and make an empty cache for chunked prefill ->
+    (embeds, attn_mask, seg_mask, carry). The three are padded to whole
+    chunks: padding queries write K/V past every row's true length, which
+    decode never reads (it masks by cache.length, set at finish). The
+    cache holds cache_len positions (default the padded prompt +
+    max_new_tokens), at least the padded prompt."""
+    b = batch.input_ids.shape[0]
+    dev = batch.input_ids.device
+    embeds, _, attn_mask, seg_mask, _ = splice_batch(params, cfg, batch,
+                                                     need_region=rp_flag)
+    n = -(-embeds.shape[1] // chunk_tokens)
+    pad = n * chunk_tokens - embeds.shape[1]
+    if pad:
+        embeds = torch.nn.functional.pad(embeds, (0, 0, 0, pad))
+        attn_mask = torch.nn.functional.pad(attn_mask, (0, pad))
+        seg_mask = torch.nn.functional.pad(seg_mask, (0, pad))
+    maxlen = max(cache_len or (embeds.shape[1] + max_new_tokens),
+                 n * chunk_tokens)
+    cache = llama.KVCache.init(cfg.llm, b, maxlen, dtype=embeds.dtype,
+                               device=dev, quant=kv_quant)
+    out_dim = params["text_hidden_fcs"]["fc2"]["kernel"].shape[1]
+    carry = PrefillCarry(
+        cache=cache,
+        seg_emb=torch.zeros((b, max_segs, out_dim), dtype=embeds.dtype,
+                            device=dev),
+        seg_count=torch.zeros((b,), dtype=torch.int32, device=dev),
+        last_hidden=torch.zeros((b, embeds.shape[-1]), dtype=embeds.dtype,
+                                device=dev))
+    return embeds, attn_mask, seg_mask, carry
+
+
+def _llm_extend(params, cfg: MedplibConfig, embeds, cache, c0):
+    if cfg.moe.enable:
+        return moe_llama.forward_extend(params["llm"], cfg.llm, cfg.moe,
+                                        embeds, cache, c0)
+    return llama.forward_extend(params["llm"], cfg.llm, embeds, cache, c0)
+
+
+@torch.no_grad()
+def stream_prefill_chunk(params: Params, cfg: MedplibConfig,
+                         carry: PrefillCarry, embeds: torch.Tensor,
+                         attn_mask: torch.Tensor, seg_mask: torch.Tensor,
+                         c0: int, chunk_tokens: int) -> PrefillCarry:
+    """Prompt positions [c0, c0 + chunk_tokens): extend the cache (in
+    place), append the chunk's prompt-SEG captures to the slots in
+    sequence order, and track each row's last-real-position hidden."""
+    c0 = int(c0)
+    span = slice(c0, c0 + chunk_tokens)
+    hidden, cache = _llm_extend(params, cfg, embeds[:, span], carry.cache,
+                                c0)
+    max_segs = carry.seg_emb.shape[1]
     p_emb, p_valid, _ = splice_ops.gather_seg_embeddings(
-        text_hidden_fcs(fcs, hidden), seg_mask_prompt, max_segs)
-    seg_emb = torch.where(p_valid[..., None], p_emb,
-                          torch.zeros_like(p_emb)).to(embeds.dtype)
-    seg_count = p_valid.sum(1).to(torch.int32)
-    first_cap = text_hidden_fcs(fcs, last_hidden)[:, 0]
-    seg_emb, seg_count = _seg_slot_write(seg_emb, seg_count, first_cap,
-                                         next_tok == cfg.seg_token_idx)
+        text_hidden_fcs(params["text_hidden_fcs"], hidden),
+        seg_mask[:, span].bool(), max_segs)
+    seg_emb, seg_count = carry.seg_emb, carry.seg_count
+    for j in range(max_segs):
+        seg_emb, seg_count = _seg_slot_write(seg_emb, seg_count,
+                                             p_emb[:, j], p_valid[:, j])
+    last_idx = (attn_mask.sum(-1).to(torch.int32) - 1).clamp(min=0)
+    li = ((last_idx.clamp(max=c0 + chunk_tokens - 1) - c0)
+          .clamp(0, chunk_tokens - 1).long())
+    lh = torch.gather(hidden, 1, li[:, None, None].expand(
+        -1, 1, hidden.shape[-1]))[:, 0]
+    last_hidden = torch.where((last_idx >= c0)[:, None],
+                              lh.to(carry.last_hidden.dtype),
+                              carry.last_hidden)
+    return PrefillCarry(cache=cache, seg_emb=seg_emb, seg_count=seg_count,
+                        last_hidden=last_hidden)
 
-    tok, done = next_tok, torch.zeros((b,), dtype=torch.bool, device=dev)
-    last_cap = first_cap.to(seg_emb.dtype)
-    toks, dones = [], []
-    for _ in range(max_new_tokens):
-        toks.append(tok)
-        dones.append(done)
-        emb = llama.embed(params["llm"], tok[:, None])
-        hidden, cache = _llm_decode(params, cfg, emb, cache)
-        if do_sample:
-            key, sub = sampling.split_rows(key)
-        new_tok = sampling.select_token(
-            llama.logits(params["llm"], hidden)[:, 0], sub, do_sample,
-            temperature, top_p)
-        is_seg = (new_tok == cfg.seg_token_idx) & ~done
-        cap = text_hidden_fcs(fcs, hidden)[:, 0]
-        seg_emb, seg_count = _seg_slot_write(seg_emb, seg_count, cap, is_seg)
-        last_cap = torch.where(done[:, None], last_cap,
-                               cap.to(last_cap.dtype))
-        new_tok = torch.where(done, torch.zeros_like(new_tok), new_tok)
-        done = done | (new_tok == eos_id)
-        tok = new_tok
-    output_ids = torch.stack(toks, dim=1)
-    num_generated = (~torch.stack(dones, dim=1)).sum(1)
 
+@torch.no_grad()
+def stream_prefill_finish(params: Params, cfg: MedplibConfig,
+                          carry: PrefillCarry, attn_mask: torch.Tensor,
+                          do_sample: bool = False, temperature=1.0,
+                          top_p=1.0, rng: sampling.Seed = None
+                          ) -> StreamState:
+    """Choose the first token from the chunked-prefill carry and seal the
+    cache (length := the prompt mask's row sums), as stream_prefill
+    does."""
+    b = attn_mask.shape[0]
+    dev = attn_mask.device
+    tok, seg_emb, seg_count, last_cap, key = _first_token(
+        params, cfg, carry.last_hidden[:, None], carry.seg_emb,
+        carry.seg_count, b, dev, do_sample, temperature, top_p, rng)
+    cache = dataclasses.replace(
+        carry.cache, length=attn_mask.int().sum(-1).to(torch.int32))
+    return StreamState(cache=cache, tok=tok,
+                       done=torch.zeros((b,), dtype=torch.bool, device=dev),
+                       seg_emb=seg_emb, seg_count=seg_count,
+                       last_cap=last_cap, rng=key)
+
+
+@torch.no_grad()
+def ground_seg_slots(params: Params, cfg: MedplibConfig,
+                     images_sam: torch.Tensor, seg_emb: torch.Tensor,
+                     seg_count: torch.Tensor, last_cap: torch.Tensor,
+                     out_size: Optional[int] = None):
+    """SAM encode + mask decode of the captured SEG slots (the fallback
+    last_cap in slot 0 of a row with none). images_sam [B, S', S', 3];
+    seg_emb [B, S, out_dim] (not modified); seg_count [B]; last_cap
+    [B, out_dim] -> (mask logits [B, S, out, out], seg_valid [B, S])."""
     has_seg = seg_count > 0
+    seg_emb = seg_emb.clone()
     seg_emb[:, 0] = torch.where(has_seg[:, None], seg_emb[:, 0],
                                 last_cap.to(seg_emb.dtype))
-    seg_valid = (torch.arange(max_segs, device=dev)[None, :]
+    sam_emb = sam_med2d.encode_image(params["sam"]["image_encoder"],
+                                     images_sam, cfg.sam)
+    masks, _ = decode_seg_masks(params, cfg, sam_emb, seg_emb,
+                                out_size or cfg.sam.image_size)
+    s = seg_emb.shape[1]
+    seg_valid = (torch.arange(s, device=seg_emb.device)[None, :]
                  < seg_count[:, None])
-    o = out_size or cfg.sam.image_size
-    if ground:
-        sam_emb = sam_med2d.encode_image(params["sam"]["image_encoder"],
-                                         batch.images_sam, cfg.sam)
-        pred, _ = decode_seg_masks(params, cfg, sam_emb, seg_emb, o)
-    else:               # pure VQA: no SAM forward
-        pred = torch.zeros((b, max_segs, o, o), device=dev)
-    return GenerateResult(output_ids=output_ids, num_generated=num_generated,
-                          pred_masks=pred, seg_valid=seg_valid,
-                          has_seg=has_seg)
+    return masks, seg_valid
+
+
+def stream_ground(params: Params, cfg: MedplibConfig, batch: Batch,
+                  state: StreamState, out_size: Optional[int] = None):
+    """Grounding of a finished stream -> (mask logits [B, S, out, out],
+    seg_valid [B, S])."""
+    return ground_seg_slots(params, cfg, batch.images_sam, state.seg_emb,
+                            state.seg_count, state.last_cap, out_size)

@@ -153,3 +153,17 @@ def forward_decode(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
     mlp_apply = make_moe_mlp_apply(cfg, moe_cfg, train=False, stacked=stacked,
                                    block_m=32 if stacked else 512)
     return llama.forward_decode(params, cfg, input_embeds, cache, mlp_apply)
+
+
+def forward_extend(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
+                   input_embeds, cache, c0):
+    """Chunked-prefill extend with the MoE MLP: the chunk's B*C rows take
+    the prefill's dispatch at S = B*C (the grouped matmul from 1024 rows,
+    K1 for int4h experts; the capacity-sort path below)."""
+    b, c = input_embeds.shape[:2]
+    stacked = stack_experts_for_gmm(params["layers"]["moe"]["experts"],
+                                    moe_cfg, b * c, train=False)
+    mlp_apply = make_moe_mlp_apply(cfg, moe_cfg, train=False,
+                                   stacked=stacked)
+    return llama.forward_extend(params, cfg, input_embeds, cache, c0,
+                                mlp_apply)

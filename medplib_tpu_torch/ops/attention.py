@@ -1,6 +1,6 @@
-"""Attention: batched causal prefill + single-step cached decode over a
-bf16 or an int8 KV cache (medplib_tpu/ops/attention.py). Public layout
-[B, T, H, D], as in JAX.
+"""Attention: batched causal prefill, single-step cached decode and the
+chunked-prefill extend over a bf16 or an int8 KV cache
+(medplib_tpu/ops/attention.py). Public layout [B, T, H, D], as in JAX.
 
 Scores are formed in float32 (the JAX einsums ask for f32 accumulation);
 softmax probabilities are cast back to the activation dtype before the
@@ -117,6 +117,49 @@ def decode_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
     valid = pos < cache_len.reshape(-1, 1, 1, 1)
     logits = logits.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
+    probs = (probs * vs.float()).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def _causal_from(logits: torch.Tensor, c0: int) -> torch.Tensor:
+    """Mask [B, H, C, S] scores: query j sits at absolute position c0 + j
+    and sees cache positions <= its own."""
+    c, s = logits.shape[-2:]
+    dev = logits.device
+    qpos = (c0 + torch.arange(c, device=dev)).reshape(1, 1, -1, 1)
+    pos = torch.arange(s, device=dev)[None, None, None, :]
+    return logits.masked_fill(pos > qpos, NEG_INF)
+
+
+def extend_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, c0: int) -> torch.Tensor:
+    """Chunked-prefill extend: q [B, C, H, D] holds the prompt tokens at
+    absolute positions [c0, c0 + C), whose K/V are already in the cache
+    [B, MAX, KV, D]; each query attends causally to the whole cache."""
+    n_rep = q.shape[2] // k_cache.shape[2]
+    k = _repeat_kv(k_cache, n_rep)
+    v = _repeat_kv(v_cache, n_rep)
+    d = q.shape[-1]
+    logits = torch.einsum("bthd,bshd->bhts", q.float(),
+                          k.float()) * (d ** -0.5)
+    probs = torch.softmax(_causal_from(logits, c0), dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def extend_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
+                           k_s: torch.Tensor, v_q: torch.Tensor,
+                           v_s: torch.Tensor, c0: int) -> torch.Tensor:
+    """extend_attention over an int8 KV cache, its scales applied after
+    the products as in decode_attention_quant."""
+    n_rep = q.shape[2] // k_q.shape[2]
+    k = _repeat_kv(k_q.to(q.dtype), n_rep)
+    v = _repeat_kv(v_q.to(q.dtype), n_rep)
+    ks = _repeat_kv(k_s, n_rep).permute(0, 2, 3, 1)        # [B, H, 1, S]
+    vs = _repeat_kv(v_s, n_rep).permute(0, 2, 3, 1)
+    d = q.shape[-1]
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    logits = logits * ks.float() * (d ** -0.5)
+    probs = torch.softmax(_causal_from(logits, c0), dim=-1)
     probs = (probs * vs.float()).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v)
 

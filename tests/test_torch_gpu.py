@@ -717,3 +717,44 @@ def test_ragged_widths_match_plain(dev, kernel, transposed):
         rel = float((got.float() - want.float()).norm()
                     / want.float().norm())
         assert rel < (1e-5 if got.dtype == torch.float32 else 4e-3)
+
+
+def test_engine_card_matches_cpu(dev):
+    """The tiny int4h MoE serving model (chip_smoke.tiny_serving_cfg)
+    through BatchedEngine on the CPU and on the card: 4 slots, 4 requests
+    with <SEG>, group admission, prefill_chunk 256 (a group pads to 4 x
+    256 = 1024 rows: K1). Equal tokens; the card launches K1 3 per layer
+    per extend of >= 1024 rows and K2 once per layer per decode step, the
+    CPU nothing."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    from medplib_tpu_torch.ops.cuda import moe_decode as D
+    from medplib_tpu_torch.serve.engine import BatchedEngine
+    from medplib_tpu_torch.utils.convert import tree_from_numpy
+    cfg = cs.tiny_serving_cfg(512, 8)
+    host = cs._tiny_moe_tree(cfg, 4)
+    L = cfg.llm.num_layers
+    toks = {}
+    for where in ("cpu", dev):
+        rng = np.random.default_rng(0)
+        batches = [cs.engine_request(cfg, i, 64, rng, where, seg=True)
+                   for i in range(4)]
+        eng = BatchedEngine(cfg, tree_from_numpy(host, where), slots=4,
+                            max_new_tokens=8, chunk=4, group_admission=True,
+                            prefill_chunk=256)
+        try:
+            k1, k2 = G.gmm_int4h.launches, D.moe_ffn_decode_int4h.launches
+            with cs.engine_tally() as tally:
+                reqs, toks[str(where)], _ = cs.engine_wave(eng, batches,
+                                                           timeout=300)
+            launched = (G.gmm_int4h.launches - k1,
+                        D.moe_ffn_decode_int4h.launches - k2)
+        finally:
+            eng.shutdown()
+        assert all(r.error is None for r in reqs)
+        assert tally.k1_extends() >= 1
+        assert launched == ((0, 0) if where == "cpu" else
+                            (3 * L * tally.k1_extends(), L * tally.steps))
+    assert toks["cpu"] == toks[str(dev)]
