@@ -43,7 +43,10 @@
    a 1039-token spliced row (flash route); and the serving engine
    (serve/engine.BatchedEngine) on the tiny int4h MoE model, 4 slots, 8
    grouped requests with 256-token prefill chunks (K1 at a 1024-row
-   extend, K2 at decode): equal tokens, masks from Request.ground().
+   extend, K2 at decode): equal tokens, masks from Request.ground(); and
+   the serving worker on that model with the region adapter
+   (small_worker_check): greedy, <SEG>, region and seeded sampled
+   requests as PNG payloads, equal texts, masks within 1% of pixels.
 5. Serving main paths, MedPLIB-7b-2e at full width (32 layers x 2
    experts, int8 attention / lm_head / projector), random weights from a
    seed: with int4h experts, a batch of 16 grounding requests (T_in=48,
@@ -57,7 +60,14 @@
    bf16 x at each 4096-row extend), E3, config 10's traffic (8 slots, 7
    background streams of 512 tokens, 12 probes: TTFT and the background
    stall), every launch count checked against the decode steps and
-   extends the engine dispatched, and one profiled decode chunk. With
+   extends the engine dispatched, and one profiled decode chunk; then the
+   serving front end on the same tree (worker_path): W1, the port's
+   controller, a ModelWorker (12 slots, int8 KV) and the web UI on
+   loopback HTTP, 24 requests with 512 x 640 PNG images, 12 at a time,
+   through web /generate and again straight to the worker's stream (K1
+   0, K2 32 per decode step; texts repeat; a <SEG> mask in the image's
+   frame; host preprocessing per image and a cProfile of one request),
+   and W2, the sequential worker on two of them. With
    int8 experts, a batch of 8 (int8 KV
    cache, W8A8 prefill; K3 = 96 launches), one profiled call and a single
    request (no K3), then ICL config 5 on the same tree (B=4, three images
@@ -87,6 +97,7 @@ power limit, the last stdout line, printed only on success, is
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import json
@@ -2212,6 +2223,399 @@ def idle_slot_run(cfg, params, where):
         eng.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# serving front end (serve/controller.py, worker.py, web.py over HTTP in
+# front of the engine)
+# ---------------------------------------------------------------------------
+
+class StubTokenizer:
+    """An offline tokenizer with the surface the worker uses (no tokenizer
+    files are in the repository): one id per whitespace word from its
+    crc32 (the same in every process), "<SEG>" -> the model's SEG id,
+    "</s>" -> EOS; decode writes one word per id, so a text's words count
+    its tokens."""
+
+    bos_token_id, eos_token_id, pad_token_id = 1, 2, 0
+    model_max_length = 2048
+
+    def __init__(self, seg_id: int, vocab: int):
+        self.seg_id, self.span = seg_id, min(vocab, seg_id) - 3
+
+    def __call__(self, text, add_special_tokens=True):
+        import types
+        import zlib
+        ids = [1] if add_special_tokens else []
+        for w in text.replace("</s>", " </s> ").split():
+            ids.append(2 if w == "</s>" else self.seg_id if w == "<SEG>"
+                       else 3 + zlib.crc32(w.encode()) % self.span)
+        return types.SimpleNamespace(input_ids=ids)
+
+    def decode(self, ids, skip_special_tokens=False):
+        return " ".join(f"t{int(i)}" for i in ids)
+
+
+def front_prompt(question: str) -> str:
+    """A serving prompt: conv_templates["v1"] with <image> and the
+    question, the assistant's turn open."""
+    from medplib_tpu_torch.data.conversation import conv_templates
+    conv = conv_templates["v1"].copy()
+    conv.append_message(conv.roles[0], "<image>\n" + question)
+    conv.append_message(conv.roles[1], None)
+    return conv.get_prompt()
+
+
+def final_chunk(worker, payload):
+    """One request in-process -> its last NUL-delimited JSON chunk."""
+    from medplib_tpu_torch.serve import protocol
+    return list(protocol.stream_chunks(
+        b"".join(worker.generate_stream(payload))))[-1]
+
+
+def mask_of(chunk):
+    from medplib_tpu_torch.serve import protocol
+    if not int(chunk["height"]):
+        return None
+    return protocol.decode_sparse_mask(chunk["mask"], int(chunk["height"]),
+                                       int(chunk["width"]))
+
+
+def small_worker_check(dev, max_mask_share=0.01):
+    """The tiny int4h MoE serving model with the region adapter behind one
+    port worker on the CPU (plain versions) and one on the card (kernels),
+    both batched (4 slots, chunks of 4, 8 new tokens): a greedy VQA
+    request, a <SEG> prompt, a region request and a sampled request with
+    a seed, each a 96 x 120 PNG. Texts equal; where either side returns a
+    mask, the two sparse masks differ in at most max_mask_share of their
+    pixels (last-bit differences of the mask logits flip pixels near the
+    threshold); the card launches K2 once per layer per decode step, K1
+    never (B=1 prompts of < 1024 rows), the CPU nothing."""
+    from medplib_tpu_torch.serve import protocol
+    from medplib_tpu_torch.serve import worker as wk
+    from medplib_tpu_torch.utils.convert import tree_from_numpy
+    cfg = tiny_serving_cfg(512, 8)
+    cfg = dataclasses.replace(cfg, projector=dataclasses.replace(
+        cfg.projector, region_adapter=True))
+    host = _tiny_moe_tree(cfg, 4)
+    tok = StubTokenizer(cfg.seg_token_idx, cfg.llm.vocab_size)
+    img = np.random.default_rng(3).integers(0, 256, (96, 120, 3),
+                                            dtype=np.uint8)
+    region = np.zeros(img.shape[:2], np.uint8)
+    region[20:70, 30:90] = 1
+    b64 = protocol.encode_image_b64(img)
+    base = {"images": [b64], "temperature": 0.0}
+    payloads = {
+        "vqa": dict(base, prompt=front_prompt("what does the scan show")),
+        "seg": dict(base, prompt=front_prompt("segment the <SEG> lesion")),
+        "region": dict(base, prompt=front_prompt(
+            "what is in <region> </region> here"),
+            region_masks=[protocol.encode_sparse_mask(region)[0]],
+            region_hw=list(region.shape)),
+        "sampled": dict(base, prompt=front_prompt("describe the scan"),
+                        temperature=0.7, top_p=0.9, seed=7)}
+    out = {}
+    for where in ("cpu", dev):
+        w = wk.ModelWorker(cfg, tree_from_numpy(host, where), tok,
+                           max_seq_len=128, max_new_tokens=8,
+                           stream_interval=4, batched_slots=4)
+        try:
+            reset_counts()
+            with engine_tally() as tally:
+                finals = {k: final_chunk(w, p) for k, p in payloads.items()}
+            counts = kernel_counts()
+        finally:
+            w.close()
+        bad = {k: f for k, f in finals.items()
+               if f["error_code"] != 0 or not f["text"]}
+        if bad:
+            raise AssertionError(f"small worker check ({where}): {bad}")
+        if where == "cpu":
+            expect_counts("small worker check, CPU", counts)
+        else:
+            expect_counts(f"small worker check, card ({tally.steps} decode "
+                          f"steps)", counts,
+                          moe_ffn_decode_int4h=cfg.llm.num_layers
+                          * tally.steps)
+        out[str(where)] = finals
+    cpu, card = out["cpu"], out[str(dev)]
+    shares = {}
+    for k in payloads:
+        mc, mg = mask_of(cpu[k]), mask_of(card[k])
+        if mc is not None or mg is not None:
+            shares[k] = (1.0 if mc is None or mg is None
+                         or mc.shape != mg.shape else float((mc != mg).mean()))
+    same = {k: cpu[k]["text"] == card[k]["text"] for k in payloads}
+    log(f"[small worker check] card vs CPU: texts equal {same}; mask pixel "
+        f"share differing {shares} (limit {max_mask_share}); seg mask "
+        f"{card['seg']['height']} x {card['seg']['width']}")
+    if not all(same.values()) or "seg" not in shares or \
+            max(shares.values()) > max_mask_share:
+        raise AssertionError("small worker check: the card disagrees with "
+                             "the CPU")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _serve_thread(httpd):
+    import threading
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+def _post_json(url, payload, timeout=60.0) -> bytes:
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def http_stream(url, payload, timeout=600.0):
+    """POST JSON and read the NUL-delimited response as it arrives ->
+    (seconds to the first complete chunk at the client, the chunks)."""
+    import urllib.request
+    from medplib_tpu_torch.serve import protocol
+    t0 = time.time()
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    parts, first = [], None
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        while True:
+            part = r.read1(1 << 16)
+            if not part:
+                break
+            if first is None and b"\0" in part:
+                first = time.time() - t0
+            parts.append(part)
+    return first, list(protocol.stream_chunks(b"".join(parts)))
+
+
+def paeth_png(img) -> bytes:
+    """img as an RGB PNG whose rows are all Paeth-filtered, the filter
+    browsers and Pillow pick for most rows of a photograph."""
+    import struct
+    import zlib
+    from medplib_tpu_torch.serve import png
+    x = img.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = ((x - pred) % 256).astype(np.uint8).reshape(x.shape[0], -1)
+    raw = np.concatenate([np.full((x.shape[0], 1), 4, np.uint8), rows], 1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    return (png.SIGNATURE + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", x.shape[1], x.shape[0], 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
+
+
+def front_payloads(cfg, n=24, seg_at=5):
+    """W1's requests: n distinct 512 x 640 uint8 images from a numpy seed
+    as base64 PNG, a v1 prompt with <image> each; request seg_at asks
+    for <SEG>. Greedy, 32 new tokens."""
+    from medplib_tpu_torch.serve import protocol
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(n):
+        img = rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
+        q = (f"segment the lesion <SEG> in scan {i}" if i == seg_at
+             else f"what does scan {i} show")
+        out.append({"prompt": front_prompt(q),
+                    "images": [protocol.encode_image_b64(img)],
+                    "temperature": 0.0, "max_new_tokens": 32})
+    return out
+
+
+def front_wave(url, payloads, conc=12):
+    """Every payload to `url`, conc at a time -> (finals, TTFTs s, wall s);
+    any failed request raises."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.time()
+    with ThreadPoolExecutor(conc) as ex:
+        res = list(ex.map(lambda p: http_stream(url, p), payloads))
+    wall = time.time() - t0
+    finals = [chunks[-1] for _, chunks in res]
+    bad = [f for f in finals if f["error_code"] != 0 or not f["text"]]
+    if bad:
+        raise AssertionError(f"front end: {len(bad)} requests failed: "
+                             f"{bad[0]['text'][:200]}")
+    return finals, [t for t, _ in res], wall
+
+
+def host_profile(worker, payload, top=12):
+    """cProfile of one request alone, in-process: on Python >= 3.12 it
+    sees every thread, so the front end (PNG decode, preprocess,
+    tokenize, collate, detokenize, mask post-process) and the engine's
+    loop (prefill, decode chunks, grounding) together."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.time()
+    prof.enable()
+    final_chunk(worker, payload)
+    prof.disable()
+    wall = time.time() - t0
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    log(f"[W1 host profile] one request alone {wall:.3f} s; host functions "
+        f"by own time:")
+    for (f, line, name), (_, nc, tt, ct, _) in rows:
+        log(f"[W1 host profile]   {tt * 1e3:9.1f} ms own {ct * 1e3:9.1f} ms "
+            f"cum {nc:7d} x {os.path.basename(f)}:{line} {name}")
+
+
+def worker_path(dev, card, params, e1_tok_s):
+    """The serving front end on the int4h flagship tree of the main path.
+
+    W1: the port's controller, one ModelWorker (12 slots, int8 KV, chunks
+    of 8, 32 new tokens, prompts up to 512 tokens) registered with it and
+    web.serve in front, all on loopback in threads. 24 requests
+    (front_payloads), 12 at a time, to web /generate (which proxies the
+    worker's /worker_generate_stream and answers once it has the whole
+    stream); then the same 24 straight to the worker's stream, whose TTFT
+    is its first streamed chunk. Gates: every final chunk error_code 0
+    with text; K1 0 and K2 32 x the decode steps the engine dispatched;
+    queue_length back to 0 and the controller listing the worker; the
+    second wave's texts equal; the <SEG> request's mask 512 x 640. Then
+    the host preprocessing per image and a cProfile of one request.
+    W2: the sequential worker (batched_slots=0) on two of the payloads:
+    seconds per request, K2 count, texts equal to W1's (reported)."""
+    import torch
+    from medplib_tpu_torch.config import flagship_cfg
+    from medplib_tpu_torch.data import preprocess as pp
+    from medplib_tpu_torch.serve import controller as ctl
+    from medplib_tpu_torch.serve import png, protocol, web
+    from medplib_tpu_torch.serve import worker as wk
+
+    cfg = flagship_cfg(32, moe=True)
+    L = cfg.llm.num_layers
+    tok = StubTokenizer(cfg.seg_token_idx, cfg.llm.vocab_size)
+    payloads = front_payloads(cfg)
+    kw = dict(kv_quant=True, stream_interval=8, max_new_tokens=32,
+              max_seq_len=512)
+    cport, wport, uport = _free_port(), _free_port(), _free_port()
+    curl = f"http://127.0.0.1:{cport}"
+    wurl = f"http://127.0.0.1:{wport}"
+    uurl = f"http://127.0.0.1:{uport}"
+    csrv = _serve_thread(ctl.serve("127.0.0.1", cport))
+    servers, worker, out = [csrv], None, {}
+    try:
+        worker = wk.ModelWorker(cfg, params, tok, controller_url=curl,
+                                worker_url=wurl, batched_slots=12, **kw)
+        servers.append(_serve_thread(wk.serve(worker, "127.0.0.1", wport)))
+        servers.append(_serve_thread(web.serve(curl, "medplib-tpu",
+                                               "127.0.0.1", uport)))
+        t0 = time.time()
+        for p in payloads[:2]:                      # warm-up
+            http_stream(uurl + "/generate", p)
+        log(f"[W1] warm-up {time.time() - t0:.1f} s")
+        waves = []
+        for name, url in (("web /generate", uurl + "/generate"),
+                          ("worker stream", wurl + "/worker_generate_stream")):
+            reset_counts()
+            with engine_tally() as tally:
+                finals, ttfts, wall = front_wave(url, payloads)
+            expect_counts(f"W1 via {name} ({tally.steps} decode steps, "
+                          f"extends {tally.extends})", kernel_counts(),
+                          moe_ffn_decode_int4h=L * tally.steps)
+            n_tok = sum(len(f["text"].split()) for f in finals)
+            ttfts = sorted(ttfts)
+            r = dict(tok_s=n_tok / wall, req_s=len(payloads) / wall,
+                     ttft_p50=ttfts[len(ttfts) // 2] * 1e3,
+                     ttft_p99=ttfts[-1] * 1e3, steps=tally.steps)
+            log(f"[W1] {len(payloads)} requests via {name}, 12 at a time: "
+                f"{n_tok} tokens in {wall:.3f} s -> {r['tok_s']:.3f} tok/s, "
+                f"{r['req_s']:.3f} req/s; TTFT at the client p50 "
+                f"{r['ttft_p50']:.1f} ms, p99 {r['ttft_p99']:.1f} ms; "
+                f"{tally.steps} decode steps")
+            waves.append((finals, r))
+        status = json.loads(_post_json(wurl + "/worker_get_status", {}))
+        models = json.loads(_post_json(curl + "/list_models", {}))["models"]
+        listed = wurl in csrv.controller.workers
+        log(f"[W1] worker status {status}; controller models {models}, "
+            f"worker listed {listed}")
+        if status["queue_length"] != 0 or models != ["medplib-tpu"] \
+                or not listed:
+            raise AssertionError("W1: queue not drained or worker not "
+                                 "registered")
+        texts = [[f["text"] for f in finals] for finals, _ in waves]
+        if texts[0] != texts[1]:
+            raise AssertionError("W1: the second wave gave other texts")
+        seg = mask_of(waves[0][0][5])
+        if seg is None or seg.shape != (512, 640):
+            raise AssertionError("W1: the <SEG> request's mask is not "
+                                 "512 x 640")
+        log(f"[W1] second wave texts equal; <SEG> request mask 512 x 640, "
+            f"{int(seg.sum())} pixels set")
+        t0 = time.time()
+        for p in payloads:
+            image = protocol.decode_image_b64(p["images"][0])
+            pp.preprocess_sam(image, cfg.sam.image_size)
+            pp.preprocess_clip(image, cfg.vision.image_size)
+        pre_ms = (time.time() - t0) * 1e3 / len(payloads)
+        img = protocol.decode_image_b64(payloads[0]["images"][0])
+        paeth = paeth_png(img)
+        if not np.array_equal(png.decode_rgb(paeth), img):
+            raise AssertionError("W1: a Paeth-filtered PNG decodes wrong")
+        raw = base64.b64decode(payloads[0]["images"][0])
+        png_ms = []
+        for blob in (raw, paeth):
+            t0 = time.time()
+            for _ in range(5):
+                png.decode_rgb(blob)
+            png_ms.append((time.time() - t0) * 1e3 / 5)
+        log(f"[W1] PNG decode of one 512 x 640 image on this host: "
+            f"{png_ms[0]:.1f} ms with None rows (the port's encoder), "
+            f"{png_ms[1]:.1f} ms with Paeth rows")
+        host_profile(worker, payloads[1])
+        out = dict(web=waves[0][1], stream=waves[1][1], pre_ms=pre_ms,
+                   png_ms=png_ms, texts=texts[0])
+        log(f"[W1] host preprocessing (PNG decode + SAM + CLIP) "
+            f"{pre_ms:.1f} ms per 512 x 640 image; W1 {out['web']['tok_s']:.3f}"
+            f" tok/s via web, {out['stream']['tok_s']:.3f} straight to the "
+            f"worker, E1 (engine alone, same run) {e1_tok_s:.3f} tok/s; "
+            f"{card}")
+    finally:
+        for s in servers[::-1]:
+            s.shutdown()
+            s.server_close()
+        csrv.controller.shutdown()
+        if worker is not None:
+            worker.close()
+    torch.cuda.empty_cache()
+    seq = wk.ModelWorker(cfg, params, tok, batched_slots=0, **kw)
+    secs, same = [], 0
+    for i in (0, 5):
+        reset_counts()
+        with engine_tally() as tally:
+            t0 = time.time()
+            f = final_chunk(seq, payloads[i])
+            secs.append(time.time() - t0)
+        if f["error_code"] != 0 or not f["text"]:
+            raise AssertionError(f"W2: request {i} failed: {f['text']}")
+        expect_counts(f"W2 request {i} ({tally.steps} decode steps)",
+                      kernel_counts(), moe_ffn_decode_int4h=L * tally.steps)
+        same += f["text"] == out["texts"][i]
+    out["w2_s"] = sum(secs) / len(secs)
+    log(f"[W2] sequential worker: {', '.join(f'{s:.3f}' for s in secs)} s "
+        f"per request; texts equal to W1's {same}/2 (reported: decode at "
+        f"M = 1 against M <= 12); {card}")
+    return out
+
+
 def init_bf16_flagship(cfg, gen, dev):
     """Random bf16 MedPLIB-7b-2e (with cfg's projector extras) without the
     dead dense MLP stack: the dense skeleton, stripped, then the experts
@@ -2574,6 +2978,10 @@ def main() -> int:
     card = gpu_line()
     log(f"[device] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; TF32 off (matmul and cuDNN)")
+    import importlib.util
+    log("[device] installed here (the serving worker path needs none): " +
+        ", ".join(f"{m} {importlib.util.find_spec(m) is not None}"
+                  for m in ("PIL", "requests", "cv2", "transformers")))
 
     t0 = time.time()
     _build.load_library()
@@ -2599,8 +3007,12 @@ def main() -> int:
     small_region_checks(dev)
     train_check(dev)
     small_engine_check(dev)
+    small_worker_check(dev)
     masks_per_s, peak, params = main_path(dev, results, card)
     engine = engine_path(dev, results, card, params)
+    t0 = time.time()
+    front = worker_path(dev, card, params, engine["E1"]["tok_s"])
+    log(f"[W1, W2] done in {time.time() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     region = region_path(dev, results, card)
@@ -2635,7 +3047,16 @@ def main() -> int:
           f"req/s; E3 TTFT p50 {engine['E3']['ttft_p50']:.1f} ms, p99 "
           f"{engine['E3']['ttft_p99']:.1f} ms, stall max "
           f"{engine['E3']['stall_ms']:.1f} ms "
-          f"({engine['E3']['stall_chunks']:.2f} chunks); {card}",
+          f"({engine['E3']['stall_chunks']:.2f} chunks); front end W1 via "
+          f"web {front['web']['tok_s']:.3f} tok/s, "
+          f"{front['web']['req_s']:.3f} req/s, TTFT p50 "
+          f"{front['web']['ttft_p50']:.1f} / p99 "
+          f"{front['web']['ttft_p99']:.1f} ms; straight to the worker "
+          f"{front['stream']['tok_s']:.3f} tok/s, TTFT p50 "
+          f"{front['stream']['ttft_p50']:.1f} / p99 "
+          f"{front['stream']['ttft_p99']:.1f} ms; preprocessing "
+          f"{front['pre_ms']:.1f} ms/image; W2 sequential "
+          f"{front['w2_s']:.3f} s/request; {card}",
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ layout and function names so each counterpart is easy to find:
                   / losses / medplib (generate, model_forward)
   train           lora (linears, injection, dropout, trainable mask,
                   merge), optimizer (AdamW to optax's semantics), trainer
+  data            conversation templates, tokenization, image
+                  preprocessing (numpy), the supervised dataset, collate
+  eval            segmentation metrics
+  serve           the continuous-batching engine, the wire protocol and
+                  its PNG codec, controller, model worker, web UI
+  chat            the interactive chat CLI
   utils           released-checkpoint loader (hf_weights, export) and its
                   inverse (hf_export), weight bridge (convert),
                   quantization, tree views, checkpoints, logging

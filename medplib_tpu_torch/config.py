@@ -3,8 +3,9 @@
 The classes carry the same names, fields and defaults as the JAX package's
 (tests/test_torch_modules.py holds them equal), but live here so that the
 port, and the GPU machine that runs it, never import the JAX package.
-`flagship_cfg` is the counterpart of __graft_entry__._flagship_cfg, and
-`with_icl` of the JAX package's config.with_icl.
+`flagship_cfg` is the counterpart of __graft_entry__._flagship_cfg,
+`with_icl` of the JAX package's config.with_icl, and `tiny_cli_config` of
+its tiny_cli_config; the special-token names are its too.
 """
 
 from __future__ import annotations
@@ -16,6 +17,18 @@ from typing import Optional, Tuple
 IGNORE_INDEX = -100
 IMAGE_TOKEN_INDEX = -200
 REGION_TOKEN_INDEX = -300
+
+DEFAULT_IMAGE_TOKEN = "<image>"
+DEFAULT_IM_START_TOKEN = "<im_start>"
+DEFAULT_IM_END_TOKEN = "<im_end>"
+
+# Tokens appended to the tokenizer vocabulary, in order: <SEG>, <ref>,
+# </ref>, <region>, </region>, <sr>, </sr>, <mask>, </mask>, then the
+# generation tokens <gen_1>..<gen_256>.
+EXTRA_TOKENS = (
+    "<SEG>", "<ref>", "</ref>", "<region>", "</region>",
+    "<sr>", "</sr>", "<mask>", "</mask>",
+) + tuple(f"<gen_{i}>" for i in range(1, 257))
 
 
 @dataclass(frozen=True)
@@ -31,6 +44,13 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     max_position_embeddings: int = 4096
     tie_word_embeddings: bool = False
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=vocab_size, hidden_size=128, intermediate_size=256,
+            num_layers=2, num_heads=4, num_kv_heads=4, head_dim=32,
+            max_position_embeddings=512)
 
 
 @dataclass(frozen=True)
@@ -80,6 +100,12 @@ class ClipVisionConfig:
     def num_patches(self) -> int:
         return (self.image_size // self.patch_size) ** 2
 
+    @staticmethod
+    def tiny() -> "ClipVisionConfig":
+        return ClipVisionConfig(
+            image_size=56, patch_size=14, hidden_size=64,
+            intermediate_size=128, num_layers=3, num_heads=4)
+
 
 @dataclass(frozen=True)
 class SamConfig:
@@ -109,6 +135,15 @@ class SamConfig:
     @property
     def image_embedding_size(self) -> int:
         return self.image_size // self.patch_size
+
+    @staticmethod
+    def tiny() -> "SamConfig":
+        return SamConfig(
+            image_size=64, patch_size=16, encoder_embed_dim=64,
+            encoder_depth=2, encoder_num_heads=2,
+            encoder_global_attn_indexes=(1,), window_size=2,
+            prompt_embed_dim=32, mask_in_chans=4, decoder_mlp_dim=64,
+            decoder_num_heads=2, iou_head_hidden_dim=32)
 
 
 @dataclass(frozen=True)
@@ -150,6 +185,21 @@ class MedplibConfig:
     vocab_size_padded: int = 32320
     icl_enable: bool = False
     max_icl_examples: int = 3
+
+    @staticmethod
+    def tiny(**overrides) -> "MedplibConfig":
+        """The small test model (equal to the JAX package's
+        MedplibConfig.tiny)."""
+        llm = LlamaConfig.tiny()
+        base = dict(
+            llm=llm, vision=ClipVisionConfig.tiny(), sam=SamConfig.tiny(),
+            projector=ProjectorConfig(
+                projector_type="mlp2x_gelu", mm_hidden_size=64,
+                hidden_size=llm.hidden_size, region_adapter=True),
+            moe=MoeConfig(), seg=SegConfig(out_dim=32), seg_token_idx=500,
+            vocab_size_padded=512)
+        base.update(overrides)
+        return MedplibConfig(**base)
 
 
 @dataclass(frozen=True)
@@ -222,3 +272,25 @@ def with_icl(cfg: MedplibConfig, *, token_compress: bool = False,
                          else cfg.projector.mask_input_size))
     return dataclasses.replace(cfg, projector=proj, icl_enable=True,
                                max_icl_examples=max_icl_examples)
+
+
+def tiny_cli_config(moe_cfg: MoeConfig, seg_token_idx: int,
+                    tokenizer_len: int, seg_cfg: Optional[SegConfig] = None,
+                    region_adapter: Optional[bool] = None,
+                    region_geo_sampler: Optional[bool] = None
+                    ) -> MedplibConfig:
+    """The --tiny debug config of the CLIs: tiny dimensions, the caller's
+    MoE / loss settings, tokenizer-derived ids and the region flags."""
+    cfg = MedplibConfig.tiny()
+    proj = cfg.projector
+    if region_adapter is not None:
+        proj = dataclasses.replace(proj, region_adapter=bool(region_adapter))
+    if region_geo_sampler is not None:
+        proj = dataclasses.replace(proj,
+                                   region_geo_sampler=bool(region_geo_sampler))
+    seg = cfg.seg
+    if seg_cfg is not None:  # user loss weights, tiny out_dim
+        seg = dataclasses.replace(seg_cfg, out_dim=cfg.seg.out_dim)
+    return dataclasses.replace(cfg, moe=moe_cfg, seg=seg, projector=proj,
+                               seg_token_idx=seg_token_idx,
+                               vocab_size_padded=max(tokenizer_len + 8, 64))

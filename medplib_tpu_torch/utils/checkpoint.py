@@ -2,7 +2,10 @@
 (medplib_tpu/utils/checkpoint.py, orbax there): numbered step directories
 under `directory`, pruning to the newest `max_to_keep`, and a restore into
 a template's devices and dtypes. A checkpoint is one torch.save file of a
-tree of dicts, lists and tensors, loaded back with weights_only=True."""
+tree of dicts, lists and tensors, loaded back with weights_only=True.
+save_params / load_params write and read one such file for a params tree
+(an orbax directory of the JAX package needs JAX to read; a released
+checkpoint loads through utils/export.load_reference_checkpoint)."""
 
 from __future__ import annotations
 
@@ -35,6 +38,42 @@ def _to_template(loaded: Any, template: Any, path: str = "") -> Any:
                              f"vs {tuple(template.shape)} at {path}")
         return loaded.to(device=template.device, dtype=template.dtype)
     return loaded
+
+
+def save_params(path: str, params: Any) -> None:
+    """Write a params tree to one file (whole or not at all)."""
+    path = os.path.abspath(path)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), prefix="tmp",
+                               suffix=".pt")
+    os.close(fd)
+    try:
+        torch.save(params, tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def load_params(path: str, template: Optional[Any] = None,
+                device="cuda") -> Any:
+    """A tree written by save_params, on `device`; with a template, on the
+    template's devices and dtypes, its tree structure and shapes
+    checked."""
+    loaded = torch.load(os.path.abspath(path), map_location="cpu",
+                        weights_only=True)
+    if template is not None:
+        return _to_template(loaded, template)
+    return _to_device(loaded, device)
+
+
+def _to_device(tree: Any, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
 
 
 class CheckpointManager:

@@ -758,3 +758,14 @@ def test_engine_card_matches_cpu(dev):
         assert launched == ((0, 0) if where == "cpu" else
                             (3 * L * tally.k1_extends(), L * tally.steps))
     assert toks["cpu"] == toks[str(dev)]
+
+
+def test_worker_card_matches_cpu(dev):
+    """The serving worker (serve/worker.py, batched) on the tiny int4h MoE
+    model with the region adapter, on the CPU and on the card: greedy,
+    <SEG>, region and seeded sampled PNG requests give equal texts, masks
+    within 1% of pixels, K2 once per layer per decode step on the card
+    (chip_smoke.small_worker_check)."""
+    import chip_smoke as cs
+    out = cs.small_worker_check(dev)
+    assert set(out["cpu"]) == {"vqa", "seg", "region", "sampled"}

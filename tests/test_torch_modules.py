@@ -89,11 +89,38 @@ def randn(*shape, scale=1.0):
                                   "ProjectorConfig", "SegConfig",
                                   "MedplibConfig", "TrainConfig"])
 def test_config_matches_reference(name):
-    """Same fields with the same defaults as the JAX package's classes."""
+    """Same fields with the same defaults as the JAX package's classes,
+    and the same tiny() where the JAX class has one."""
     j, t = getattr(jc, name)(), getattr(tc, name)()
     assert [f.name for f in dataclasses.fields(j)] == \
         [f.name for f in dataclasses.fields(t)]
     assert port_cfg(j) == t
+    assert hasattr(type(j), "tiny") == hasattr(type(t), "tiny")
+    if hasattr(type(j), "tiny"):
+        assert port_cfg(type(j).tiny()) == type(t).tiny()
+
+
+def test_special_tokens_match_reference():
+    for k in ("IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "REGION_TOKEN_INDEX",
+              "DEFAULT_IMAGE_TOKEN", "DEFAULT_IM_START_TOKEN",
+              "DEFAULT_IM_END_TOKEN", "EXTRA_TOKENS"):
+        assert getattr(tc, k) == getattr(jc, k), k
+    assert len(tc.EXTRA_TOKENS) == 265
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(region_adapter=False), dict(region_geo_sampler=True),
+    dict(seg_cfg="weights")])
+@pytest.mark.parametrize("moe", [False, True])
+def test_tiny_cli_config_matches_reference(kw, moe):
+    def build(m):
+        moe_cfg = m.MoeConfig(enable=moe, num_experts=2, top_k=1)
+        args = dict(kw)
+        if args.get("seg_cfg") == "weights":
+            args["seg_cfg"] = m.SegConfig(bce_loss_weight=3.0,
+                                          dice_loss_weight=0.25)
+        return m.tiny_cli_config(moe_cfg, 401, 440, **args)
+    assert port_cfg(build(jc)) == build(tc)
 
 
 def test_flagship_cfg_matches_graft_entry():
@@ -140,7 +167,48 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) == len(want), (out.stdout, want)
     assert {"medplib_tpu_torch.utils.export",
             "medplib_tpu_torch.models.geo_sampler",
-            "medplib_tpu_torch.ops.sampling"} <= want
+            "medplib_tpu_torch.ops.sampling",
+            "medplib_tpu_torch.data.conversation",
+            "medplib_tpu_torch.data.tokenize",
+            "medplib_tpu_torch.data.preprocess",
+            "medplib_tpu_torch.data.dataset",
+            "medplib_tpu_torch.eval.seg_metrics",
+            "medplib_tpu_torch.serve.protocol",
+            "medplib_tpu_torch.serve.png",
+            "medplib_tpu_torch.serve.controller",
+            "medplib_tpu_torch.serve.worker",
+            "medplib_tpu_torch.serve.web",
+            "medplib_tpu_torch.chat"} <= want
+
+
+_BLOCK_EXTRAS = ("import sys; [sys.modules.__setitem__(m, None) for m in "
+                 "('PIL', 'requests', 'cv2', 'transformers')]; ")
+
+
+def test_worker_stack_imports_without_extras():
+    """The serving stack (data modules, protocol, controller, worker, web,
+    chat's module) imports and serves a PNG with Pillow, requests, cv2 and
+    transformers absent: the card's machine need not have them."""
+    code = _BLOCK_JAX + _BLOCK_EXTRAS + (
+        "import importlib, numpy as np; "
+        "[importlib.import_module('medplib_tpu_torch.' + m) for m in "
+        "('data.conversation', 'data.tokenize', 'data.preprocess', "
+        "'data.dataset', 'eval.seg_metrics', 'serve.protocol', "
+        "'serve.controller', 'serve.worker', 'serve.web', "
+        "'serve.engine', 'chat')]; "
+        "from medplib_tpu_torch.serve import protocol as P; "
+        "from medplib_tpu_torch.data import preprocess as pp; "
+        "a = np.arange(60, dtype=np.uint8).reshape(4, 5, 3); "
+        "b = P.decode_image_b64(P.encode_image_b64(a)); "
+        "assert (a == b).all(); "
+        "pp.preprocess_sam(b, 64); pp.preprocess_clip(b, 56); "
+        "pp.preprocess_region_mask(b[..., 0] > 9, 56, 14); "
+        "print('ok')")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 @pytest.mark.parametrize("kw", [
