@@ -40,7 +40,11 @@
    keys on both); the geo sampler's point, FPS and kNN indices at full
    width (1024-d features, 24 x 24 masks, B·M = 16), which must be
    equal; two QLoRA train steps of a tiny model with head_dim 128 and
-   a 1039-token spliced row (flash route); and the serving engine
+   a 1039-token spliced row (flash route), and two of its stage-4 form
+   (sparse Residual-MoE, top-1 at capacity 1.5, a skewed router that
+   drops tokens); the training CLI (train/cli.py --tiny --moe-enable,
+   experts from two donor directories) for two steps with validation and
+   then --eval-only, in process on the card; and the serving engine
    (serve/engine.BatchedEngine) on the tiny int4h MoE model, 4 slots, 8
    grouped requests with 256-token prefill chunks (K1 at a 1024-row
    extend, K2 at decode): equal tokens, masks from Request.ground(); and
@@ -86,7 +90,12 @@
    sampled rows) and one request (K2 = 320).
    Then packed dense serving (the dense MedPLIB-7B, pack_inference): int8
    B=16 under W8A8 (K7 = 704) and int4h B=12 (K9 = 704), each with one
-   profiled call and a single request after it.
+   profiled call and a single request after it. Then the stage-3 QLoRA
+   train step (dense 7B, K4 64, K5 32, K6 32 a step), and stage 4
+   (moe_train_phase): the MedPLIB-7b-2e bf16 tree with its experts from
+   two donor stacks, LoRA q/v, B=4 x 1087 tokens x ga 8 (K4 512, K5 256,
+   K6 256 a step), then Trainer.validate over two B=4 batches (K3 96 in
+   its bf16 float mode and K4 32 a batch).
    Each path runs with every launch count set to 0 just before it and
    read just after; each checks the outputs and repeatability and prints
    masks/s or ms/sample and peak memory.
@@ -507,6 +516,8 @@ K3_CASES = [
     ("int8-w", 4 * 1789, 4096, 11264, False),
     ("int8-w", 4 * 1789, 11264, 4096, False),
     ("float bf16", 4 * 1789, 4096, 11264, False),
+    ("float bf16", 4 * 1087, 4096, 11008, False),
+    ("float bf16", 4 * 1087, 11008, 4096, False),
     ("W8A8", 700, 1024, 768, True),
     ("int8-w", 700, 1024, 768, True),
 ]
@@ -518,7 +529,9 @@ def k3_phase(gen, dev, results):
     top-1 routed over 2 experts, two-ended aligned to Sp = 5632, bm 512;
     gate/up K 4096 -> N 11264 and down K 11264 -> N 4096); int8-w (bf16 x)
     at the ICL prefill (S = 4 x 1789, Sp = 7680), both shapes; float bf16
-    at the ICL gate/up shape; transposed weights (W8A8 and int8-w) at a
+    at the ICL gate/up shape and at stage-4 validation's bf16 experts (S =
+    4 x 1087, Sp = 5120, M = 11008 unpadded), both shapes; transposed
+    weights (W8A8 and int8-w) at a
     small shape. Tolerances: W8A8 (s8 tensor cores) sums are exact
     integers on both sides and the epilogue the same rounded f32 ops in
     the same order -> bit-equal (the equal share is printed); the bf16-x
@@ -1448,6 +1461,30 @@ def qlora_params(cfg, gen, dtype, dev, lora_b_scale=0.0):
     return params
 
 
+def tiny_train_cfg(moe=None):
+    """The tiny model of the card-vs-CPU train checks: 2 layers of
+    head_dim 128 (the flash route), tiny CLIP (16 patches) and SAM; with
+    `moe` a MoeConfig for the LLM."""
+    from medplib_tpu_torch import config as C
+    llm = C.LlamaConfig(vocab_size=512, hidden_size=256,
+                        intermediate_size=512, num_layers=2, num_heads=2,
+                        num_kv_heads=2, head_dim=128)
+    return C.MedplibConfig(
+        llm=llm,
+        vision=C.ClipVisionConfig(image_size=56, patch_size=14,
+                                  hidden_size=64, intermediate_size=128,
+                                  num_layers=3, num_heads=4),
+        sam=C.SamConfig(image_size=64, patch_size=16, encoder_embed_dim=64,
+                        encoder_depth=2, encoder_num_heads=2,
+                        encoder_global_attn_indexes=(1,), window_size=2,
+                        prompt_embed_dim=32, mask_in_chans=4,
+                        decoder_mlp_dim=64, decoder_num_heads=2,
+                        iou_head_hidden_dim=32),
+        projector=C.ProjectorConfig(mm_hidden_size=64, hidden_size=256),
+        moe=moe or C.MoeConfig(), seg=C.SegConfig(out_dim=32),
+        seg_token_idx=500, vocab_size_padded=512)
+
+
 def train_check(dev):
     """Two make_train_step steps of a tiny QLoRA model on the card (flash
     kernels, since head_dim is 128 and the spliced row has 1039 >= 1024
@@ -1461,23 +1498,7 @@ def train_check(dev):
     from medplib_tpu_torch.models.medplib import Batch
     from medplib_tpu_torch.train import trainer
     from medplib_tpu_torch.utils import tree as tree_util
-    llm = C.LlamaConfig(vocab_size=512, hidden_size=256,
-                        intermediate_size=512, num_layers=2, num_heads=2,
-                        num_kv_heads=2, head_dim=128)
-    cfg = C.MedplibConfig(
-        llm=llm,
-        vision=C.ClipVisionConfig(image_size=56, patch_size=14,
-                                  hidden_size=64, intermediate_size=128,
-                                  num_layers=3, num_heads=4),
-        sam=C.SamConfig(image_size=64, patch_size=16, encoder_embed_dim=64,
-                        encoder_depth=2, encoder_num_heads=2,
-                        encoder_global_attn_indexes=(1,), window_size=2,
-                        prompt_embed_dim=32, mask_in_chans=4,
-                        decoder_mlp_dim=64, decoder_num_heads=2,
-                        iou_head_hidden_dim=32),
-        projector=C.ProjectorConfig(mm_hidden_size=64, hidden_size=256),
-        seg=C.SegConfig(out_dim=32), seg_token_idx=500,
-        vocab_size_padded=512)
+    cfg = tiny_train_cfg()
     tcfg = C.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
                          lora_dropout=0.0)
     host = qlora_params(cfg, torch.Generator().manual_seed(3), torch.float32,
@@ -1650,6 +1671,279 @@ def train_phase(dev, results, card):
 
     profile_step(one_step)
     return B * spliced / dt, peak
+
+
+def skew_router(params, embed_shift=4.0, router_shift=3.0):
+    """Every token embedding shares a large feature that each router
+    weights toward expert 0, so top-1 routing at capacity 1.5 drops
+    tokens (in place)."""
+    llm = params["llm"]
+    llm["embed_tokens"]["embedding"][:, 0] += embed_shift
+    llm["layers"]["moe"]["router"]["kernel"][:, 0, 0] += router_shift
+
+
+@contextlib.contextmanager
+def count_drops():
+    """-> list that collects the tokens each sort dispatch drops."""
+    from medplib_tpu_torch.ops import moe
+    real, seen = moe.sort_dispatch, []
+
+    def counting(logits, k, capacity):
+        d = real(logits, k, capacity)
+        seen.append(d.token_slot >= logits.shape[1] * capacity)
+        return d
+
+    moe.sort_dispatch = counting
+    try:
+        yield seen
+    finally:
+        moe.sort_dispatch = real
+
+
+def moe_train_check(dev):
+    """Two make_train_step steps of a tiny stage-4-style model on the card
+    and on the CPU from the same f32 params and batch: 2 layers of head
+    dim 128 (a 1039-token spliced row takes K4-K6 on the card), moe_mode
+    sparse (layer 0 MoE, layer 1 dense), Residual-MoE, top-1 at capacity
+    1.5 with a skewed router so that tokens drop, LoRA q/v r=8 with a live
+    lora_b, dropout 0, remat; the dropped tokens counted on each side
+    (within 1%: a near-tied image token may route otherwise). Losses
+    within 1e-4 relative (the card's sort
+    combine adds with index_add_, whose order on CUDA is not fixed, and
+    flash vs plain softmax); LoRA updates of step 2 within 1e-2 relative
+    Frobenius, as train_check."""
+    import torch
+    from medplib_tpu_torch import config as C
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.models.medplib import Batch
+    from medplib_tpu_torch.ops.initializers import normal
+    from medplib_tpu_torch.train import lora, trainer
+    from medplib_tpu_torch.utils import tree as tree_util
+    cfg = tiny_train_cfg(C.MoeConfig(enable=True, num_experts=2, top_k=1,
+                                     capacity_factor=1.5, moe_mode="sparse",
+                                     use_residual=True))
+    tcfg = C.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                         lora_dropout=0.0)
+    gen = torch.Generator().manual_seed(4)
+    host = medplib.init_medplib(gen, cfg, torch.float32, "cpu")
+    skew_router(host)
+    host["llm"] = lora.inject(gen, host["llm"], ("q_proj", "v_proj"), r=8)
+    for n in ("q_proj", "v_proj"):
+        node = host["llm"]["layers"]["attn"][n]
+        node["lora_b"] = normal(gen, node["lora_b"].shape, torch.float32,
+                                "cpu", 0.02)
+    runs = {}
+    for where in ("cpu", dev):
+        params = _to(host, where)
+        b = make_batch(cfg, 2, 1024, np.random.default_rng(6), where)
+        state, tx = trainer.create_state(params, tcfg)
+        step = trainer.make_train_step(cfg, tcfg, tx)
+        batches = Batch(*[x[None] for x in b])
+        reset_counts()
+        losses = []
+        with count_drops() as dropped:
+            for _ in range(2):
+                state, m = step(state, batches)
+                losses.append(float(m["loss"]))
+        drops = sum(int(d.sum()) for d in dropped)
+        runs[str(where)] = (losses, kernel_counts(), params, state.params,
+                            drops)
+    (lc, kc, p0, pc, dc), (lg, kg, _, pg, dg) = runs["cpu"], runs[str(dev)]
+    num = den = 0.0
+    for (path, a), o, g in zip(tree_util.leaves_with_paths(pc),
+                               tree_util.leaves(p0), tree_util.leaves(pg)):
+        if path[-1] in ("lora_a", "lora_b"):
+            da, dg_ = (a - o).float(), (g.cpu() - o).float()
+            num += float(((dg_ - da) ** 2).sum())
+            den += float((da ** 2).sum())
+    lrel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    urel = (num / den) ** 0.5 if den else float("inf")
+    log(f"[moe train check] tiny sparse Residual-MoE, top-1 cap 1.5, B=2 x "
+        f"1039 tokens, 2 steps, card vs CPU: losses {lg} vs {lc} (max rel "
+        f"{lrel:.2e} <= 1e-4), LoRA update rel {urel:.2e} (<= 1e-2); tokens "
+        f"dropped {dg} on the card, {dc} on the CPU")
+    expect_counts("moe train check, card", kg, flash_fwd=8, flash_bwd_dq=4,
+                  flash_bwd_dkv=4)
+    expect_counts("moe train check, CPU", kc)
+    if lrel > 1e-4 or urel > 1e-2 or not dg or abs(dg - dc) > 0.01 * dc:
+        raise AssertionError("tiny MoE train step disagrees with the CPU")
+
+
+def _bits_fingerprint(tensors):
+    """int64 sum of each tensor's bytes read as int32 words, 64 MiB at a
+    time."""
+    import torch
+    out = []
+    for x in tensors:
+        words = x.reshape(-1).view(torch.int32)
+        out.append(sum(int(c.sum(dtype=torch.int64))
+                       for c in words.split(1 << 24)))
+    return out
+
+
+def init_stage4(cfg, gen, dev):
+    """The stage-4 starting tree (scripts/train_stage4.sh) in bf16 on the
+    card: the dense skeleton without its MLP (every layer is MoE), expert
+    e of every layer from donor e's dense MLP stack (build_experts_from_
+    donors; the donors are random stacks from the seeded generator), a
+    random router."""
+    import torch
+    from medplib_tpu_torch.config import MoeConfig
+    from medplib_tpu_torch.models import llama, medplib, moe_llama
+    from medplib_tpu_torch.ops.initializers import normal
+    bf = torch.bfloat16
+    params = medplib.init_medplib(
+        gen, dataclasses.replace(cfg, moe=MoeConfig()), bf, dev)
+    params["llm"] = moe_llama.strip_dense_mlp(params["llm"], cfg.llm, cfg.moe)
+    L, E, H = cfg.llm.num_layers, cfg.moe.num_experts, cfg.llm.hidden_size
+    donors = [llama.init_mlp(gen, cfg.llm, bf, dev, (L,)) for _ in range(E)]
+    experts = moe_llama.build_experts_from_donors(donors)
+    del donors
+    params["llm"]["layers"]["moe"] = {
+        "router": {"kernel": normal(gen, (L, H, E), bf, dev, H ** -0.5)},
+        "experts": experts}
+    return params
+
+
+def moe_train_phase(dev, card, layers=32):
+    """Stage 4 at full width and depth: MedPLIB-7b-2e (32 layers x 2
+    experts, top-1, capacity 1.5, router aux 0.01) in bf16 from
+    init_stage4, LoRA q/v r=8 with dropout 0.05, the CLI's default sft
+    modules, through Trainer's step: B=4 x T_in=512 (1087 spliced tokens)
+    x ga 8, remat. One warm-up step (aux losses read there) and two timed
+    ones (host clock ending in a synchronize), one profiled step; then
+    Trainer.validate over two B=4 batches (eval capacity 2.0 covers every
+    row: the per-layer grouped matmul, K3 in its bf16 float mode). The
+    tree is not checkpointed (it would write ~26 GB). `layers` cuts the
+    depth (the card tests run 2)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+    from medplib_tpu_torch.config import TrainConfig, flagship_cfg
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.models.medplib import Batch
+    from medplib_tpu_torch.train import lora, trainer
+    from medplib_tpu_torch.utils import tree as tree_util
+
+    cfg = flagship_cfg(layers, moe=True)
+    L = cfg.llm.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_stage4(cfg, gen, dev)
+    params["llm"] = lora.inject(gen, params["llm"], ("q_proj", "v_proj"),
+                                r=8)
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in tree_util.leaves(params))
+    log(f"[moe train] stage-4 7b-2e bf16 ({n_par / 1e9:.3f} B parameters) "
+        f"initialized in {time.time() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, T, GA = 4, 512, 8
+    spliced = T - 1 + cfg.vision.num_patches
+    rng = np.random.default_rng(0)
+    micro = [make_batch(cfg, B, T, rng, dev) for _ in range(GA)]
+    batches = Batch(*[torch.stack(xs) for xs in zip(*micro)])
+    del micro
+    tcfg = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=100,
+                       grad_accumulation_steps=GA, lora_dropout=0.05)
+    log_dir = tempfile.mkdtemp(prefix="moe_train_")
+    try:
+        tr = trainer.Trainer(cfg, tcfg, params, log_dir)
+        del params
+        experts = tr.state.params["llm"]["layers"]["moe"]["experts"]
+        ex_tensors = [experts[n]["kernel"] for n in sorted(experts)]
+        before = _bits_fingerprint(ex_tensors)
+        lora_b0 = tr.state.params["llm"]["layers"]["attn"]["q_proj"][
+            "lora_b"].clone()
+
+        sdpa_calls, auxes = [], []
+        real_sdpa, real_fwd = (F.scaled_dot_product_attention,
+                               medplib.moe_llama.forward)
+
+        def counting_sdpa(*a, **k):
+            sdpa_calls.append(1)
+            return real_sdpa(*a, **k)
+
+        def aux_fwd(*a, **k):
+            out = real_fwd(*a, **k)
+            auxes.append(out[2].detach())
+            return out
+
+        F.scaled_dot_product_attention = counting_sdpa
+        try:
+            reset_counts()
+            medplib.moe_llama.forward = aux_fwd
+            t0 = time.time()
+            tr.state, m = tr.step_fn(tr.state, batches)
+            loss = float(m["loss"])
+            t_warm = time.time() - t0
+            medplib.moe_llama.forward = real_fwd
+            per_step = kernel_counts()
+            losses, times = [loss], []
+            for _ in range(2):
+                t0 = time.time()
+                tr.state, m = tr.step_fn(tr.state, batches)
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+                losses.append(float(m["loss"]))
+            counts = kernel_counts()
+        finally:
+            F.scaled_dot_product_attention = real_sdpa
+            medplib.moe_llama.forward = real_fwd
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dt = sum(times) / len(times)
+        tok_s = GA * B * spliced / dt
+        aux = [float(a) for a in auxes]
+        lora_b = tr.state.params["llm"]["layers"]["attn"]["q_proj"]["lora_b"]
+        frozen_ok = _bits_fingerprint(ex_tensors) == before
+        moved = not torch.equal(lora_b, lora_b0)
+        log(f"[moe train] B={B} x {spliced} tokens x ga {GA}: warm-up step "
+            f"{t_warm:.2f} s, steps {', '.join(f'{t:.3f}' for t in times)} "
+            f"s -> {tok_s:.1f} tokens/s; peak allocated {peak:.2f} GiB on "
+            f"{card}")
+        log(f"[moe train] losses {losses}; router aux (sum over layers) per "
+            f"microbatch {[round(a, 4) for a in aux]}; bf16 experts "
+            f"unchanged {frozen_ok}; lora_b moved {moved}; SDPA calls "
+            f"{len(sdpa_calls)}")
+        expect_counts("moe train step", per_step, flash_fwd=GA * 2 * L,
+                      flash_bwd_dq=GA * L, flash_bwd_dkv=GA * L)
+        expect_counts("moe train, 3 steps", counts, flash_fwd=3 * GA * 2 * L,
+                      flash_bwd_dq=3 * GA * L, flash_bwd_dkv=3 * GA * L)
+        if not all(np.isfinite(x) for x in losses + aux) or len(aux) != GA:
+            raise AssertionError("non-finite stage-4 loss or aux loss")
+        if not frozen_ok or not moved or sdpa_calls:
+            raise AssertionError("frozen experts changed, LoRA did not move, "
+                                 "or SDPA ran on the path")
+
+        def one_step():
+            tr.state, _ = tr.step_fn(tr.state, batches)
+
+        profile_step(one_step)
+        del batches
+        val = [make_batch(cfg, B, T, np.random.default_rng(100 + i), dev)
+               for i in range(2)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        vres = tr.validate(iter(val))
+        torch.cuda.synchronize()
+        val_s = (time.time() - t0) / len(val)
+        vcounts = kernel_counts()
+        log(f"[moe validate] 2 batches of B={B} x {spliced} tokens: "
+            f"{val_s:.3f} s/batch; {vres}")
+        expect_counts("moe validate", vcounts, gmm=2 * 3 * L,
+                      flash_fwd=2 * L)
+        if not all(np.isfinite(v) for v in vres.values()):
+            raise AssertionError("non-finite validation metrics")
+        del tr, val
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    log(f"[moe train] phase done in {time.time() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return {"tok_s": tok_s, "peak": peak, "val_s": val_s, "aux": aux,
+            "losses": losses, **vres}
 
 
 # ---------------------------------------------------------------------------
@@ -2252,6 +2546,157 @@ class StubTokenizer:
 
     def decode(self, ids, skip_special_tokens=False):
         return " ".join(f"t{int(i)}" for i in ids)
+
+
+class CliTokenizer(StubTokenizer):
+    """StubTokenizer with the vocabulary surgery the training CLI does:
+    added tokens take ids from 400 up (<SEG>, added first, is 400); its
+    length is 440."""
+
+    unk_token = pad_token = "<unk>"
+
+    def __init__(self):
+        super().__init__(seg_id=400, vocab=400)
+        self.extra = {}
+
+    def add_tokens(self, toks, special_tokens=False):
+        for t in toks:
+            self.extra.setdefault(t, 400 + len(self.extra))
+        return len(toks)
+
+    def convert_tokens_to_ids(self, tok):
+        return self.extra.get(tok, 3)
+
+    def __len__(self):
+        return 440
+
+
+def write_donors(root, cfg):
+    """Two donor checkpoint directories (pytorch_model.bin) for stage-4
+    expert seeding: a tiny LLaMA each from a seeded generator; donor 0 also
+    text_hidden_fcs and a SAM mask decoder, donor 1 a region adapter.
+    -> "dir0,dir1"."""
+    import torch
+    from medplib_tpu_torch.models import llama, sam_med2d
+    from medplib_tpu_torch.utils import hf_export
+    paths = []
+    h, o = cfg.llm.hidden_size, cfg.seg.out_dim
+    for idx in range(2):
+        gen = torch.Generator().manual_seed(11 + idx)
+        sd = hf_export.llama_to_hf(llama.init_llama(
+            gen, cfg.llm, torch.float32, cfg.vocab_size_padded, "cpu"),
+            cfg.llm)
+        if idx == 0:
+            for name, shape in (("0.0", (h, h)), ("0.2", (o, h))):
+                sd[f"model.text_hidden_fcs.{name}.weight"] = torch.randn(
+                    shape, generator=gen)
+                sd[f"model.text_hidden_fcs.{name}.bias"] = torch.randn(
+                    shape[:1], generator=gen)
+            sam = sam_med2d.init_sam(gen, cfg.sam, torch.float32, "cpu")
+            sd.update({k: v for k, v in hf_export.sam_to_torch(
+                sam, cfg.sam, prefix="model.visual_model.").items()
+                if k.startswith("model.visual_model.mask_decoder")})
+        else:
+            sd["model.region_fea_adapter.weight"] = torch.randn(
+                (h, cfg.projector.mm_hidden_size), generator=gen)
+            sd["model.region_fea_adapter.bias"] = torch.randn(
+                (h,), generator=gen)
+        d = os.path.join(root, f"donor{idx}")
+        os.makedirs(d)
+        torch.save({k: v.contiguous() for k, v in sd.items()},
+                   os.path.join(d, "pytorch_model.bin"))
+        paths.append(d)
+    return ",".join(paths)
+
+
+def cli_check(dev):
+    """The port's training CLI in this process on the card, at --tiny:
+    stage 4 (--moe-enable) from a saved tree with the experts seeded from
+    two donor directories, 4 images and masks written from a numpy seed,
+    two steps through the prefetching loader (2 workers), a checkpoint and
+    a validation pass; then --eval-only restores step 2 and validates to
+    the same numbers. The stub tokenizer stands in for
+    transformers.AutoTokenizer.from_pretrained (no tokenizer files are in
+    the repository). The temporary directory is removed."""
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    import transformers
+    from PIL import Image
+    from medplib_tpu_torch import config as C
+    from medplib_tpu_torch.data import tokenize as tk
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.train import cli
+    from medplib_tpu_torch.utils.checkpoint import save_params
+
+    root = tempfile.mkdtemp(prefix="cli_check_")
+    auto = transformers.AutoTokenizer
+    real = vars(auto)["from_pretrained"]
+    try:
+        rng = np.random.default_rng(0)
+        records = []
+        for i in range(4):
+            Image.fromarray(rng.integers(0, 256, (40, 50, 3), np.uint8)).save(
+                os.path.join(root, f"im{i}.jpg"))
+            m = np.zeros((40, 50), np.uint8)
+            m[8 + i:20, 10:30] = 255
+            Image.fromarray(m).save(os.path.join(root, f"m{i}.png"))
+            records.append({"image": f"im{i}.jpg", "conversations": [
+                {"from": "human", "value": "<image>\nSegment the lesion."},
+                {"from": "gpt",
+                 "value": f"<mask>m{i}.png</mask> It is <SEG> ."}]})
+        for name, recs in (("train", records), ("val", records[:3])):
+            with open(os.path.join(root, f"{name}.json"), "w") as f:
+                json.dump(recs, f)
+        tok = CliTokenizer()
+        tk.add_special_tokens(tok)
+        cfg = C.tiny_cli_config(
+            C.MoeConfig(enable=True, num_experts=2, top_k=1),
+            tok.convert_tokens_to_ids("<SEG>"), len(tok))
+        save_params(os.path.join(root, "stage3.pt"), medplib.init_medplib(
+            torch.Generator().manual_seed(1), cfg, torch.float32, "cpu"))
+        donors = write_donors(root, cfg)
+        auto.from_pretrained = staticmethod(lambda *a, **k: CliTokenizer())
+        args = ["--version", os.path.join(root, "stage3.pt"),
+                "--tokenizer", "stub", "--tiny", "--moe-enable",
+                "--expert-pretrained-path", donors,
+                "--dataset-json", os.path.join(root, "train.json"),
+                "--image-folder", root,
+                "--val-data-path", os.path.join(root, "val.json"),
+                "--exp-name", "stage4", "--log-base-dir",
+                os.path.join(root, "runs"), "--epochs", "1",
+                "--steps-per-epoch", "2", "--batch-size", "2",
+                "--model-max-length", "96", "--warmup-steps", "1",
+                "--save-steps", "2", "--log-steps", "1", "--precision",
+                "fp32", "--workers", "2", "--device", str(dev)]
+        reset_counts()
+        t0 = time.time()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            final = cli.main(args)
+            vres = cli.main(args + ["--eval-only"])
+        dt = time.time() - t0
+        text = out.getvalue()
+        ckpt = os.listdir(os.path.join(root, "runs", "stage4", "ckpt_model"))
+        val = [ln for ln in text.splitlines() if "val:" in ln]
+        evl = [ln for ln in text.splitlines() if "eval_only @ step" in ln]
+        log(f"[cli check] train/cli.py --tiny --moe-enable with donors on "
+            f"{dev}: 2 steps + validation, then --eval-only, {dt:.1f} s; "
+            f"final step {final}, checkpoints {ckpt}; {val[-1:]}; "
+            f"{evl[-1:]}")
+        expect_counts("cli check", kernel_counts())
+        if final != 2 or ckpt != ["2"] or not val or not evl \
+                or "step 2:" not in evl[-1] \
+                or val[-1].split("val: ")[1] != evl[-1].split("step 2: ")[1] \
+                or not all(np.isfinite(v) for v in vres.values()):
+            raise AssertionError("the training CLI did not train, save, "
+                                 "resume and validate as expected")
+    finally:
+        auto.from_pretrained = real
+        shutil.rmtree(root, ignore_errors=True)
+    return vres
 
 
 def front_prompt(question: str) -> str:
@@ -3006,6 +3451,8 @@ def main() -> int:
     small_packed_check(dev, 4)
     small_region_checks(dev)
     train_check(dev)
+    moe_train_check(dev)
+    cli_check(dev)
     small_engine_check(dev)
     small_worker_check(dev)
     masks_per_s, peak, params = main_path(dev, results, card)
@@ -3021,6 +3468,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     packed = packed_path(dev, results, card)
     tokens_per_s, train_peak = train_phase(dev, results, card)
+    torch.cuda.empty_cache()
+    stage4 = moe_train_phase(dev, card)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -3040,7 +3489,11 @@ def main() -> int:
           f"{packed[8][0]:.3f} masks/s, peak {packed[8][1]:.2f} GiB; packed "
           f"dense int4h B=12 {packed[4][0]:.3f} masks/s, peak "
           f"{packed[4][1]:.2f} GiB; training {tokens_per_s:.1f} "
-          f"tokens/s, peak {train_peak:.2f} GiB; engine E1 "
+          f"tokens/s, peak {train_peak:.2f} GiB; stage-4 MoE training "
+          f"B=4 x ga 8 {stage4['tok_s']:.1f} tokens/s, peak "
+          f"{stage4['peak']:.2f} GiB, validation {stage4['val_s']:.3f} "
+          f"s/batch (giou {stage4['giou']:.4f}, ciou {stage4['ciou']:.4f}, "
+          f"dice {stage4['dice']:.4f}, loss {stage4['loss']:.4f}); engine E1 "
           f"{engine['E1']['tok_s']:.3f} tok/s, {engine['E1']['req_s']:.3f} "
           f"req/s, peak {engine['E1']['peak']:.2f} GiB; E2 "
           f"{engine['E2']['tok_s']:.3f} tok/s, {engine['E2']['req_s']:.3f} "

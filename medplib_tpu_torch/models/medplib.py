@@ -234,10 +234,9 @@ def splice_batch(params: Params, cfg: MedplibConfig, batch: Batch,
 def _llm_forward(params, cfg: MedplibConfig, embeds, attn_mask, cache=None,
                  train=True, remat=False):
     if cfg.moe.enable:
-        if train or remat:
-            raise NotImplementedError("MoE training is not ported yet")
         return moe_llama.forward(params["llm"], cfg.llm, cfg.moe, embeds,
-                                 attn_mask, cache=cache, train=False)
+                                 attn_mask, cache=cache, remat=remat,
+                                 train=train)
     return llama.forward(params["llm"], cfg.llm, embeds, attn_mask,
                          cache=cache, remat=remat)
 

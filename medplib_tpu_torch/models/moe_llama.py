@@ -10,6 +10,15 @@ tiles, which selects the fused decode kernel K2; int8 experts keep the
 capacity-sort path there, as in JAX. The JAX whole-stack view with a
 per-layer gid offset was a workaround for XLA slice copies; here each
 layer passes its own [E, ...] view, which is free.
+
+Layer selection (moe_mode dense / sparse / first_half / second_half, or
+moe_layers_idx) gives a per-layer 0/1 flag: a layer flagged 0 runs the
+dense MLP of its "mlp" params and adds no aux loss (a Python branch on the
+numpy flag; JAX takes a lax.cond). Router and expert stacks cover every
+layer. Residual-MoE trees carry "residual_mlp" (a dense MLP stack, its own
+buffers) and "coefficient" beside the experts (ops/moe._apply_residual).
+Stage-4 expert surgery, expert e seeded from donor e's dense MLP, is
+`build_experts_from_donors`.
 """
 
 from __future__ import annotations
@@ -46,13 +55,20 @@ def init_moe_llama(gen: torch.Generator, cfg: LlamaConfig, moe_cfg: MoeConfig,
                    device="cuda") -> Params:
     params = llama.init_llama(gen, cfg, dtype, vocab_size, device)
     L, h, e = cfg.num_layers, cfg.hidden_size, moe_cfg.num_experts
-    if moe_cfg.use_residual:
-        raise NotImplementedError("Residual-MoE is not ported yet")
     params["layers"]["moe"] = {
         "router": {"kernel": normal(gen, (L, h, e), dtype, device,
                                     h ** -0.5)},
         "experts": init_experts(gen, cfg, moe_cfg, dtype, device, (L,)),
     }
+    if moe_cfg.use_residual:
+        # the dense copy seeded from the dense MLP (deepspeed deep-copies
+        # the expert), in buffers of its own so the two never alias
+        moe = params["layers"]["moe"]
+        moe["residual_mlp"] = {n: {k: v.clone() for k, v in node.items()}
+                               for n, node in params["layers"]["mlp"].items()}
+        moe["coefficient"] = {
+            "kernel": normal(gen, (L, h, 2), dtype, device, h ** -0.5),
+            "bias": torch.zeros((L, 2), dtype=dtype, device=device)}
     return params
 
 
@@ -114,29 +130,52 @@ def stack_experts_for_gmm(experts: Params, moe_cfg: MoeConfig, s_tokens: int,
 def make_moe_mlp_apply(cfg: LlamaConfig, moe_cfg: MoeConfig,
                        train: bool = True, stacked: bool = False,
                        block_m: int = 512):
-    flags = moe_flags(cfg, moe_cfg)
-    if not bool(np.all(flags == 1)):
-        raise NotImplementedError("mixed dense / MoE layer stacks are not "
-                                  "ported yet (moe_mode must be 'dense')")
+    """MlpApply for llama.forward / forward_decode / forward_extend. In a
+    mixed stack the layer params carry "moe_flag" (`_with_flags`)."""
+    all_moe = bool(np.all(moe_flags(cfg, moe_cfg) == 1))
 
     def apply(layer_p: Params, x: torch.Tensor):
-        return moe_mlp(layer_p["moe"], x, moe_cfg, train=train,
-                       dispatch_mode="gmm" if stacked else "auto",
-                       block_m=block_m, stacked=stacked)
+        if all_moe or layer_p["moe_flag"]:
+            return moe_mlp(layer_p["moe"], x, moe_cfg, train=train,
+                           dispatch_mode="gmm" if stacked else "auto",
+                           block_m=block_m, stacked=stacked)
+        return (llama.dense_mlp(layer_p["mlp"], x),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
     return apply
 
 
+def _with_flags(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig
+                ) -> Params:
+    """params with layers["moe_flag"], one Python int per layer (a shallow
+    copy; the tensors are shared)."""
+    layers = dict(params["layers"])
+    layers["moe_flag"] = tuple(int(f) for f in moe_flags(cfg, moe_cfg))
+    return dict(params, layers=layers)
+
+
+def _stack_eligible(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
+                    s_tokens: int, train: bool, decode: bool = False
+                    ) -> bool:
+    """The whole-stack gmm dispatch engages for all-MoE stacks only."""
+    if not bool(np.all(moe_flags(cfg, moe_cfg) == 1)):
+        return False
+    return stack_experts_for_gmm(params["layers"]["moe"]["experts"],
+                                 moe_cfg, s_tokens, train, decode)
+
+
 def forward(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
             input_embeds, attn_mask=None, positions=None, cache=None,
-            train: bool = True):
-    """-> (hidden_post_norm, cache, router_aux_loss_sum)."""
+            remat: bool = False, train: bool = True):
+    """-> (hidden_post_norm, cache, router_aux_loss_sum). remat checkpoints
+    each layer (training): the recompute routes as the forward did (a
+    stable sort of the same logits)."""
     b, t = input_embeds.shape[:2]
-    stacked = stack_experts_for_gmm(params["layers"]["moe"]["experts"],
-                                    moe_cfg, b * t, train)
+    stacked = _stack_eligible(params, cfg, moe_cfg, b * t, train)
     mlp_apply = make_moe_mlp_apply(cfg, moe_cfg, train, stacked)
-    return llama.forward(params, cfg, input_embeds, attn_mask, positions,
-                         mlp_apply, cache)
+    return llama.forward(_with_flags(params, cfg, moe_cfg), cfg,
+                         input_embeds, attn_mask, positions, mlp_apply,
+                         cache, remat)
 
 
 def forward_decode(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
@@ -144,15 +183,17 @@ def forward_decode(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
     """One decode step. int4h(G=2) expert trees route the expert MLP
     through the whole-stack gmm dispatch at 32-row tiles, i.e. the fused
     decode kernel K2 (the JAX default); other trees, int8 experts
-    included, take the sort path."""
+    included, and mixed stacks take the sort path."""
     experts = params["layers"]["moe"]["experts"]
     int4h = ("scale4h" in experts["gate_proj"]
              and experts["gate_proj"]["scale4h"].shape[-3] == 2)
-    stacked = int4h and stack_experts_for_gmm(
-        experts, moe_cfg, input_embeds.shape[0], train=False, decode=True)
+    stacked = int4h and _stack_eligible(
+        params, cfg, moe_cfg, input_embeds.shape[0], train=False,
+        decode=True)
     mlp_apply = make_moe_mlp_apply(cfg, moe_cfg, train=False, stacked=stacked,
                                    block_m=32 if stacked else 512)
-    return llama.forward_decode(params, cfg, input_embeds, cache, mlp_apply)
+    return llama.forward_decode(_with_flags(params, cfg, moe_cfg), cfg,
+                                input_embeds, cache, mlp_apply)
 
 
 def forward_extend(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
@@ -161,9 +202,19 @@ def forward_extend(params: Params, cfg: LlamaConfig, moe_cfg: MoeConfig,
     the prefill's dispatch at S = B*C (the grouped matmul from 1024 rows,
     K1 for int4h experts; the capacity-sort path below)."""
     b, c = input_embeds.shape[:2]
-    stacked = stack_experts_for_gmm(params["layers"]["moe"]["experts"],
-                                    moe_cfg, b * c, train=False)
+    stacked = _stack_eligible(params, cfg, moe_cfg, b * c, train=False)
     mlp_apply = make_moe_mlp_apply(cfg, moe_cfg, train=False,
                                    stacked=stacked)
-    return llama.forward_extend(params, cfg, input_embeds, cache, c0,
-                                mlp_apply)
+    return llama.forward_extend(_with_flags(params, cfg, moe_cfg), cfg,
+                                input_embeds, cache, c0, mlp_apply)
+
+
+def build_experts_from_donors(donor_mlp_stacks) -> Params:
+    """Expert surgery: expert e of every MoE layer from donor checkpoint
+    e's dense MLP (e=0 the stage-3 seg specialist, e=1 the stage-2 VQA
+    one). donor_mlp_stacks: per expert {"gate_proj" / "up_proj" /
+    "down_proj": {"kernel": [L, in, out]}} (llama_from_hf's "mlp").
+    -> experts with kernels [L, E, in, out] (new buffers)."""
+    return {n: {"kernel": torch.stack([d[n]["kernel"]
+                                       for d in donor_mlp_stacks], dim=1)}
+            for n in ("gate_proj", "up_proj", "down_proj")}

@@ -3,6 +3,8 @@ and its dispatches (medplib_tpu/ops/moe.py).
 
 - "sort": capacity dispatch by a stable sort of tokens by expert (exact
   DeepSpeed slot order; tokens beyond capacity are dropped);
+- "einsum": the same capacity semantics as one-hot [S, E, C] dispatch and
+  combine tensors (the GShard form; `top1_gate` / `top2_gate`);
 - "gmm": the zero-drop grouped-matmul dispatch, top-1 only: rows in a
   group-aligned buffer through three grouped matmuls (gate, up, down):
   kernel K3 for int8 and float experts, K1 for int4h(G=2) experts; or, at
@@ -10,6 +12,9 @@ and its dispatches (medplib_tpu/ops/moe.py).
   equivalent to "sort" when capacity >= S;
 - "auto": gmm for inference, top-1, capacity >= S and S >= 1024 tokens,
   else sort (the JAX gates, moe.py:481-486).
+
+A Residual-MoE layer (`residual_mlp` + `coefficient` in its params) mixes
+a dense SwiGLU copy into every dispatch's output (`_apply_residual`).
 """
 
 from __future__ import annotations
@@ -34,6 +39,67 @@ def capacity_for(num_tokens: int, num_experts: int, capacity_factor: float,
                  min_capacity: int) -> int:
     return max(math.ceil(num_tokens / num_experts * capacity_factor),
                min_capacity)
+
+
+class GateOutput(NamedTuple):
+    combine: torch.Tensor        # [S, E, C] f32 combine weights
+    dispatch: torch.Tensor       # [S, E, C] bool one-hot dispatch mask
+    aux_loss: torch.Tensor       # scalar load-balancing loss
+    expert_counts: torch.Tensor  # [E] tokens routed per expert (pre-drop)
+
+
+def _slot_weights(g: torch.Tensor, mask: torch.Tensor, loc: torch.Tensor,
+                  capacity: int) -> torch.Tensor:
+    """[S, E, C]: g at (token, its kept expert, its slot), else 0."""
+    slot = F.one_hot(loc.clamp(0, capacity - 1), capacity).float()
+    return g[:, None, None] * mask[:, :, None].float() * slot[:, None, :]
+
+
+def top1_gate(logits: torch.Tensor, capacity: int) -> GateOutput:
+    """DeepSpeed top1gating (no noise policy, drop_tokens=True): softmax
+    gates, position in expert by cumsum, tokens past capacity dropped."""
+    e = logits.shape[-1]
+    gates = torch.softmax(logits.float(), dim=-1)
+    idx = torch.argmax(gates, dim=-1)
+    onehot = F.one_hot(idx, e)
+    aux = _aux_loss(gates, idx, e)
+    loc_s = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+    mask1 = onehot * (loc_s < capacity)[:, None]
+    gate_s = (gates * mask1).sum(-1)
+    combine = _slot_weights(gate_s, mask1, loc_s, capacity)
+    return GateOutput(combine, combine > 0.0, aux, onehot.sum(0))
+
+
+def top2_gate(logits: torch.Tensor, capacity: int) -> GateOutput:
+    """DeepSpeed top2gating: the second expert by a masked argmax, second
+    choices ranked after every first choice, gates renormalized by their
+    sum after dropping, aux loss from the top-1 assignment only."""
+    e = logits.shape[-1]
+    gates = torch.softmax(logits.float(), dim=-1)
+    idx1 = torch.argmax(gates, dim=-1)
+    m1 = F.one_hot(idx1, e)
+    idx2 = torch.argmax(gates.masked_fill(m1.bool(), -math.inf), dim=-1)
+    m2 = F.one_hot(idx2, e)
+    aux = _aux_loss(gates, idx1, e)
+    loc1 = ((torch.cumsum(m1, 0) - m1) * m1).sum(-1)
+    loc2 = ((torch.cumsum(m2, 0) - m2 + m1.sum(0, keepdim=True))
+            * m2).sum(-1)
+    mask1 = m1 * (loc1 < capacity)[:, None]
+    mask2 = m2 * (loc2 < capacity)[:, None]
+    g1 = (gates * mask1).sum(-1)
+    g2 = (gates * mask2).sum(-1)
+    denom = (g1 + g2).clamp(min=1e-9)
+    combine = (_slot_weights(g1 / denom, mask1, loc1, capacity)
+               + _slot_weights(g2 / denom, mask2, loc2, capacity))
+    return GateOutput(combine, combine > 0.0, aux, (m1 + m2).sum(0))
+
+
+def gate(logits: torch.Tensor, k: int, capacity: int) -> GateOutput:
+    if k == 1:
+        return top1_gate(logits, capacity)
+    if k == 2:
+        return top2_gate(logits, capacity)
+    raise NotImplementedError(f"top-{k} gating")
 
 
 class SortDispatch(NamedTuple):
@@ -196,17 +262,36 @@ def _expert_mm(node, xin: torch.Tensor) -> torch.Tensor:
     return torch.bmm(xin, dequant_kernel(node, xin.dtype))
 
 
+def _apply_residual(moe_params, xs: torch.Tensor, y: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """Residual-MoE (deepspeed MoE(use_residual=True)): a dense SwiGLU MLP
+    beside the experts, the two mixed by a learned 2-way softmax of the
+    token. The coefficient is taken in f32 (f32 kernel, f32 bias, f32
+    softmax), then cast to `dtype`; y·c0 + r·c1 is formed in `dtype`."""
+    from medplib_tpu_torch.train.lora import dequant_kernel
+    from medplib_tpu_torch.train.lora import linear as lora_linear
+    rk = moe_params["residual_mlp"]
+    r1 = lora_linear(rk["gate_proj"], xs)
+    r2 = lora_linear(rk["up_proj"], xs)
+    r_out = lora_linear(rk["down_proj"], _silu(r1) * r2)
+    ck = moe_params["coefficient"]
+    coef = xs.float() @ dequant_kernel(ck, torch.float32).float()
+    coef = torch.softmax(coef + ck["bias"].float(), dim=-1).to(dtype)
+    return y.to(dtype) * coef[:, 0:1] + r_out.to(dtype) * coef[:, 1:2]
+
+
 def moe_mlp(moe_params, x: torch.Tensor, cfg: MoeConfig, train: bool = True,
             dispatch_mode: str = "auto", block_m: int = 512,
             stacked: bool = False):
     """SwiGLU MoE MLP of one layer.
 
     moe_params: {"router": {"kernel": [H, E]}, "experts": {gate_proj|up_proj:
-    {"kernel": [E, H, M] (or int4h [E, H/2, M] + scale4h)}, down_proj: ...}}
-    x [B, T, H] -> ([B, T, H], aux_loss). `stacked` marks the whole-stack
-    eligibility of models/moe_llama (it enables the fused decode kernel)."""
-    if "residual_mlp" in moe_params:
-        raise NotImplementedError("Residual-MoE is not ported yet")
+    {"kernel": [E, H, M] (or int4h [E, H/2, M] + scale4h)}, down_proj: ...},
+    optionally "residual_mlp" (a dense MLP node) and "coefficient"
+    ({"kernel": [H, 2], "bias": [2]})}. x [B, T, H] -> ([B, T, H],
+    aux_loss). dispatch_mode: "sort", "einsum", "gmm" or "auto" (module
+    docstring). `stacked` marks the whole-stack eligibility of
+    models/moe_llama (it enables the fused decode kernel)."""
     b, t, h = x.shape
     s = b * t
     xs = x.reshape(s, h)
@@ -222,19 +307,33 @@ def moe_mlp(moe_params, x: torch.Tensor, cfg: MoeConfig, train: bool = True,
     if dispatch_mode == "gmm":
         y, aux = _gmm_moe(xs, logits, moe_params["experts"], x.dtype,
                           block_m=block_m, stacked=stacked)
-        return y.reshape(b, t, h), aux
-    if dispatch_mode != "sort":
+    elif dispatch_mode in ("sort", "einsum"):
+        if dispatch_mode == "sort":
+            d = sort_dispatch(logits, cfg.top_k, capacity)
+            xs_pad = torch.cat([xs, xs.new_zeros((1, h))])
+            expert_in = xs_pad[d.slot_token].reshape(e, capacity, h)
+            aux = d.aux_loss
+        else:
+            g = gate(logits, cfg.top_k, capacity)
+            expert_in = torch.einsum("sec,sh->ech", g.dispatch.to(x.dtype),
+                                     xs)
+            aux = g.aux_loss
+        ek = moe_params["experts"]
+        h1 = _expert_mm(ek["gate_proj"], expert_in)
+        h2 = _expert_mm(ek["up_proj"], expert_in)
+        out_e = _expert_mm(ek["down_proj"], _silu(h1) * h2)
+        if dispatch_mode == "sort":
+            flat_out = torch.cat([out_e.reshape(e * capacity, h),
+                                  out_e.new_zeros((1, h))])
+            contrib = (flat_out[d.token_slot]
+                       * d.token_prob[:, None].to(out_e.dtype))
+            y = x.new_zeros((s, h)).index_add_(0, d.token_src,
+                                               contrib.to(x.dtype))
+        else:
+            y = torch.einsum("sec,ech->sh", g.combine.to(x.dtype), out_e)
+    else:
         raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
 
-    d = sort_dispatch(logits, cfg.top_k, capacity)
-    xs_pad = torch.cat([xs, xs.new_zeros((1, h))])
-    expert_in = xs_pad[d.slot_token].reshape(e, capacity, h)
-    ek = moe_params["experts"]
-    h1 = _expert_mm(ek["gate_proj"], expert_in)
-    h2 = _expert_mm(ek["up_proj"], expert_in)
-    out_e = _expert_mm(ek["down_proj"], _silu(h1) * h2)
-    flat_out = torch.cat([out_e.reshape(e * capacity, h),
-                          out_e.new_zeros((1, h))])
-    contrib = flat_out[d.token_slot] * d.token_prob[:, None].to(out_e.dtype)
-    y = x.new_zeros((s, h)).index_add_(0, d.token_src, contrib.to(x.dtype))
-    return y.reshape(b, t, h), d.aux_loss
+    if "residual_mlp" in moe_params:
+        y = _apply_residual(moe_params, xs, y, x.dtype)
+    return y.reshape(b, t, h), aux

@@ -1,7 +1,7 @@
 """Training loop (medplib_tpu/train/trainer.py): the train step over the
 trainable leaves only, gradient accumulation, checkpoints, auto-resume with
-mid-epoch skip-replay, and metric logging. In-train validation
-(`Trainer.validate`, with eval/seg_metrics) is not ported yet.
+mid-epoch skip-replay, metric logging, and the in-train validation pass
+(`Trainer.validate`, gIoU / cIoU / mIoU / dice through eval/seg_metrics).
 
 The step differentiates only the trainable leaves (the optimizer's mask):
 a QLoRA tree's frozen int8 base holds integer tensors autograd cannot
@@ -16,6 +16,7 @@ import os
 import time
 from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from medplib_tpu_torch.config import MedplibConfig, TrainConfig
@@ -64,7 +65,7 @@ def accumulation_path(ga: int) -> str:
 
 
 def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
-                    seg_flag: bool = True):
+                    seg_flag: bool = True, rp_flag: bool = False):
     """One update over `grad_accumulation_steps` microbatches.
 
     batches: a Batch whose tensors carry a leading [GA] microbatch axis.
@@ -72,7 +73,8 @@ def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
     LoRA dropout seeds fold tcfg.seed, the global step and the microbatch
     index, so every update draws fresh masks and the whole schedule is
     reproducible. The microbatch gradients and metrics are summed as
-    `accumulation_path` says, then divided by ga."""
+    `accumulation_path` says, then divided by ga. rp_flag splices the
+    region features (stage 2, region adapter or geo sampler)."""
     ga = tcfg.grad_accumulation_steps
     drop_rate = tcfg.lora_dropout if tcfg.lora_enable else 0.0
     base_seed = tcfg.seed ^ 0x10A4
@@ -80,7 +82,8 @@ def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
     def loss_fn(params, batch, seed):
         with lora_lib.lora_dropout_ctx(seed, drop_rate):
             out = medplib.model_forward(params, cfg, batch, train=True,
-                                        seg_flag=seg_flag, remat=True)
+                                        seg_flag=seg_flag, rp_flag=rp_flag,
+                                        remat=True)
         metrics = {k: v.detach() for k, v in out.items() if v.dim() == 0}
         return out["loss"], metrics
 
@@ -135,7 +138,7 @@ class Trainer:
     """Epoch loop with checkpoints, resume and scalar logging."""
 
     def __init__(self, cfg: MedplibConfig, tcfg: TrainConfig, params,
-                 log_dir: str, seg_flag: bool = True):
+                 log_dir: str, seg_flag: bool = True, rp_flag: bool = False):
         if not cfg.seg.train_mask_decoder:
             # SegConfig.train_mask_decoder gates the mask decoder's
             # trainability
@@ -143,10 +146,11 @@ class Trainer:
                 m for m in tcfg.sft_modules if m != "mask_decoder"))
         self.cfg, self.tcfg = cfg, tcfg
         self.state, self.tx = create_state(params, tcfg)
-        self.step_fn = make_train_step(cfg, tcfg, self.tx, seg_flag)
+        self.step_fn = make_train_step(cfg, tcfg, self.tx, seg_flag, rp_flag)
         self.writer = ScalarWriter(log_dir)
         self.ckpt = CheckpointManager(os.path.join(log_dir, "ckpt_model"))
         self.log_dir = log_dir
+        self._rp_flag = rp_flag
 
     def _tree(self, state: TrainState) -> Dict[str, Any]:
         o = state.opt_state
@@ -171,11 +175,50 @@ class Trainer:
     def save(self, step: int):
         self.ckpt.save(step, self._tree(self.state))
 
+    def validate(self, val_batches: Iterator) -> Dict[str, float]:
+        """The in-train validation pass: a teacher-forced model_forward
+        (train=False, no remat) per batch; each valid <SEG> slot
+        (seg_valid & mask_valid) binarized at sigmoid > 0.1 in the padded
+        SAM frame against gt_masks. -> giou (mean per-sample IoU, SegMeter),
+        ciou (IoU of the summed intersections and unions), miou, dice (the
+        mean of 2·IoU / (1 + IoU)) and the mean loss. The pass runs in one
+        process: summing the meters over processes waits for the port's
+        multi-process training."""
+        from medplib_tpu_torch.eval.seg_metrics import (SegMeter,
+                                                        binarize_logits)
+        meter = SegMeter()
+        iou_list, loss_list = [], []
+        with torch.no_grad():
+            for batch in val_batches:
+                out = medplib.model_forward(
+                    self.state.params, self.cfg, batch, train=False,
+                    seg_flag=True, rp_flag=self._rp_flag, remat=False)
+                preds = out["pred_masks"].float().cpu().numpy()
+                valid = (out["seg_valid"].cpu().numpy()
+                         & batch.mask_valid.bool().cpu().numpy())
+                gts = batch.gt_masks.float().cpu().numpy() > 0
+                loss_list.append(float(out["loss"]))
+                for b, s in zip(*np.nonzero(valid)):
+                    pred = binarize_logits(preds[b, s])
+                    meter.update(pred, gts[b, s])
+                    union = float(np.logical_or(pred > 0, gts[b, s]).sum())
+                    inter = float(np.logical_and(pred > 0, gts[b, s]).sum())
+                    iou_list.append(inter / union if union else 0.0)
+        res = meter.results()
+        n = max(len(iou_list), 1)
+        res.update(miou=float(sum(iou_list) / n),
+                   dice=float(sum(2 * i / (1 + i) for i in iou_list) / n),
+                   loss=float(sum(loss_list) / max(len(loss_list), 1)))
+        return res
+
     def fit(self, batch_iterator: Callable[[], Iterator],
-            steps_per_epoch: Optional[int] = None) -> int:
+            steps_per_epoch: Optional[int] = None,
+            val_batches_fn: Optional[Callable[[], Iterator]] = None) -> int:
         """Train tcfg.epochs epochs of `steps_per_epoch` steps, resuming
         from the newest checkpoint and skipping the batches it consumed.
-        A loader that fails is re-opened, at most 3 times per epoch.
+        A loader that fails is re-opened, at most 3 times per epoch. With
+        val_batches_fn, each epoch ends with a checkpoint and then a
+        validation pass over val_batches_fn(), logged as val/ scalars.
         -> the global step reached."""
         tcfg = self.tcfg
         spe = steps_per_epoch or tcfg.steps_per_epoch
@@ -231,4 +274,10 @@ class Trainer:
                 if global_step % tcfg.save_steps == 0:
                     self.save(global_step)
             self.save(global_step)
+            if val_batches_fn is not None:
+                vres = self.validate(val_batches_fn())
+                self.writer.add_scalars(vres, global_step, prefix="val/")
+                print(f"epoch {epoch} val: giou={vres['giou']:.4f} "
+                      f"ciou={vres['ciou']:.4f} dice={vres['dice']:.4f} "
+                      f"loss={vres['loss']:.4f}", flush=True)
         return global_step

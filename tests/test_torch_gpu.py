@@ -769,3 +769,34 @@ def test_worker_card_matches_cpu(dev):
     import chip_smoke as cs
     out = cs.small_worker_check(dev)
     assert set(out["cpu"]) == {"vqa", "seg", "region", "sampled"}
+
+
+def test_moe_train_card_matches_cpu(dev):
+    """Two steps of the tiny stage-4-style model (sparse Residual-MoE,
+    top-1 at capacity 1.5, a skewed router that drops tokens, a 1039-token
+    row through K4-K6) on the card and on the CPU: losses 1e-4 relative,
+    LoRA updates 1e-2 (chip_smoke.moe_train_check)."""
+    import chip_smoke as cs
+    cs.moe_train_check(dev)
+
+
+def test_train_cli_on_card(dev):
+    """train/cli.py --tiny --moe-enable with donor experts on the card:
+    two steps, a checkpoint, validation, then --eval-only to the same
+    numbers (chip_smoke.cli_check)."""
+    import math
+
+    import chip_smoke as cs
+    vres = cs.cli_check(dev)
+    assert set(vres) == {"giou", "ciou", "miou", "dice", "loss"}
+    assert all(math.isfinite(v) for v in vres.values())
+
+
+def test_stage4_step_and_validate_at_two_layers(dev):
+    """The stage-4 phase at full width and 2 layers: ga 8 x B=4 x 1087
+    tokens, flash launches 8 x (4, 2, 2) a step, frozen bf16 experts
+    unchanged, lora_b moved, no SDPA; validation K3 3 x 2 and K4 2 a
+    batch, finite metrics (chip_smoke.moe_train_phase checks each)."""
+    import chip_smoke as cs
+    out = cs.moe_train_phase(dev, cs.gpu_line(), layers=2)
+    assert out["tok_s"] > 0 and len(out["aux"]) == 8
