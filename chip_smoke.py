@@ -71,7 +71,15 @@
    through web /generate and again straight to the worker's stream (K1
    0, K2 32 per decode step; texts repeat; a <SEG> mask in the image's
    frame; host preprocessing per image and a cProfile of one request),
-   and W2, the sequential worker on two of them. With
+   and W2, the sequential worker on two of them. Then evaluation and
+   retrieval on the same tree (eval_path): 32 seeded 512 x 384 PNGs with
+   masks, Evaluator.run in seg and vqa mode (24 samples, B=16, the last
+   batch padded, 10 new tokens, act quant off: K1 on bf16 x 96 and K2
+   320 per generate call, every record equal to a direct generate call),
+   capture_router_logits on one B=16 batch (K1 96; the per-layer expert
+   load), the CLIP retrieval index (each query retrieves itself first),
+   SamPredictor.predict card vs CPU in f32 and generate_masks (16 x 16
+   points, one crop layer, the small-region cleanup, COCO RLE). With
    int8 experts, a batch of 8 (int8 KV
    cache, W8A8 prefill; K3 = 96 launches), one profiled call and a single
    request (no K3), then ICL config 5 on the same tree (B=4, three images
@@ -2190,7 +2198,7 @@ def engine_e1_e2(params, cfg, dev, card, group):
     tokens, no <SEG>), 32 new tokens, decode chunks of 8, int8 KV. E1:
     per-request admission, run twice (the tokens must repeat), first
     tokens equal to a B=1 stream_prefill (whole streams compared with
-    the B=1 stream path for the first 8 requests, reported), then two
+    the B=1 stream path for the first 4 requests, reported), then two
     requests with <SEG> grounded. E2 (group): group_admission with
     prefill_chunk=256, so a group of 12 pads to 16 rows x 768 tokens:
     three extends of 4096 rows through K1 on bf16 x."""
@@ -2252,7 +2260,7 @@ def engine_e1_e2(params, cfg, dev, card, group):
                 raise AssertionError("E1: a repeated wave gave other tokens")
             # every first token against a B=1 prefill; whole streams (B=1
             # decode, ~3.5 s a request) for the first n_ref requests
-            firsts, same, n_ref = [], 0, 8
+            firsts, same, n_ref = [], 0, 4
             for k, (b, got) in enumerate(zip(batches, toks)):
                 first, ref = stream_reference(
                     params, cfg, b, new if k < n_ref else 0, chunk, True)
@@ -3061,6 +3069,305 @@ def worker_path(dev, card, params, e1_tok_s):
     return out
 
 
+# ---------------------------------------------------------------------------
+# evaluation, gate analysis, retrieval, SAM predictor / AMG (eval/, rag/,
+# models/sam_predictor.py, models/amg.py) on the int4h flagship tree
+# ---------------------------------------------------------------------------
+
+def write_eval_set(root, n_img=32, n_eval=24, hw=(384, 512)):
+    """n_img seeded 512 x 384 RGB PNGs (a coloured background, five
+    rectangles, noise) each with an elliptic binary mask PNG; test.json:
+    the first n_eval as LazySupervisedDataset records (a seg question
+    ending in " :", the answer "It is <SEG>" with the mask; open and
+    closed answer types); cands.json: every (image, mask) pair;
+    queries.json: every fourth image. -> file names of the images."""
+    from PIL import Image
+    rng = np.random.default_rng(0)
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w]
+    names = []
+    for i in range(n_img):
+        img = np.empty((h, w, 3), np.float32)
+        img[:] = rng.uniform(0, 255, 3)
+        for _ in range(5):
+            y0, x0 = rng.integers(0, h - 40), rng.integers(0, w - 40)
+            img[y0:y0 + rng.integers(20, h // 2),
+                x0:x0 + rng.integers(20, w // 2)] = rng.uniform(0, 255, 3)
+        img += rng.normal(0, 12, img.shape)
+        name = f"ct_{i:02d}.png"
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, name))
+        cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+        ry, rx = rng.uniform(0.1, 0.3) * h, rng.uniform(0.1, 0.3) * w
+        m = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1)
+        Image.fromarray(m.astype(np.uint8) * 255).save(
+            os.path.join(root, f"mask_{i:02d}.png"))
+        names.append(name)
+    test = [{"image": names[i], "answer_type": ("open", "closed")[i % 2],
+             "conversations": [
+                 {"from": "human", "value": f"<image>\nPlease segment the "
+                  f"lesion in scan {i} :"},
+                 {"from": "gpt", "value": f"It is <SEG> <mask>mask_{i:02d}"
+                  f".png</mask>"}]} for i in range(n_eval)]
+    cands = [{"image": n, "mask": f"mask_{i:02d}.png"}
+             for i, n in enumerate(names)]
+    queries = [{"image": names[i]} for i in range(0, n_img, 4)]
+    for fname, recs in (("test.json", test), ("cands.json", cands),
+                        ("queries.json", queries)):
+        with open(os.path.join(root, fname), "w") as f:
+            json.dump(recs, f)
+    return names
+
+
+def sam_card_vs_cpu(dev, sam_cfg, sam_cpu, img, iou_tol=1e-3,
+                    logit_rel=1e-3, pix_share=1e-3):
+    """SamPredictor.predict on the card against the same predictor on the
+    CPU, one f32 tree (TF32 off): points (multimask), a box, points + box,
+    then points with the previous low-res logits as mask_input. Holds the
+    IoU predictions to iou_tol (absolute), the low-res logits to
+    logit_rel (norm-relative) and the binarized masks to pix_share of
+    their pixels. -> (the card predictor, the worst of each)."""
+    from medplib_tpu_torch.models.sam_predictor import SamPredictor
+    card, host = SamPredictor(_to(sam_cpu, dev), sam_cfg), \
+        SamPredictor(sam_cpu, sam_cfg)
+    for p in (card, host):
+        p.set_image(img)
+    h, w = img.shape[:2]
+    pts = np.array([[w * 0.5, h * 0.5], [w * 0.25, h * 0.7]])
+    calls = [dict(point_coords=pts, point_labels=np.array([1, 0]),
+                  multimask_output=True),
+             dict(box=np.array([w * 0.1, h * 0.2, w * 0.8, h * 0.9]),
+                  multimask_output=False),
+             dict(point_coords=pts[:1], point_labels=np.array([1]),
+                  box=np.array([4, 6, w - 8, h - 10]),
+                  multimask_output=True)]
+    worst = dict(iou=0.0, logits=0.0, pixels=0.0)
+    low = None
+    for kw in calls + [None]:
+        if kw is None:      # the mask prompt: the last call's logits
+            kw = dict(point_coords=pts[:1], point_labels=np.array([1]),
+                      mask_input=low[0], multimask_output=False)
+        (mc, ic, lc), (mh, ih, lh) = card.predict(**kw), host.predict(**kw)
+        low = lh
+        worst["iou"] = max(worst["iou"], float(np.abs(ic - ih).max()))
+        worst["logits"] = max(worst["logits"], float(
+            np.linalg.norm(lc - lh) / max(np.linalg.norm(lh), 1e-30)))
+        worst["pixels"] = max(worst["pixels"], float((mc != mh).mean()))
+        if mc.shape != mh.shape or mc.shape[1:] != (h, w):
+            raise AssertionError("SAM predict: mask shapes differ")
+    log(f"[sam] predict card vs CPU ({len(calls) + 1} calls, {h} x {w}): "
+        f"IoU max |diff| {worst['iou']:.2e} (tol {iou_tol}), low-res "
+        f"logits rel {worst['logits']:.2e} (tol {logit_rel}), mask pixels "
+        f"differing {worst['pixels']:.2e} (tol {pix_share})")
+    if (worst["iou"] > iou_tol or worst["logits"] > logit_rel
+            or worst["pixels"] > pix_share):
+        raise AssertionError("SAM predict: the card disagrees with the CPU")
+    return card, worst
+
+
+def eval_path(dev, card, params, cfg=None, n_img=32, n_eval=24, B=16,
+              NEW=10):
+    """Evaluation, gate analysis, retrieval and the SAM predictor on the
+    int4h flagship tree of the main path, from seeded PNGs written to a
+    temp directory (write_eval_set) and the stub tokenizer.
+
+    (a) Evaluator.run(mode="seg"), then "vqa", batch 16, 10 new tokens:
+    24 samples, so the second batch is padded. Act quant stays off, as
+    the JAX Evaluator leaves it: K1 on bf16 x, 3·L launches per generate
+    call, K2 L·10. Every record is held to a direct generate call on the
+    same collated batch (equal tokens and masks, so equal text, IoU and
+    Dice). (b) capture_router_logits on one B=16 batch (K1 3·L): finite
+    logits, expert_load fractions summing to 1 per layer, the per-layer
+    load logged. (c) ImageRagEncoder on the CLIP subtree: build_index
+    over the n_img images, augment every fourth as a query (top 2): each
+    retrieves itself first at cosine >= 0.999. (d) SamPredictor on the
+    SAM subtree in f32: predict card vs CPU (sam_card_vs_cpu), then
+    generate_masks(points_per_side=16, crop_n_layers=1,
+    min_mask_region_area=16, coco_rle) with no score filter (the random
+    IoU head's scores mean nothing): each record's RLE decodes to its
+    area. -> the numbers of the [result] line."""
+    import tempfile
+
+    import torch
+    from medplib_tpu_torch.config import flagship_cfg
+    from medplib_tpu_torch.data import preprocess as pp
+    from medplib_tpu_torch.data.dataset import (CollatorConfig, DataConfig,
+                                                LazySupervisedDataset,
+                                                collate, to_model_batch)
+    from medplib_tpu_torch.eval import gate_analysis as ga
+    from medplib_tpu_torch.eval import infer, seg_metrics
+    from medplib_tpu_torch.models import amg, medplib
+    from medplib_tpu_torch.models import sam_predictor as sp
+    from medplib_tpu_torch.rag import image_rag
+    from medplib_tpu_torch.utils.hf_weights import cast_tree
+    from medplib_tpu_torch.utils.quantize import act_quant_enabled
+
+    cfg = cfg or flagship_cfg(32, moe=True)
+    L = cfg.llm.num_layers
+    tok = StubTokenizer(cfg.seg_token_idx, cfg.llm.vocab_size)
+    colon = tok(":", add_special_tokens=False).input_ids[0]
+    t_phase = time.time()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="eval_path_") as root:
+        names = write_eval_set(root, n_img, n_eval)
+        ds = LazySupervisedDataset(DataConfig(
+            data_path=os.path.join(root, "test.json"), image_folder=root,
+            conv_template="v1", augment_regions=False,
+            sam_image_size=cfg.sam.image_size,
+            clip_image_size=cfg.vision.image_size,
+            clip_patch=cfg.vision.patch_size), tok, train=False)
+        cc = CollatorConfig(max_seq_len=48,
+                            image_tokens=cfg.vision.num_patches,
+                            sam_image_size=cfg.sam.image_size,
+                            clip_image_size=cfg.vision.image_size)
+        # (a) evaluation
+        log(f"[eval] K1 mode: {'W4A8' if act_quant_enabled() else 'bf16 x'}"
+            f" (act quant {'on' if act_quant_enabled() else 'off'}, as the "
+            f"JAX Evaluator leaves it)")
+        for mode in ("seg", "vqa"):
+            path = os.path.join(root, f"{mode}.jsonl")
+            ev = infer.Evaluator(cfg, params, tok, infer.EvalConfig(
+                batch_size=B, max_new_tokens=NEW, colon_token_id=colon,
+                output_path=path), cc, device=dev)
+            calls, orig = [], medplib.generate
+
+            def counted(*a, **k):
+                reset_counts()
+                r = orig(*a, **k)
+                torch.cuda.synchronize()
+                calls.append((a[2], r, kernel_counts()))
+                return r
+
+            medplib.generate = counted
+            try:
+                t0 = time.time()
+                metrics = ev.run(ds, mode)
+                wall = time.time() - t0
+            finally:
+                medplib.generate = orig
+            rows = [json.loads(line) for line in open(path)]
+            if len(rows) != n_eval or len(calls) != -(-n_eval // B):
+                raise AssertionError(f"eval {mode}: {len(rows)} records in "
+                                     f"{len(calls)} generate calls")
+            for k, (batch, res, counts) in enumerate(calls):
+                expect_counts(f"eval {mode} call {k}", counts,
+                              gmm_int4h=3 * L, moe_ffn_decode_int4h=L * NEW)
+                direct = medplib.generate(params, cfg, batch,
+                                          max_new_tokens=NEW,
+                                          eos_id=tok.eos_token_id)
+                if not (torch.equal(direct.output_ids, res.output_ids)
+                        and torch.equal(direct.pred_masks, res.pred_masks)):
+                    raise AssertionError(f"eval {mode} call {k}: the direct "
+                                         f"generate differs")
+                ids = direct.output_ids.cpu().numpy()
+                n = direct.num_generated.cpu().numpy()
+                masks = direct.pred_masks.float().cpu().numpy()
+                for j, rec in enumerate(rows[k * B:(k + 1) * B]):
+                    if rec["text"] != ev._decode(ids[j], int(n[j])):
+                        raise AssertionError(f"eval {mode}: record "
+                                             f"{rec['question_id']} text")
+                    if mode == "seg":
+                        s = ds[rec["question_id"]]
+                        gt = s["gt_masks_original"][0]
+                        pred = pp.unpad_and_resize_mask(
+                            masks[j, 0], s["resize_hw"], gt.shape)
+                        if (rec["iou"], rec["dice"]) != \
+                                seg_metrics.sample_iou_dice(pred, gt):
+                            raise AssertionError(
+                                f"eval seg: record {rec['question_id']} "
+                                f"IoU / Dice")
+            out[f"{mode}_s"] = wall / n_eval
+            log(f"[eval] {mode}: {n_eval} samples in {wall:.3f} s -> "
+                f"{out[f'{mode}_s']:.4f} s/sample ({len(calls)} generate "
+                f"calls of B={B}, the last padded); records equal to direct "
+                f"generate calls; metrics "
+                f"{json.dumps(metrics, default=str)}; {card}")
+        # (b) gate analysis
+        arrays, _ = collate([ds[i] for i in range(B)], cc)
+        batch = to_model_batch(arrays, dev)
+        reset_counts()
+        t0 = time.time()
+        cap = ga.capture_router_logits(params, cfg, batch)
+        torch.cuda.synchronize()
+        t_cap = time.time() - t0
+        expect_counts("gate capture", kernel_counts(), gmm_int4h=3 * L)
+        logits = cap["router_logits"]
+        if logits.shape[:2] != (L, B) or not np.isfinite(logits).all():
+            raise AssertionError("gate capture: logits not finite or of "
+                                 "the wrong shape")
+        load = ga.expert_load(cap)
+        for kind in ("text", "image"):
+            if not np.allclose(load[kind].sum(-1), 1.0):
+                raise AssertionError(f"expert_load: {kind} fractions do "
+                                     f"not sum to 1")
+            log(f"[gate] {kind} tokens, expert 0's share per layer: " +
+                " ".join(f"{v:.3f}" for v in load[kind][:, 0]))
+        major = {k: float(np.maximum(v[:, 0], v[:, 1]).mean())
+                 for k, v in load.items()}
+        out["gate"] = major
+        log(f"[gate] B={B} x {logits.shape[2]} tokens in {t_cap:.3f} s; "
+            f"mean share of the busier expert: text {major['text']:.3f}, "
+            f"image {major['image']:.3f} (random routers); {card}")
+        # (c) retrieval
+        enc = image_rag.ImageRagEncoder(params["clip"], cfg.vision,
+                                        batch_size=B)
+        idx_dir = os.path.join(root, "index")
+        t0 = time.time()
+        info = image_rag.build_index(os.path.join(root, "cands.json"), root,
+                                     idx_dir, enc)
+        torch.cuda.synchronize()
+        t_idx = time.time() - t0
+        aug = os.path.join(root, "aug.json")
+        image_rag.augment(os.path.join(root, "queries.json"), idx_dir, aug,
+                          enc, top_k=2, image_folder=root)
+        recs = json.load(open(aug))
+        qi = list(range(0, n_img, 4))
+        sims = enc.encode_paths([os.path.join(root, names[i]) for i in qi]) \
+            @ np.load(os.path.join(idx_dir, "embeddings.npy")).T
+        self_cos = sims[np.arange(len(qi)), qi]
+        others = sims.copy()
+        others[np.arange(len(qi)), qi] = -1
+        if info["count"] != n_img or any(
+                r["icl_examples"][0]["image"] != os.path.join(root, names[i])
+                or len(r["icl_examples"]) != 2 for r, i in zip(recs, qi)) \
+                or self_cos.min() < 0.999:
+            raise AssertionError("retrieval: a query did not retrieve "
+                                 "itself first at cosine >= 0.999")
+        out["rag_img_s"] = n_img / t_idx
+        log(f"[rag] index of {n_img} images ({info['dim']}-d) in "
+            f"{t_idx:.3f} s -> {out['rag_img_s']:.2f} images/s (PNG decode "
+            f"+ CLIP preprocess + bf16 CLIP ViT-L); {len(qi)} queries "
+            f"retrieve themselves first, cosine min {self_cos.min():.6f}, "
+            f"best other {others.max():.6f}; {card}")
+        # (d) SAM predictor and automatic mask generation
+        img = pp.load_image_rgb(os.path.join(root, names[0]))
+        sam_cpu = cast_tree(_to(params["sam"], "cpu"), torch.float32)
+        pred, _ = sam_card_vs_cpu(dev, cfg.sam, sam_cpu, img)
+        t0 = time.time()
+        masks = sp.generate_masks(
+            pred, img, points_per_side=16, pred_iou_thresh=-1e9,
+            stability_score_thresh=0.0, crop_n_layers=1,
+            min_mask_region_area=16, output_mode="coco_rle")
+        t_amg = time.time() - t0
+        for r in masks:
+            m = amg.rle_to_mask(amg.coco_decode_rle(r["segmentation"]))
+            if m.shape != img.shape[:2] or int(m.sum()) != r["area"]:
+                raise AssertionError("AMG: an RLE does not decode to its "
+                                     "area")
+        if not masks:
+            raise AssertionError("AMG: no masks")
+        out["amg_masks_s"] = len(masks) / t_amg
+        log(f"[amg] generate_masks 16 x 16 points, 1 crop layer (5 crops), "
+            f"min region 16, coco_rle: {len(masks)} masks in {t_amg:.3f} s"
+            f" -> {out['amg_masks_s']:.2f} masks/s; every RLE decodes to "
+            f"its area; {card}")
+        del pred, sam_cpu
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_phase
+    log(f"[eval, gate, rag, sam] done in {out['phase_s']:.1f} s")
+    return out
+
+
 def init_bf16_flagship(cfg, gen, dev):
     """Random bf16 MedPLIB-7b-2e (with cfg's projector extras) without the
     dead dense MLP stack: the dense skeleton, stripped, then the experts
@@ -3460,6 +3767,7 @@ def main() -> int:
     t0 = time.time()
     front = worker_path(dev, card, params, engine["E1"]["tok_s"])
     log(f"[W1, W2] done in {time.time() - t0:.1f} s")
+    evr = eval_path(dev, card, params)
     del params
     torch.cuda.empty_cache()
     region = region_path(dev, results, card)
@@ -3509,7 +3817,10 @@ def main() -> int:
           f"{front['stream']['ttft_p50']:.1f} / p99 "
           f"{front['stream']['ttft_p99']:.1f} ms; preprocessing "
           f"{front['pre_ms']:.1f} ms/image; W2 sequential "
-          f"{front['w2_s']:.3f} s/request; {card}",
+          f"{front['w2_s']:.3f} s/request; evaluation B=16 seg "
+          f"{evr['seg_s']:.4f} / vqa {evr['vqa_s']:.4f} s/sample; RAG "
+          f"index {evr['rag_img_s']:.2f} images/s; AMG "
+          f"{evr['amg_masks_s']:.2f} masks/s; {card}",
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,12 +11,16 @@ layout and function names so each counterpart is easy to find:
                   each with its plain PyTorch version beside it
   models          llama / moe_llama / clip / projector (+ ICL compressor,
                   mask encoder, region pooling) / geo_sampler / sam_med2d
-                  / losses / medplib (generate, model_forward)
+                  / losses / medplib (generate, model_forward); the SAM
+                  predictor and automatic mask generation (sam_predictor,
+                  amg)
   train           lora (linears, injection, dropout, trainable mask,
                   merge), optimizer (AdamW to optax's semantics), trainer
   data            conversation templates, tokenization, image
                   preprocessing (numpy), the supervised dataset, collate
-  eval            segmentation metrics
+  eval            segmentation and VQA metrics, the evaluation loop
+                  and its CLI, MoE gate analysis
+  rag             CLIP-embedding image retrieval of in-context examples
   serve           the continuous-batching engine, the wire protocol and
                   its PNG codec, controller, model worker, web UI
   chat            the interactive chat CLI

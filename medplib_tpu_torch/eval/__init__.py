@@ -1,1 +1,2 @@
-"""Evaluation: segmentation metrics (eval/seg_metrics.py)."""
+"""Evaluation: segmentation and VQA metrics, the evaluation loop
+(eval/infer.py) and its CLI, MoE gate analysis."""

@@ -13,8 +13,9 @@ sampler), the streaming entry points of the serving engine
 (stream_prefill / stream_decode_chunk, the chunked prefill
 stream_prefill_begin -> stream_prefill_chunk -> stream_prefill_finish,
 ground_seg_slots / stream_ground; generate runs on the same decode step),
-and the dense training forward `model_forward` (CE + mask losses, frozen
-CLIP and SAM encoders, per-layer remat). MoE training is not ported yet.
+and the training forward `model_forward` (CE + mask losses, the MoE
+router aux loss, frozen CLIP and SAM encoders, per-layer remat), dense or
+MoE (top-1 / top-2, Residual-MoE, mixed stacks).
 """
 
 from __future__ import annotations

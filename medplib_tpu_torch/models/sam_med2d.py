@@ -1,12 +1,13 @@
-"""SAM-Med2D (ViT-B @256, adapter-tuned): image encoder, text-embedding
-prompt encoder and two-way-transformer mask decoder
-(medplib_tpu/models/sam_med2d.py).
+"""SAM-Med2D (ViT-B @256, adapter-tuned): image encoder, prompt encoder
+(text embeddings, points, boxes and a low-res mask) and two-way-transformer
+mask decoder (medplib_tpu/models/sam_med2d.py).
 
 Public tensors are NHWC as in the JAX package; convolutions permute to
 NCHW inside. Kernel layouts are the JAX tree's: convolutions HWIO (read as
 OIHW via a permute), transposed convolutions in torch's [Cin, Cout, kh, kw]
 (conv_transpose2d directly: the adapter's k4 s2 p1, the upscaling k2 s2
-p0). Point / box / mask prompts (the predictor API) are not ported yet.
+p0). The MedPLIB SEG path prompts with text embeddings only; points,
+boxes and masks serve the predictor (models/sam_predictor.py).
 """
 
 from __future__ import annotations
@@ -293,18 +294,98 @@ def dense_pe(params: Params, cfg: SamConfig) -> torch.Tensor:
     return _pe_encoding(g, grid)
 
 
+def preprocess_pixels(images_rgb: torch.Tensor,
+                      cfg: SamConfig) -> torch.Tensor:
+    """[B, H, W, 3] uint8 / float RGB -> normalized f32."""
+    mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32,
+                        device=images_rgb.device)
+    std = torch.tensor(cfg.pixel_std, dtype=torch.float32,
+                       device=images_rgb.device)
+    return (images_rgb.float() - mean) / std
+
+
+def _size(cfg: SamConfig, device) -> torch.Tensor:
+    """The input side as a device tensor: a true division on every device
+    (CUDA turns a Python-number divisor into a reciprocal multiply)."""
+    return torch.tensor(float(cfg.image_size), device=device)
+
+
+def embed_points(params: Params, cfg: SamConfig, coords: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """coords [B, N, 2] in input-image pixels (x, y); labels [B, N] in
+    {-1: pad, 0: negative, 1: positive} -> [B, N, embed_dim] f32."""
+    c01 = (coords.float() + 0.5) / _size(cfg, coords.device)
+    pe = _pe_encoding(params["pe_layer"]["gaussian_matrix"], c01)
+    pts = params["point_embeddings"]
+    pad = (labels == -1)[..., None]
+    pe = torch.where(pad, torch.zeros_like(pe), pe)
+    for hit, emb in ((pad, params["not_a_point_embed"]),
+                     ((labels == 0)[..., None], pts[0]),
+                     ((labels == 1)[..., None], pts[1])):
+        pe = pe + torch.where(hit, emb[None, None],
+                              torch.zeros((), dtype=emb.dtype,
+                                          device=emb.device))
+    return pe
+
+
+def embed_boxes(params: Params, cfg: SamConfig,
+                boxes: torch.Tensor) -> torch.Tensor:
+    """boxes [B, 4] (x0, y0, x1, y1) -> corner embeddings [B, 2, D] f32."""
+    corners = (boxes.float().reshape(-1, 2, 2) + 0.5) / _size(cfg,
+                                                              boxes.device)
+    pe = _pe_encoding(params["pe_layer"]["gaussian_matrix"], corners)
+    pts = params["point_embeddings"]
+    return torch.stack([pe[:, 0] + pts[2], pe[:, 1] + pts[3]], dim=1)
+
+
+def embed_mask_input(params: Params, masks: torch.Tensor) -> torch.Tensor:
+    """masks [B, 4h, 4w, 1] -> dense embedding [B, h, w, embed_dim]:
+    conv k2 s2 -> LN -> GELU -> conv k2 s2 -> LN -> GELU -> conv 1x1."""
+    p = params["mask_downscaling"]
+    x = masks.to(p["conv1"]["kernel"].dtype)
+    x = _conv(x, p["conv1"]["kernel"], stride=2, bias=p["conv1"]["bias"])
+    x = _gelu(layer_norm(x, p["ln1"]["weight"], p["ln1"]["bias"], 1e-6))
+    x = _conv(x, p["conv2"]["kernel"], stride=2, bias=p["conv2"]["bias"])
+    x = _gelu(layer_norm(x, p["ln2"]["weight"], p["ln2"]["bias"], 1e-6))
+    return _conv(x, p["conv3"]["kernel"], bias=p["conv3"]["bias"])
+
+
 def encode_prompts(params: Params, cfg: SamConfig, batch: int,
+                   points: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   boxes: Optional[torch.Tensor] = None,
+                   mask_input: Optional[torch.Tensor] = None,
                    text_embeds: Optional[torch.Tensor] = None):
-    """-> (sparse [B, N, D], dense [B, h, w, D]). The SEG path passes only
-    text_embeds [B, 1, D]; the dense prompt is the no-mask embedding."""
+    """-> (sparse [B, N, D], dense [B, h, w, D]). Sparse prompts in the
+    order points (with a not-a-point pad slot when there is no box),
+    box corners, text embeddings; the dense prompt is the downscaled
+    mask_input or the no-mask embedding. The SEG path passes only
+    text_embeds [B, 1, D]."""
+    parts = []
+    if points is not None:
+        coords, labels = points
+        if boxes is None:  # pad with a not-a-point slot
+            coords = torch.cat([coords, torch.zeros_like(coords[:, :1])],
+                               dim=1)
+            labels = torch.cat([labels, -torch.ones_like(labels[:, :1])],
+                               dim=1)
+        parts.append(embed_points(params, cfg, coords, labels))
+    if boxes is not None:
+        parts.append(embed_boxes(params, cfg, boxes))
     if text_embeds is not None:
-        sparse = text_embeds
+        parts.append(text_embeds)
+    if len(parts) > 1:
+        sparse = torch.cat(parts, dim=1)
+    elif parts:
+        sparse = parts[0]
     else:
         sparse = params["no_mask_embed"].new_zeros(
-            (batch, 0, cfg.prompt_embed_dim))
-    s = cfg.image_embedding_size
-    dense = params["no_mask_embed"][None, None, None].expand(
-        batch, s, s, cfg.prompt_embed_dim)
+            (batch, 0, cfg.prompt_embed_dim), dtype=torch.float32)
+    if mask_input is not None:
+        dense = embed_mask_input(params, mask_input)
+    else:
+        s = cfg.image_embedding_size
+        dense = params["no_mask_embed"][None, None, None].expand(
+            batch, s, s, cfg.prompt_embed_dim)
     return sparse, dense
 
 

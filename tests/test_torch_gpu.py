@@ -771,6 +771,26 @@ def test_worker_card_matches_cpu(dev):
     assert set(out["cpu"]) == {"vqa", "seg", "region", "sampled"}
 
 
+def test_sam_predict_card_matches_cpu(dev):
+    """SamPredictor.predict at SamConfig.tiny (f32) on the card against
+    the same predictor on the CPU: points, a box, points + box, then a
+    mask prompt from the previous low-res logits; IoU predictions 1e-3,
+    low-res logits 1e-3 norm-relative, masks within 0.1% of pixels
+    (chip_smoke.sam_card_vs_cpu)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from medplib_tpu_torch.config import SamConfig
+    from medplib_tpu_torch.models import sam_med2d
+    cfg = SamConfig.tiny()
+    params = sam_med2d.init_sam(torch.Generator().manual_seed(0), cfg,
+                                torch.float32, "cpu")
+    img = np.random.default_rng(0).integers(0, 256, (48, 80, 3)).astype(
+        np.uint8)
+    _, worst = cs.sam_card_vs_cpu(dev, cfg, params, img)
+    assert set(worst) == {"iou", "logits", "pixels"}
+
+
 def test_moe_train_card_matches_cpu(dev):
     """Two steps of the tiny stage-4-style model (sparse Residual-MoE,
     top-1 at capacity 1.5, a skewed router that drops tokens, a 1039-token
