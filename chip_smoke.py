@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch + CUDA port (medplib_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profiles              (also the profiled calls
+                                                   no PERF.md metric reads)
     python3 chip_smoke.py --k2-equal-share ROOT   (K2 alone, see
                                                    k2_equal_share)
     python3 chip_smoke.py --icl-profile ROOT      (ICL config 5 alone, see
@@ -50,7 +52,9 @@
    extend, K2 at decode): equal tokens, masks from Request.ground(); and
    the serving worker on that model with the region adapter
    (small_worker_check): greedy, <SEG>, region and seeded sampled
-   requests as PNG payloads, equal texts, masks within 1% of pixels.
+   requests as PNG payloads, equal texts, masks within 1% of pixels;
+   the tiny export pipeline (LoRA q / v merged, quantized, served: K1,
+   K2) and a tiny ALiBi MPT, each card vs CPU.
 5. Serving main paths, MedPLIB-7b-2e at full width (32 layers x 2
    experts, int8 attention / lm_head / projector), random weights from a
    seed: with int4h experts, a batch of 16 grounding requests (T_in=48,
@@ -103,10 +107,23 @@
    (moe_train_phase): the MedPLIB-7b-2e bf16 tree with its experts from
    two donor stacks, LoRA q/v, B=4 x 1087 tokens x ga 8 (K4 512, K5 256,
    K6 256 a step), then Trainer.validate over two B=4 batches (K3 96 in
-   its bf16 float mode and K4 32 a batch).
+   its bf16 float mode and K4 32 a batch). Then the export path
+   (export_path) on that trained tree: merge_lora (each merged q / v
+   element within bf16 rounding of its f32 value; teacher-forced logits
+   of the merged tree against the unmerged tree's), the file tools and
+   `python -m medplib_tpu_torch.utils.export` on its first 2 layers
+   (inspect, to-f32, to-hf in >= 2 shards, from-reference back
+   leaf-equal, make_delta / apply_delta, consolidate), export_seg_decoder
+   at B=16 run through torch.export.load, the int4 block scheme at 4096
+   x 11008 card vs CPU, then quantize_flagship_moe and the main path's
+   B=16 request on the merged tree (K1 96, K2 320). Last, MPT-7B
+   (mpt_path: 4096 x 32 layers, ALiBi, bf16 from a seed) greedy at B=4,
+   64 prompt tokens, 16 new; no kernel launches there.
    Each path runs with every launch count set to 0 just before it and
    read just after; each checks the outputs and repeatability and prints
-   masks/s or ms/sample and peak memory.
+   masks/s or ms/sample and peak memory. Only the main path's and the
+   engine's decode-chunk profiles run by default; --profiles adds the
+   others.
 Any failed phase raises; the line before the last is the card's name and
 power limit, the last stdout line, printed only on success, is
 {"ok": true, "device": {...}}.
@@ -117,6 +134,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -480,7 +498,7 @@ def icl_profile(root: str) -> None:
     log(f"[ICL profile] {medplib.__file__}: tokens sum "
         f"{int(first.output_ids.sum())}, {time.time() - t0:.3f} s a call; "
         f"{gpu_line()}")
-    profile_step(run, top=6)
+    profile_step(run, top=6, always=True)
 
 
 def _grouped_library_ms(xin, w, tile_gid, bm):
@@ -1243,12 +1261,13 @@ def _tiny_moe_tree(cfg, expert_bits):
 
 
 def _tiny_card_vs_cpu(dev, name, cfg, host, kv_quant, actq=True, make=None,
-                      gen_kw=None, **want):
+                      gen_kw=None, tree_at=None, **want):
     """Generate (by default B=16 x T_in=64: 1264 spliced tokens; 4 new
     tokens; W8A8 prefill with actq) with the same tiny params `host` (a
     numpy tree) on the CPU (plain versions) and on the card (kernels);
     tokens and masks must agree and the card must launch exactly `want`.
-    make(where) builds another batch; gen_kw adds generate arguments."""
+    make(where) builds another batch; gen_kw adds generate arguments;
+    tree_at(where) builds the params on each device in place of host."""
     from medplib_tpu_torch.models import medplib
     from medplib_tpu_torch.utils.convert import tree_from_numpy
     from medplib_tpu_torch.utils.quantize import dynamic_act_quant
@@ -1259,7 +1278,8 @@ def _tiny_card_vs_cpu(dev, name, cfg, host, kv_quant, actq=True, make=None,
         b = make(where)
         reset_counts()
         with dynamic_act_quant(actq):
-            r = medplib.generate(tree_from_numpy(host, where), cfg, b,
+            p = tree_at(where) if tree_at else tree_from_numpy(host, where)
+            r = medplib.generate(p, cfg, b,
                                  max_new_tokens=4, kv_quant=kv_quant,
                                  **(gen_kw or {}))
         out[str(where)] = (r, kernel_counts())
@@ -1558,35 +1578,35 @@ def _int8_fingerprint(params):
     return out
 
 
-def profile_step(fn, top: int = 14) -> None:
-    """One call of `fn` under torch.profiler (CPU + CUDA): prints the wall
-    time, the summed time of the device's kernels (on one stream they do
-    not overlap, so 1 - sum / wall is the device's idle share) and the
-    kernels that take the most of it."""
+# --profiles turns on the profiled calls that no metric of PERF.md reads
+# (each kernel phase's, the side paths'); the main path's and the engine's
+# decode chunk are always profiled
+PROFILES = False
+
+
+def profile_step(fn, top: int = 14, always: bool = False) -> None:
+    """One call of `fn` under utils/profiling.trace (host + CUDA): prints
+    the wall time, the summed time of the device's kernels (on one stream
+    they do not overlap, so 1 - sum / wall is the device's idle share),
+    the kernels that take the most of it and the seconds the whole
+    profile cost. Runs only with `always` or under --profiles."""
+    if not (always or PROFILES):
+        return
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from medplib_tpu_torch.utils import profiling
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    from torch.autograd import DeviceType
-    rows, stalls = [], 0.0
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if e.device_type != DeviceType.CUDA or us <= 0:
-            continue           # host ops (their kernels are listed apart)
-        if e.key == "Command Buffer Full":
-            stalls += us / 1e6
-        else:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
+    t_all = time.time()
+    with profiling.trace(None) as prof:
+        with profiling.annotate("chip_smoke.profile_step"):
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    busy, stalls, rows = profiling.kernel_summary(prof)
     log(f"[profile] wall {wall:.3f} s under the profiler, kernels "
         f"{busy:.3f} s (idle share {max(0.0, 1 - busy / wall):.3f}; "
-        f"'Command Buffer Full' {stalls:.3f} s); top kernels:")
+        f"'Command Buffer Full' {stalls:.3f} s); {time.time() - t_all:.1f}"
+        f" s with the profiler's own work; top kernels:")
     for us, n, key in rows[:top]:
         log(f"[profile]   {us / 1e3:9.1f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"{n:6d} x  {key[:110]}")
@@ -1813,7 +1833,7 @@ def init_stage4(cfg, gen, dev):
     return params
 
 
-def moe_train_phase(dev, card, layers=32):
+def moe_train_phase(dev, card, layers=32, keep_params=False):
     """Stage 4 at full width and depth: MedPLIB-7b-2e (32 layers x 2
     experts, top-1, capacity 1.5, router aux 0.01) in bf16 from
     init_stage4, LoRA q/v r=8 with dropout 0.05, the CLI's default sft
@@ -1823,7 +1843,9 @@ def moe_train_phase(dev, card, layers=32):
     Trainer.validate over two B=4 batches (eval capacity 2.0 covers every
     row: the per-layer grouped matmul, K3 in its bf16 float mode). The
     tree is not checkpointed (it would write ~26 GB). `layers` cuts the
-    depth (the card tests run 2)."""
+    depth (the card tests run 2). With keep_params the trained tree
+    (without the optimizer state) is returned as "params" for
+    export_path."""
     import shutil
     import tempfile
 
@@ -1945,13 +1967,495 @@ def moe_train_phase(dev, card, layers=32):
                       flash_fwd=2 * L)
         if not all(np.isfinite(v) for v in vres.values()):
             raise AssertionError("non-finite validation metrics")
+        trained = tr.state.params if keep_params else None
         del tr, val
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     log(f"[moe train] phase done in {time.time() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     return {"tok_s": tok_s, "peak": peak, "val_s": val_s, "aux": aux,
-            "losses": losses, **vres}
+            "losses": losses, "params": trained, **vres}
+
+
+# ---------------------------------------------------------------------------
+# export path: the trained stage-4 tree merged, exported and served
+# ---------------------------------------------------------------------------
+
+# Merged vs unmerged teacher-forced logits of a bf16 tree with random
+# weights. Any bf16-level change of the q / v kernels moves them: the
+# logits are bf16 (ulp 1/32 at the top logits of a 32320-entry
+# vocabulary, whose top-2 gaps are ~0.2), and top-1 routing flips tokens
+# between experts. scripts/merge_hold_cpu.py measured on the CPU (bf16,
+# 2 experts, vocabulary 32320, width 512, 32 layers): merged vs unmerged
+# rel err 4.4e-2, top-1 agreement 0.934, while the unmerged tree's own
+# bf16 logits sit 5.2e-2 / 0.927 from its f32 logits. The tolerances
+# below are about twice that noise; the merge itself is held element by
+# element (merge_kernel_hold).
+MERGE_REL_TOL = 1e-1
+MERGE_MIN_AGREE = 0.85
+
+
+def merge_kernel_hold(unmerged, merged, names=("q_proj", "v_proj")):
+    """Every merged q / v element against W + (A @ B) x 2 (transposed)
+    computed in float32 from the unmerged tree, in units of
+    2^-8 (|W + delta| + 2 |delta|): one bf16 rounding of the sum, one of
+    A @ B and a margin for its float32 sum (bf16's unit roundoff is
+    2^-8). -> the largest such ratio (<= 1 when the merge is right)."""
+    import torch
+    worst = 0.0
+    for n in names:
+        u = unmerged["llm"]["layers"]["attn"][n]
+        m = merged["llm"]["layers"]["attn"][n]["kernel"]
+        for i in range(m.shape[0]):           # one layer at a time
+            delta = (u["lora_a"][i].float() @ u["lora_b"][i].float()
+                     * 2.0).t()
+            ref = u["kernel"][i].float() + delta
+            bound = (ref.abs() + 2 * delta.abs()) * 2 ** -8
+            err = (m[i].float() - ref).abs()
+            worst = max(worst, float((err / (bound + 1e-30)).max()))
+    return worst
+
+
+def teacher_forced_logits(params, cfg, batch):
+    """-> (f32 logits [B, S, V] of the spliced sequence, attention mask
+    [B, S]) without dropout, eval capacity (Trainer.validate's forward
+    without the SAM head)."""
+    import torch
+    from medplib_tpu_torch.models import llama, medplib
+    with torch.no_grad():
+        embeds, _, attn_mask, _, _ = medplib.splice_batch(params, cfg, batch)
+        hidden, _, _ = medplib._llm_forward(params, cfg, embeds, attn_mask,
+                                            train=False)
+        return llama.logits(params["llm"], hidden), attn_mask
+
+
+def merge_hold(unmerged, merged, cfg, batch):
+    """-> (norm-relative error of the merged tree's teacher-forced logits
+    against the unmerged tree's, share of equal top-1 ids over the
+    attended positions)."""
+    lu, am = teacher_forced_logits(unmerged, cfg, batch)
+    lm, _ = teacher_forced_logits(merged, cfg, batch)
+    rel = float((lm - lu).norm() / lu.norm())
+    keep = am.bool()
+    agree = float((lm.argmax(-1) == lu.argmax(-1))[keep].float().mean())
+    return rel, agree
+
+
+def layer_slice(llm, n):
+    """The first n layers of an LLM tree: views of the stacked
+    ["layers"] leaves; the unstacked leaves as they are."""
+    def rec(node):
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        return node[:n]
+    return {k: (rec(v) if k == "layers" else v) for k, v in llm.items()}
+
+
+def _same_leaves(got, want):
+    """-> the paths where two trees differ (paths, dtype or values)."""
+    import torch
+    from medplib_tpu_torch.utils import tree as tree_util
+    g, w = tree_util.leaves_with_paths(got), tree_util.leaves_with_paths(want)
+    if [p for p, _ in g] != [p for p, _ in w]:
+        return [("paths differ",)]
+    return [p for (p, a), (_, b) in zip(g, w)
+            if a.dtype != b.dtype or a.shape != b.shape
+            or not torch.equal(a.to(b.device), b)]
+
+
+def export_cli_check(dev, cfg, merged, base_qv, layers=2):
+    """utils/export's files and command line on the first `layers` layers
+    of the merged full-width tree (views; CLIP and the ICL modules, which
+    the merged export does not carry, left out), in a temp directory that
+    is removed afterwards: save_params; `python -m
+    medplib_tpu_torch.utils.export inspect` in a subprocess (its TOTAL =
+    the tree's size); main(to-f32) (every leaf equal after widening);
+    main(to-hf) with shards of a quarter of the tree (>= 2 shards and an
+    index); main(
+    from-reference) back (leaf-equal to what went out); make_delta
+    against the unmerged q / v kernels (`base_qv`) and apply_delta back
+    (the leaves the base lacks pass through; on q / v at most two bf16
+    roundings of the delta's size off the merged kernel); consolidate
+    (leaf-equal). -> seconds."""
+    import shutil
+    import tempfile
+
+    import torch
+    from medplib_tpu_torch.config import to_json
+    from medplib_tpu_torch.models import moe_llama
+    from medplib_tpu_torch.utils import export as ex
+    from medplib_tpu_torch.utils import tree as tree_util
+    from medplib_tpu_torch.utils.checkpoint import load_params, save_params
+
+    t0 = time.time()
+    small_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=layers))
+    small = {k: merged[k] for k in ("mm_projector", "text_hidden_fcs", "sam",
+                                    "region_fea_adapter") if k in merged}
+    small["llm"] = layer_slice(merged["llm"], layers)
+    n_el = sum(x.numel() for x in tree_util.leaves(small))
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in tree_util.leaves(small))
+    d = tempfile.mkdtemp(prefix="export_cli_")
+    try:
+        P = lambda n: os.path.join(d, n)  # noqa: E731
+        dv = ["--device", str(dev)]
+        save_params(P("small.pt"), small)
+        with open(P("cfg.json"), "w") as f:
+            f.write(to_json(small_cfg))
+        out = subprocess.run(
+            [sys.executable, "-m", "medplib_tpu_torch.utils.export", *dv,
+             "inspect", "--in-path", P("small.pt")], cwd=HERE,
+            capture_output=True, text=True, timeout=600, check=True).stdout
+        total = int(out.splitlines()[-1].split()[-1].replace(",", ""))
+        if total != n_el:
+            raise AssertionError(f"inspect TOTAL {total} != {n_el}")
+        ex.main([*dv, "to-f32", "--in-path", P("small.pt"), "--out-path",
+                 P("f32.pt")])
+        f32 = load_params(P("f32.pt"), device=dev)
+        os.unlink(P("f32.pt"))
+        bad = [p for (p, a), (_, b) in zip(tree_util.leaves_with_paths(f32),
+                                           tree_util.leaves_with_paths(small))
+               if a.dtype != (torch.float32 if b.is_floating_point()
+                              else b.dtype)
+               or not torch.equal(a, b.to(a.dtype))]
+        del f32
+        ex.main([*dv, "to-hf", "--in-path", P("small.pt"), "--config",
+                 P("cfg.json"), "--out-dir", P("hf"), "--shard-bytes",
+                 str(n_bytes // 4)])
+        shards = sorted(f for f in os.listdir(P("hf"))
+                        if f.endswith(".safetensors"))
+        with open(os.path.join(P("hf"), "model.safetensors.index.json")) as f:
+            index = json.load(f)
+        ex.main([*dv, "from-reference", "--hf-dir", P("hf"), "--config",
+                 P("cfg.json"), "--out-path", P("back.pt")])
+        shutil.rmtree(P("hf"))
+        back = load_params(P("back.pt"), device=dev)
+        back["llm"] = moe_llama.strip_dense_mlp(back["llm"], small_cfg.llm,
+                                                small_cfg.moe)
+        round_trip = _same_leaves(back, small)
+        del back
+        base = {"llm": layer_slice({"layers": base_qv}, layers)}
+        delta = ex.make_delta(base, small)
+        again = ex.apply_delta(base, delta)
+        attn = delta["llm"]["layers"]["attn"]
+        moved = [n for n in ("q_proj", "v_proj")
+                 if bool(attn[n]["kernel"].any())]
+        worst = 0.0
+        for n in ("q_proj", "v_proj"):
+            got = again["llm"]["layers"]["attn"][n]["kernel"].float()
+            want = small["llm"]["layers"]["attn"][n]["kernel"].float()
+            dlt = attn[n]["kernel"].float()
+            worst = max(worst, float(((got - want).abs()
+                                      / (dlt.abs() * 2 ** -7 + 1e-30)).max()))
+            again["llm"]["layers"]["attn"][n]["kernel"] = small["llm"][
+                "layers"]["attn"][n]["kernel"]
+        delta_off_qv = _same_leaves(again, small)
+        del delta, again
+        ex.consolidate(P("small.pt"), P("cons.pt"), device=dev)
+        cons = _same_leaves(load_params(P("cons.pt"), device=dev), small)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    dt = time.time() - t0
+    log(f"[export cli] {layers}-layer full-width tree, {n_el / 1e9:.3f} B "
+        f"elements, {n_bytes / 2**30:.2f} GiB: inspect TOTAL {total:,d}; "
+        f"to-f32 unequal leaves {len(bad)}; to-hf {len(shards)} shards, "
+        f"index of {len(index['weight_map'])} keys; from-reference unequal "
+        f"leaves {len(round_trip)}; delta nonzero on {moved}, apply_delta "
+        f"error / two bf16 roundings of the delta {worst:.3f}, other leaves "
+        f"unequal {len(delta_off_qv)}; consolidate unequal {len(cons)}; "
+        f"{dt:.1f} s")
+    if bad or len(shards) < 2 or round_trip or moved != ["q_proj", "v_proj"] \
+            or worst > 1.0 or delta_off_qv or cons:
+        raise AssertionError("export CLI round trip failed")
+    return dt
+
+
+def export_decoder_check(dev, cfg, params, b=16):
+    """export_seg_decoder at B=b on the card, run through
+    torch.export.load, against a direct text_hidden_fcs +
+    decode_seg_masks call on the same random SAM embeddings and <SEG>
+    hidden states: mask logits and iou within 1% of the largest |value|
+    (bf16; measured equal on the CPU in f32). -> (export seconds,
+    largest relative error)."""
+    import io
+
+    import torch
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.utils.export import export_seg_decoder
+    k = params["text_hidden_fcs"]["fc1"]["kernel"]
+    e, dd = cfg.sam.image_embedding_size, cfg.sam.prompt_embed_dim
+    g = torch.Generator(device=dev).manual_seed(5)
+    emb = torch.randn((b, e, e, dd), generator=g, device=dev).to(k.dtype)
+    hid = torch.randn((b, 1, cfg.llm.hidden_size), generator=g,
+                      device=dev).to(k.dtype)
+    t0 = time.time()
+    blob = export_seg_decoder(params, cfg, batch_size=b, num_segs=1)
+    t_export = time.time() - t0
+    prog = torch.export.load(io.BytesIO(blob)).module()
+    with torch.no_grad():
+        gm, gi = prog(params["sam"], params["text_hidden_fcs"], emb, hid)
+        seg = medplib.text_hidden_fcs(params["text_hidden_fcs"], hid)
+        dm, di = medplib.decode_seg_masks(params, cfg, emb, seg,
+                                          cfg.sam.image_size)
+    errs = [float((a.float() - w.float()).abs().max()
+                  / w.float().abs().max()) for a, w in ((gm, dm), (gi, di))]
+    log(f"[export decoder] B={b}: torch.export {t_export:.1f} s, "
+        f"{len(blob) / 2**20:.2f} MiB; loaded program vs direct call: masks "
+        f"{tuple(gm.shape)} max err / max |value| {errs[0]:.3e}, iou "
+        f"{errs[1]:.3e}")
+    if tuple(gm.shape) != (b, 1, cfg.sam.image_size, cfg.sam.image_size) \
+            or max(errs) > 1e-2:
+        raise AssertionError("the exported decoder disagrees")
+    return t_export, max(errs)
+
+
+def block_int4_check(dev, w):
+    """The int4 "block" scheme at one full-width shape: w [K, N] (normal,
+    an [in, out] node) and w.T (transposed, an [out, in] q_proj-style
+    node), quantized on the card and on the CPU (the packed bytes and
+    scales must be equal), then `linear` / `linear_t` on 64 f32 rows on
+    each: norm-relative 1e-5 (f32 sums in other orders, TF32 off)."""
+    import torch
+    from medplib_tpu_torch.train import lora
+    from medplib_tpu_torch.utils.quantize import quantize_tree
+    out = {}
+    x = torch.randn((64, w.shape[0]), generator=torch.Generator(
+        ).manual_seed(6))
+    for name, kern, fn in (("up_proj", w, lora.linear),
+                           ("q_proj", w.t(), lora.linear_t)):
+        nodes = {}
+        for where in ("cpu", dev):
+            tree = {name: {"kernel": kern.to(where).contiguous()}}
+            nodes[str(where)] = quantize_tree(tree, skip=(), bits=4,
+                                              int4_scheme="block")[name]
+        c, g = nodes["cpu"], nodes[str(dev)]
+        same = all(torch.equal(c[k], g[k].cpu()) for k in ("kernel",
+                                                            "scale4"))
+        yc = fn(c, x)
+        yg = fn(g, x.to(dev)).cpu()
+        rel = rel_err(yg, yc)
+        out[name] = rel
+        log(f"[block int4] {name} {tuple(kern.shape)} -> packed "
+            f"{tuple(g['kernel'].shape)}, scale4 {tuple(g['scale4'].shape)}"
+            f"; card = CPU bytes {same}; linear card vs CPU rel {rel:.2e}")
+        if not same or rel > 1e-5:
+            raise AssertionError("block int4 card and CPU disagree")
+    return out
+
+
+def export_path(dev, card, trained, main_masks_s, cfg=None):
+    """The stage-4 tree that moe_train_phase trained (bf16 7b-2e, LoRA q/v
+    with lora_b moved by its steps), exported and served:
+
+    1. merge_lora; every merged q / v element within bf16 rounding of
+       its float32 value (merge_kernel_hold); the merged tree's
+       teacher-forced logits on the phase's first B=4 micro-batch (1087
+       spliced tokens) against the unmerged tree's: norm-relative error
+       <= MERGE_REL_TOL, top-1 agreement >= MERGE_MIN_AGREE (see there);
+       the unmerged tree's references are dropped;
+    2. the file tools and the command line on its first 2 layers
+       (export_cli_check);
+    3. export_seg_decoder at B=16 (export_decoder_check);
+    4. the int4 block scheme at 4096 x 11008 on layer 0's expert-0
+       gate_proj (block_int4_check);
+    5. quantize_flagship_moe(expert_bits=4) and the main path's request:
+       B=16, T_in=48, 10 new tokens, W8A8 / W4A8 prefill: K1 96 and K2
+       320 a call (serve_batch), a repeat with equal tokens and masks;
+       masks/s beside main_path's.
+    `cfg` (default the 32-layer flagship) is the trained tree's config.
+    -> dict of its numbers."""
+    import torch
+    from medplib_tpu_torch.config import flagship_cfg
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.utils.export import merge_lora
+    from medplib_tpu_torch.utils.quantize import (dynamic_act_quant,
+                                                  quantize_flagship_moe)
+
+    cfg = cfg or flagship_cfg(32, moe=True)
+    L = cfg.llm.num_layers
+    t_phase = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    merged = merge_lora(trained)
+    torch.cuda.synchronize()
+    t_merge = time.time() - t0
+    k_hold = merge_kernel_hold(trained, merged)
+    tf = make_batch(cfg, 4, 512, np.random.default_rng(0), dev)
+    rel, agree = merge_hold(trained, merged, cfg, tf)
+    attn = trained["llm"]["layers"]["attn"]
+    base_qv = {"attn": {n: {"kernel": attn[n]["kernel"]}
+                        for n in ("q_proj", "v_proj")}}
+    trained.clear()                     # the caller's tree: drop it
+    del tf, attn
+    torch.cuda.empty_cache()
+    log(f"[export] merge_lora {t_merge:.2f} s; merged q / v elements vs "
+        f"W + AB x 2 in f32: largest error {k_hold:.3f} of its bf16 "
+        f"rounding bound; teacher-forced logits, B=4 x "
+        f"{512 - 1 + cfg.vision.num_patches} tokens, merged vs unmerged: "
+        f"rel err {rel:.3e} (tol {MERGE_REL_TOL}), top-1 agreement "
+        f"{agree:.4f} (min {MERGE_MIN_AGREE}); allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if k_hold > 1.0 or not rel <= MERGE_REL_TOL or agree < MERGE_MIN_AGREE:
+        raise AssertionError("the merged tree does not hold the unmerged "
+                             "tree's logits")
+    t_cli = export_cli_check(dev, cfg, merged, base_qv)
+    del base_qv
+    t_dec, dec_err = export_decoder_check(dev, cfg, merged)
+    block_int4_check(dev, merged["llm"]["layers"]["moe"]["experts"][
+        "gate_proj"]["kernel"][0, 0])
+
+    t0 = time.time()
+    params = quantize_flagship_moe(merged, expert_bits=4)
+    del merged
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_quant = time.time() - t0
+    log(f"[export] quantize_flagship_moe (int4h experts, int8 attention) "
+        f"{t_quant:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, T, NEW = 16, 48, 10
+    batch = make_batch(cfg, B, T, np.random.default_rng(0), dev)
+
+    def run():
+        with dynamic_act_quant(True):
+            r = medplib.generate(params, cfg, batch, max_new_tokens=NEW)
+        torch.cuda.synchronize()
+        return r
+
+    masks_s, peak, counts = serve_batch(
+        "export", run, cfg, B, NEW, card, gmm_int4h=3 * L,
+        moe_ffn_decode_int4h=L * NEW)
+    r1, r2 = run(), run()
+    same = torch.equal(r1.output_ids, r2.output_ids) and torch.equal(
+        r1.pred_masks, r2.pred_masks)
+    log(f"[export] served merged tree B={B}: {masks_s:.3f} masks/s (main "
+        f"path {main_masks_s:.3f} in this run); repeat equal tokens and "
+        f"masks {same}; phase {time.time() - t_phase:.1f} s on {card}")
+    if not same:
+        raise AssertionError("export: repeated calls differ")
+    del params, batch, r1, r2
+    torch.cuda.empty_cache()
+    return {"masks_s": masks_s, "peak": peak, "rel": rel, "agree": agree,
+            "cli_s": t_cli, "export_s": t_dec,
+            "phase_s": time.time() - t_phase}
+
+
+def small_export_check(dev):
+    """The export pipeline on the tiny int4h MoE serving model, card vs
+    CPU: f32 init (unit-scale embeddings), LoRA q / v with a random
+    lora_b, then on each device merge_lora -> quantize_flagship_moe ->
+    generate (B=16 x T_in=64, 4 new tokens): tokens and masks as
+    _tiny_card_vs_cpu holds them; K1 6, K2 8 on the card."""
+    import torch
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.ops.initializers import normal
+    from medplib_tpu_torch.train import lora
+    from medplib_tpu_torch.utils.convert import tree_from_numpy, tree_to_numpy
+    from medplib_tpu_torch.utils.export import merge_lora
+    from medplib_tpu_torch.utils.quantize import quantize_flagship_moe
+    cfg = tiny_serving_cfg(512, 8)
+    gen = torch.Generator().manual_seed(1)
+    p = medplib.init_medplib(gen, cfg, torch.float32, "cpu")
+    p["llm"]["embed_tokens"]["embedding"] *= 50.0
+    p["llm"] = lora.inject(gen, p["llm"], ("q_proj", "v_proj"), r=8)
+    for n in ("q_proj", "v_proj"):
+        node = p["llm"]["layers"]["attn"][n]
+        node["lora_b"] = normal(gen, node["lora_b"].shape, torch.float32,
+                                "cpu", 0.05)
+    host = tree_to_numpy(p)
+
+    def tree_at(where):
+        return quantize_flagship_moe(merge_lora(tree_from_numpy(host, where)),
+                                     4, 8)
+
+    _tiny_card_vs_cpu(dev, "small export check", cfg, None, False,
+                      tree_at=tree_at, gmm_int4h=6, moe_ffn_decode_int4h=8)
+
+
+# ---------------------------------------------------------------------------
+# MPT path
+# ---------------------------------------------------------------------------
+
+def small_mpt_check(dev):
+    """A tiny MPT (MptConfig.tiny with ALiBi and no biases, as MPT-7B), f32
+    params from a CPU generator copied to the card: greedy tokens (B=2,
+    12-token prompt, 8 new) equal on the card and the CPU, the prompt's
+    logits within 1e-4 absolute (f32, TF32 off). -> the largest logit
+    difference."""
+    import torch
+    from medplib_tpu_torch.models import mpt
+    from medplib_tpu_torch.utils.convert import tree_from_numpy, tree_to_numpy
+    cfg = dataclasses.replace(mpt.MptConfig.tiny(), alibi=True,
+                              learned_pos_emb=False, no_bias=True)
+    host = tree_to_numpy(mpt.init_mpt(torch.Generator().manual_seed(3), cfg,
+                                      torch.float32, "cpu"))
+    ids = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 12))
+    out = {}
+    for where in ("cpu", dev):
+        p = tree_from_numpy(host, where)
+        x = torch.as_tensor(ids, device=where)
+        logits, _ = mpt.forward(p, cfg, x)
+        out[str(where)] = (logits.cpu(),
+                           mpt.greedy_generate(p, cfg, x, 8).cpu())
+    (lc, tc_), (lg, tg) = out["cpu"], out[str(dev)]
+    err = float((lg - lc).abs().max())
+    same = torch.equal(tc_, tg)
+    log(f"[small mpt check] tiny ALiBi MPT card vs CPU: tokens equal {same}"
+        f", logits max abs diff {err:.2e}")
+    if not same or err > 1e-4:
+        raise AssertionError("tiny MPT card and CPU disagree")
+    return err
+
+
+def mpt_path(dev, card):
+    """MPT-7B at its published widths (models/mpt.mpt_7b_config: 4096 x 32
+    heads x 32 layers, expansion 4, vocabulary 50432, ALiBi, no biases),
+    bf16 params from a seeded generator on the card (~6.65 B, 13.3 GB);
+    greedy_generate at B=4, a 64-token prompt, 16 new tokens: one warm-up
+    call, two timed calls whose tokens must equal the warm-up's; no
+    kernel of the port launches (attention and products are plain
+    PyTorch, as the JAX package's are XLA). -> dict."""
+    import torch
+    from medplib_tpu_torch.models import mpt
+    from medplib_tpu_torch.utils import tree as tree_util
+    cfg = mpt.mpt_7b_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = mpt.init_mpt(torch.Generator(device=dev).manual_seed(0), cfg,
+                          torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in tree_util.leaves(params))
+    log(f"[mpt] MPT-7B bf16 {n_par / 1e9:.3f} B parameters initialized in "
+        f"{time.time() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, T, NEW = 4, 64, 16
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, T)), device=dev)
+    reset_counts()
+    first = mpt.greedy_generate(params, cfg, ids, NEW)
+    torch.cuda.synchronize()
+    times, same = [], True
+    for _ in range(2):
+        t0 = time.time()
+        toks = mpt.greedy_generate(params, cfg, ids, NEW)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        same = same and torch.equal(toks, first)
+    expect_counts("mpt", kernel_counts())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dt = sum(times) / len(times)
+    tok_s = B * NEW / dt
+    log(f"[mpt] greedy B={B} x {T} prompt tokens + {NEW} new: "
+        f"{', '.join(f'{t:.3f}' for t in times)} s per call -> "
+        f"{tok_s:.1f} new tokens/s; repeat tokens equal {same}; ids in "
+        f"range {bool((first >= 0).all() and (first < cfg.vocab_size).all())}"
+        f"; peak allocated {peak:.2f} GiB on {card}")
+    if not same or tuple(first.shape) != (B, NEW):
+        raise AssertionError("mpt: repeated greedy calls differ")
+    del params
+    torch.cuda.empty_cache()
+    return {"tok_s": tok_s, "peak": peak, "s_call": dt}
 
 
 # ---------------------------------------------------------------------------
@@ -2043,7 +2547,7 @@ def main_path(dev, results, card):
         gmm_int4h=3 * L, moe_ffn_decode_int4h=L * NEW)
     for n in ("gmm_int4h", "moe_ffn_decode_int4h"):
         results[n]["launches"] = counts[n]
-    profile_step(lambda: run(batch))
+    profile_step(lambda: run(batch), always=True)
     # B=1: 623 tokens take the capacity-sort prefill; decode still K2
     serve_single("main", lambda: run(single), cfg, NEW,
                  moe_ffn_decode_int4h=L * NEW)
@@ -2411,7 +2915,7 @@ def engine_profile(params, cfg, dev, slots=12, chunk=8):
         one_chunk()
         log(f"[engine profile] one decode chunk of {chunk} steps, "
             f"{slots} slots, int8 KV:")
-        profile_step(one_chunk)
+        profile_step(one_chunk, always=True)
         del st, holder
         # E3's unit of admission work: one B=1 extend of 256 tokens
         e, am, sm, carry = medplib.stream_prefill_begin(
@@ -3711,9 +4215,17 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 
 
 def main() -> int:
+    global PROFILES
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if sys.argv[1:2] == ["--profiles"]:
+        PROFILES = True
+    elif sys.argv[1:] and sys.argv[1] not in ("--k2-equal-share",
+                                              "--icl-profile"):
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--k2-equal-share"]:
         k2_equal_share(sys.argv[2])
@@ -3735,11 +4247,25 @@ def main() -> int:
         ", ".join(f"{m} {importlib.util.find_spec(m) is not None}"
                   for m in ("PIL", "requests", "cv2", "transformers")))
 
+    t_run = t_lap = time.time()
+
+    def lap(what):
+        """Log the phase's seconds, then collect garbage: reference cycles
+        (threads, servers, closures of a phase) can hold a 7B tree until
+        a full collection, which would inflate the next phase's peak."""
+        nonlocal t_lap
+        gc.collect()
+        torch.cuda.empty_cache()
+        now = time.time()
+        log(f"[time] {what}: {now - t_lap:.1f} s (run {now - t_run:.1f} s)")
+        t_lap = now
+
     t0 = time.time()
     _build.load_library()
     log(f"[build] {time.time() - t0:.1f} s -> {_build.library_path()}\n"
         f"{_build.build_log.strip()}")
     sass_phase(_build.library_path(), _build.build_log)
+    lap("build and SASS counts")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -3752,6 +4278,7 @@ def main() -> int:
     ragged_phase(gen, dev)
     flash_phase(gen, dev, results)
     torch.cuda.empty_cache()
+    lap("kernel phases")
     small_check(dev)
     small_int8_check(dev)
     small_packed_check(dev, 8)
@@ -3762,22 +4289,39 @@ def main() -> int:
     cli_check(dev)
     small_engine_check(dev)
     small_worker_check(dev)
+    small_export_check(dev)
+    small_mpt_check(dev)
+    lap("small card-vs-CPU checks")
     masks_per_s, peak, params = main_path(dev, results, card)
+    lap("main path")
     engine = engine_path(dev, results, card, params)
+    lap("engine path")
     t0 = time.time()
     front = worker_path(dev, card, params, engine["E1"]["tok_s"])
     log(f"[W1, W2] done in {time.time() - t0:.1f} s")
+    lap("front end")
     evr = eval_path(dev, card, params)
     del params
     torch.cuda.empty_cache()
+    lap("eval path")
     region = region_path(dev, results, card)
     torch.cuda.empty_cache()
+    lap("region path")
     int8 = int8_path(dev, results, card)
     torch.cuda.empty_cache()
+    lap("int8 path")
     packed = packed_path(dev, results, card)
+    lap("packed path")
     tokens_per_s, train_peak = train_phase(dev, results, card)
     torch.cuda.empty_cache()
-    stage4 = moe_train_phase(dev, card)
+    lap("stage-3 training")
+    stage4 = moe_train_phase(dev, card, keep_params=True)
+    lap("stage-4 training")
+    exp = export_path(dev, card, stage4.pop("params"), masks_per_s)
+    torch.cuda.empty_cache()
+    lap("export path")
+    mptr = mpt_path(dev, card)
+    lap("mpt path")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -3820,7 +4364,13 @@ def main() -> int:
           f"{front['w2_s']:.3f} s/request; evaluation B=16 seg "
           f"{evr['seg_s']:.4f} / vqa {evr['vqa_s']:.4f} s/sample; RAG "
           f"index {evr['rag_img_s']:.2f} images/s; AMG "
-          f"{evr['amg_masks_s']:.2f} masks/s; {card}",
+          f"{evr['amg_masks_s']:.2f} masks/s; export (stage-4 tree merged, "
+          f"int4h) B=16 {exp['masks_s']:.3f} masks/s (main path "
+          f"{masks_per_s:.3f}), merged logits rel err {exp['rel']:.3e}, "
+          f"top-1 agreement {exp['agree']:.4f}, CLI round trip "
+          f"{exp['cli_s']:.1f} s; MPT-7B greedy B=4 {mptr['tok_s']:.1f} "
+          f"new tokens/s, peak {mptr['peak']:.2f} GiB; run "
+          f"{time.time() - t_run:.1f} s; {card}",
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,14 +5,17 @@ The classes carry the same names, fields and defaults as the JAX package's
 port, and the GPU machine that runs it, never import the JAX package.
 `flagship_cfg` is the counterpart of __graft_entry__._flagship_cfg,
 `with_icl` of the JAX package's config.with_icl, and `tiny_cli_config` of
-its tiny_cli_config; the special-token names are its too.
+its tiny_cli_config; the special-token names are its too. `to_json` /
+`from_json` write and read the JAX package's JSON (the same `__type__`
+tags), so a config persisted by either package loads in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 IGNORE_INDEX = -100
 IMAGE_TOKEN_INDEX = -200
@@ -203,6 +206,20 @@ class MedplibConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axes: data (DP), expert (EP for MoE dispatch), model
+    (TP)."""
+
+    data: int = 1
+    expert: int = 1
+    model: int = 1
+
+    @property
+    def total(self) -> int:
+        return self.data * self.expert * self.model
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (the stage-3 recipe's defaults)."""
 
@@ -235,6 +252,48 @@ class TrainConfig:
     log_steps: int = 10
     # sequence budget (model_max_length)
     max_seq_len: int = 1024
+
+
+# ---------------------------------------------------------------------------
+# JSON round trip (configs persist beside checkpoints, so an exported model
+# describes itself)
+# ---------------------------------------------------------------------------
+
+_CONFIG_TYPES = {
+    c.__name__: c
+    for c in (LlamaConfig, MoeConfig, ClipVisionConfig, SamConfig,
+              ProjectorConfig, SegConfig, MedplibConfig, MeshConfig,
+              TrainConfig)
+}
+
+
+def to_json(cfg: Any) -> str:
+    def enc(o):
+        if dataclasses.is_dataclass(o):
+            d = {f.name: enc(getattr(o, f.name)) for f in dataclasses.fields(o)}
+            d["__type__"] = type(o).__name__
+            return d
+        if isinstance(o, (list, tuple)):
+            return [enc(v) for v in o]
+        return o
+    return json.dumps(enc(cfg), indent=2)
+
+
+def from_json(s: str) -> Any:
+    def dec(o):
+        if isinstance(o, dict) and "__type__" in o:
+            cls = _CONFIG_TYPES[o.pop("__type__")]
+            # unknown keys (an older schema's fields) are dropped
+            known = {f.name for f in dataclasses.fields(cls)}
+            kwargs = {k: dec(v) for k, v in o.items() if k in known}
+            for f in dataclasses.fields(cls):
+                if f.name in kwargs and isinstance(kwargs[f.name], list):
+                    kwargs[f.name] = tuple(kwargs[f.name])
+            return cls(**kwargs)
+        if isinstance(o, list):
+            return [dec(v) for v in o]
+        return o
+    return dec(json.loads(s))
 
 
 def flagship_cfg(num_layers: int = 32, moe: bool = True) -> MedplibConfig:

@@ -178,11 +178,36 @@ def trainable_mask(params: Params, sft_modules: Sequence[str]) -> Params:
 def dequant_kernel(p: Params, dtype) -> torch.Tensor:
     """The kernel as `dtype`: int8 nodes multiply by their per-channel
     scale in `dtype` (as the JAX package does), int4h nodes dequantize
-    through dequant_int4h, float kernels pass through."""
+    through dequant_int4h, float kernels pass through.
+
+    int4 "block" nodes ({kernel nibble-packed int8, scale4 f32}, written
+    by utils/quantize._quantize_kernel4) unpack both nibbles, sign-extended
+    by shifts, interleave them back along the reduction axis (low nibble
+    = even row) and scale each block, all in `dtype`; scale4 is
+    [.., nb, 1, out] for [in, out] kernels and [.., out, nb, 1] for the
+    transposed ones, told apart by its last axis being 1."""
     kern = p["kernel"]
     if "scale4h" in p:
         from medplib_tpu_torch.utils.quantize import dequant_int4h
         return dequant_int4h(kern, p["scale4h"], dtype)
+    if "scale4" in p:
+        from medplib_tpu_torch.utils.quantize import _unpack
+        s = p["scale4"]
+        transposed = s.shape[-1] == 1
+        axis = kern.dim() - 1 if transposed else kern.dim() - 2
+        w = torch.stack([_unpack(kern, True, dtype),
+                         _unpack(kern, False, dtype)], dim=axis + 1)
+        full = kern.shape[:axis] + (2 * kern.shape[axis],) \
+            + kern.shape[axis + 1:]
+        w, s = w.reshape(full), s.to(dtype)
+        if transposed:
+            nb = s.shape[-2]
+            w = w.reshape(w.shape[:-1] + (nb, w.shape[-1] // nb)) * s
+        else:
+            nb = s.shape[-3]
+            w = w.reshape(w.shape[:-2] + (nb, w.shape[-2] // nb,
+                                          w.shape[-1])) * s
+        return w.reshape(full)
     if kern.dtype == torch.int8:
         return kern.to(dtype) * p["scale"].to(dtype)
     return kern

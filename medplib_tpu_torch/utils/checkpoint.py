@@ -40,14 +40,28 @@ def _to_template(loaded: Any, template: Any, path: str = "") -> Any:
     return loaded
 
 
+def _own_storage(tree: Any) -> Any:
+    """torch.save writes a view's whole storage: a leaf that is a view of
+    a larger tensor (one layer of a stack) is copied out first."""
+    if isinstance(tree, dict):
+        return {k: _own_storage(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_own_storage(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and \
+            tree.untyped_storage().nbytes() > tree.numel() * tree.element_size():
+        return tree.clone()
+    return tree
+
+
 def save_params(path: str, params: Any) -> None:
-    """Write a params tree to one file (whole or not at all)."""
+    """Write a params tree to one file (whole or not at all). Leaves that
+    view a larger storage are written as their own elements only."""
     path = os.path.abspath(path)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), prefix="tmp",
                                suffix=".pt")
     os.close(fd)
     try:
-        torch.save(params, tmp)
+        torch.save(_own_storage(params), tmp)
         os.replace(tmp, path)
     except BaseException:
         os.unlink(tmp)

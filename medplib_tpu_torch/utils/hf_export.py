@@ -7,16 +7,21 @@ leaf for leaf: DeepSpeed MoE expert naming, the Residual-MoE dense copy
 
 Values are views of the tree's tensors wherever the layout allows (a
 transpose, a layer of a stack), so a state dict of a 7B tree costs no
-second copy. Writing the dict to disk (save_hf_dir) is not ported.
+second copy. save_hf_dir writes a dict as an HF directory of safetensors
+shards (utils/_safetensors, no `safetensors` package), one tensor at a
+time through host memory.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping
+import json
+import os
+from typing import Any, Dict, Iterable, Mapping, Optional
 
 import torch
 
 from medplib_tpu_torch.config import LlamaConfig, MedplibConfig, SamConfig
+from medplib_tpu_torch.utils import _safetensors
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -243,3 +248,42 @@ def medplib_to_hf(params: Mapping[str, Any], cfg: MedplibConfig) -> StateDict:
         sd.update(sam_to_torch(params["sam"], cfg.sam,
                                prefix="model.visual_model."))
     return sd
+
+
+def save_hf_dir(sd: Mapping[str, torch.Tensor], out_dir: str,
+                config_json: Optional[str] = None,
+                shard_bytes: int = 4 * 1024 ** 3) -> None:
+    """Write a state dict as an HF-style directory of safetensors shards:
+    model.safetensors, or, past `shard_bytes`, model-0000N-of-0000M.
+    safetensors and model.safetensors.index.json (shards split as the
+    JAX package's save_hf_dir splits them); plus config.json when
+    `config_json` is given."""
+    os.makedirs(out_dir, exist_ok=True)
+    nb = {k: v.numel() * v.element_size() for k, v in sd.items()}
+    shards, cur, cur_bytes = [], [], 0
+    for k in sd:
+        if cur and cur_bytes + nb[k] > shard_bytes:
+            shards.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(k)
+        cur_bytes += nb[k]
+    shards.append(cur)
+    if len(shards) == 1:
+        _safetensors.save_file({k: sd[k] for k in shards[0]},
+                               os.path.join(out_dir, "model.safetensors"))
+    else:
+        index = {"metadata": {"total_size": sum(nb.values())},
+                 "weight_map": {}}
+        n = len(shards)
+        for si, keys in enumerate(shards):
+            fname = f"model-{si + 1:05d}-of-{n:05d}.safetensors"
+            _safetensors.save_file({k: sd[k] for k in keys},
+                                   os.path.join(out_dir, fname))
+            for k in keys:
+                index["weight_map"][k] = fname
+        with open(os.path.join(out_dir,
+                               "model.safetensors.index.json"), "w") as f:
+            json.dump(index, f, indent=2)
+    if config_json is not None:
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            f.write(config_json)

@@ -6,6 +6,9 @@
   LOW nibble of packed row r and row 2r+1 its HIGH nibble, both
   sign-extended; {"kernel": packed int8, "scale4h": f32} with `groups`
   contiguous logical scale groups along the reduction axis.
+- int4 "block" (int4_scheme="block"): the same nibble packing with one
+  f32 scale per `block` reduction rows, {"kernel", "scale4"}; finer
+  scales, no fused matmul (train/lora.dequant_kernel materializes it).
 
 Also the int4h matmuls of the 2D int4h linears (`int4h_matmul(_t)`: one
 pair of products per scale group, in the activation dtype, as the JAX
@@ -98,14 +101,49 @@ def _quantize_kernel4h(kernel: torch.Tensor, transposed: bool, groups: int):
     return _map_leading(one, kernel)
 
 
+@torch.no_grad()
+def _quantize_kernel4(kernel: torch.Tensor, transposed: bool, block: int):
+    """Blockwise int4 along the reduction axis, nibble-packed (even rows
+    low, odd rows high). Normal [.., in, out] -> packed [.., in/2, out] +
+    scale4 [.., nb, 1, out]; transposed [.., out, in] -> packed
+    [.., out, in/2] + scale4 [.., out, nb, 1]. A `block` that does not
+    divide `in` gives one block."""
+
+    def one(k2):
+        w = k2.float()
+        if transposed:
+            o, i = w.shape
+            b = block if i % block == 0 else i
+            wb = w.reshape(o, i // b, b)
+            scale = wb.abs().amax(dim=-1, keepdim=True) * (1 / 7)
+        else:
+            i, o = w.shape
+            b = block if i % block == 0 else i
+            wb = w.reshape(i // b, b, o)
+            scale = wb.abs().amax(dim=-2, keepdim=True) * (1 / 7)
+        q = torch.round(wb / scale.clamp(min=1e-12)).clamp(-8, 7).to(
+            torch.int8).reshape(w.shape)
+        packed = (_pack_pairs(q[:, 0::2], q[:, 1::2]) if transposed
+                  else _pack_pairs(q[0::2], q[1::2]))
+        return packed.contiguous(), scale.contiguous()
+
+    return _map_leading(one, kernel)
+
+
 def quantize_tree(params: Any, skip: Sequence[str] = SKIP_MODULES,
-                  bits: int = 8, int4_groups: int = 8) -> Any:
+                  bits: int = 8, block: int = 64,
+                  int4_scheme: str = "half", int4_groups: int = 8) -> Any:
     """Replace eligible linear kernels (>= 2D, >= 4096 elements, not under
     a `skip` module) in place: bits=8 -> {"kernel": int8, "scale": f32},
-    bits=4 -> {"kernel": packed int8, "scale4h": f32}. Already quantized
-    nodes are left alone. Mutates and returns `params`."""
+    bits=4 -> {"kernel": packed int8, "scale4h": f32} (int4_scheme
+    "half", `int4_groups` scale groups) or {"kernel": packed int8,
+    "scale4": f32} (int4_scheme "block", one scale per `block` rows).
+    Already quantized nodes are left alone. Mutates and returns
+    `params`."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if int4_scheme not in ("half", "block"):
+        raise ValueError(f"unknown int4_scheme {int4_scheme!r}")
 
     def rec(node, path):
         if isinstance(node, dict):
@@ -118,16 +156,20 @@ def quantize_tree(params: Any, skip: Sequence[str] = SKIP_MODULES,
                     transposed = (path[-1] if path else "") in \
                         TRANSPOSED_KERNELS
                     node["kernel"] = None
-                    if bits == 4:
+                    if bits == 4 and int4_scheme == "half":
                         q, s = _quantize_kernel4h(k, transposed, int4_groups)
                         node["kernel"], node["scale4h"] = q, s
+                    elif bits == 4:
+                        q, s = _quantize_kernel4(k, transposed, block)
+                        node["kernel"], node["scale4"] = q, s
                     else:
                         out_axis = k.dim() - 2 if transposed else k.dim() - 1
                         q, s = _quantize_kernel(k, out_axis)
                         node["kernel"], node["scale"] = q, s
                     del k
                     for kk, vv in node.items():
-                        if kk not in ("kernel", "scale", "scale4h"):
+                        if kk not in ("kernel", "scale", "scale4",
+                                      "scale4h"):
                             node[kk] = rec(vv, path + (kk,))
                     return node
             for k2, v in node.items():
@@ -138,6 +180,38 @@ def quantize_tree(params: Any, skip: Sequence[str] = SKIP_MODULES,
         return node
 
     return rec(params, ())
+
+
+def dequantize_matmul(x: torch.Tensor, p: dict,
+                      transposed: bool) -> torch.Tensor:
+    """x @ (int8 kernel * scale), dequantized in x.dtype; transposed
+    [.., out, in] kernels carry scale [.., out, 1]."""
+    w = p["kernel"].to(x.dtype) * p["scale"].to(x.dtype)
+    if transposed:
+        return torch.einsum("...i,oi->...o", x, w)
+    return x @ w
+
+
+def dequantize_tree(params: Any, dtype=torch.bfloat16) -> Any:
+    """Inverse of quantize_tree: every quantized kernel materialized back
+    to `dtype` (train/lora.dequant_kernel) and its scale leaf dropped, so
+    a quantized tree can be merged or exported. Mutates the tree."""
+    from medplib_tpu_torch.train.lora import dequant_kernel
+
+    def rec(node):
+        if isinstance(node, dict):
+            if any(s in node for s in ("scale", "scale4", "scale4h")):
+                node["kernel"] = dequant_kernel(node, dtype)
+                for s in ("scale", "scale4", "scale4h"):
+                    node.pop(s, None)
+            for v in node.values():
+                rec(v)
+        elif isinstance(node, list):
+            for v in node:
+                rec(v)
+
+    rec(params)
+    return params
 
 
 def pad_moe_experts_for_gmm(experts: Any, align: int = 1024) -> Any:
@@ -158,6 +232,28 @@ def pad_moe_experts_for_gmm(experts: Any, align: int = 1024) -> Any:
         pads = (0, mp) if n != "down_proj" else (0, 0, 0, mp)
         node["kernel"] = torch.nn.functional.pad(k, pads)
     return experts
+
+
+def pad_dense_mlp_for_gmm(mlp: Any, align: int = 1024) -> Any:
+    """The dense SwiGLU MLP's M zero-padded to a multiple of `align`
+    (gate/up [L, H, M] -> [L, H, M'], down [L, M, H] -> [L, M', H]);
+    exact, as pad_moe_experts_for_gmm. It may run after int8
+    quantization: gate / up's per-channel scale pads with the out axis
+    (zero scales), down's scale [L, 1, H] stays. int4 layouts must be
+    padded before quantization. Mutates and returns `mlp`."""
+    m = mlp["gate_proj"]["kernel"].shape[-1]
+    mp = -m % align
+    if mp == 0:
+        return mlp
+    for n in ("gate_proj", "up_proj", "down_proj"):
+        node = mlp[n]
+        assert not any(s in node for s in ("scale4", "scale4h")), \
+            "int4 layouts must be padded before quantization"
+        pads = (0, mp) if n != "down_proj" else (0, 0, 0, mp)
+        node["kernel"] = torch.nn.functional.pad(node["kernel"], pads)
+        if "scale" in node and n != "down_proj":
+            node["scale"] = torch.nn.functional.pad(node["scale"], (0, mp))
+    return mlp
 
 
 def quantize_flagship_moe(params: Any, expert_bits: int = 4,

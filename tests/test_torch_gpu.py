@@ -820,3 +820,44 @@ def test_stage4_step_and_validate_at_two_layers(dev):
     import chip_smoke as cs
     out = cs.moe_train_phase(dev, cs.gpu_line(), layers=2)
     assert out["tok_s"] > 0 and len(out["aux"]) == 8
+
+
+def test_export_pipeline_card_matches_cpu(dev):
+    """The tiny int4h MoE serving model with LoRA q / v: merge_lora ->
+    quantize_flagship_moe -> generate on the card and on the CPU, tokens
+    and masks as the tiny checks hold them, K1 6 / K2 8 on the card
+    (chip_smoke.small_export_check)."""
+    import chip_smoke as cs
+    cs.small_export_check(dev)
+
+
+def test_block_int4_linear_card_matches_cpu(dev):
+    """int4_scheme="block" on the card and on the CPU: equal packed bytes
+    and scales, linear / linear_t within 1e-5 norm-relative in f32, at
+    a 1024 x 2816 kernel and its transpose
+    (chip_smoke.block_int4_check)."""
+    import chip_smoke as cs
+    w = torch.randn((1024, 2816), generator=torch.Generator().manual_seed(0))
+    out = cs.block_int4_check(dev, w.to(torch.bfloat16))
+    assert set(out) == {"up_proj", "q_proj"}
+
+
+def test_mpt_tiny_card_matches_cpu(dev):
+    """A tiny ALiBi MPT in f32: greedy tokens equal on the card and the
+    CPU, logits within 1e-4 (chip_smoke.small_mpt_check)."""
+    import chip_smoke as cs
+    assert cs.small_mpt_check(dev) <= 1e-4
+
+
+def test_export_path_at_two_layers(dev):
+    """The stage-4 phase at full width and 2 layers, then export_path on
+    its trained tree: the merge held element by element and in the
+    teacher-forced logits, the file tools and the command line round
+    trip, the exported decoder, block int4, and the merged tree served
+    (K1 6, K2 20 a call; repeats equal)."""
+    import chip_smoke as cs
+    from medplib_tpu_torch.config import flagship_cfg
+    out = cs.moe_train_phase(dev, cs.gpu_line(), layers=2, keep_params=True)
+    exp = cs.export_path(dev, cs.gpu_line(), out.pop("params"), 0.0,
+                         cfg=flagship_cfg(2, moe=True))
+    assert exp["masks_s"] > 0 and exp["agree"] >= cs.MERGE_MIN_AGREE

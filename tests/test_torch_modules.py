@@ -87,7 +87,8 @@ def randn(*shape, scale=1.0):
 @pytest.mark.parametrize("name", ["LlamaConfig", "MoeConfig",
                                   "ClipVisionConfig", "SamConfig",
                                   "ProjectorConfig", "SegConfig",
-                                  "MedplibConfig", "TrainConfig"])
+                                  "MedplibConfig", "TrainConfig",
+                                  "MeshConfig"])
 def test_config_matches_reference(name):
     """Same fields with the same defaults as the JAX package's classes,
     and the same tiny() where the JAX class has one."""
