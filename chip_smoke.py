@@ -8,6 +8,8 @@
                                                    k2_equal_share)
     python3 chip_smoke.py --icl-profile ROOT      (ICL config 5 alone, see
                                                    icl_profile)
+    python3 chip_smoke.py --stage4-step ROOT [LAYERS]  (stage-4 steps
+                                                   alone, see stage4_step)
 
 1. Requires a CUDA device (exits non-zero otherwise) and prints the card's
    name and power limit as nvidia-smi reports them.
@@ -119,6 +121,22 @@
    B=16 request on the merged tree (K1 96, K2 320). Last, MPT-7B
    (mpt_path: 4096 x 32 layers, ALiBi, bf16 from a seed) greedy at B=4,
    64 prompt tokens, 16 new; no kernel launches there.
+   Distribution and the opt-in modules: two gloo rank processes
+   sharing the card (started after the build, params and batches through
+   CUDA IPC): after the main path, on its tree (dist_serving): EP = 2
+   (mesh (1, 2, 1), ep_shard: K1 96 a rank at prefill and at every decode
+   step, no K2) generate and the streaming entry points, equal to one
+   process with MEDPLIB_DECODE_FUSED=0; TP = 2 (mesh (1, 1, 2)) equal to
+   the main path's call (K1 96, K2 320 a rank); NCCL at world size 1 (the
+   main path's call under a (1, 1, 1) mesh, equal); then opt_in_path:
+   MEDPLIB_STACK_ATTN=1 on a B=16 prefill (K3 128), MEDPLIB_STACK_MLP=1
+   on a 2-layer dense int8 stack (K3 6), the ragged dispatch against gmm
+   on one MoE layer, the worker's device_preprocess on the 24 front-end
+   PNGs, the native preprocessing library against numpy. After the
+   stage-3 and stage-4 phases, DP = 2 (mesh (2, 1, 1)) steps against one
+   process's (dist_train_stage3 on train_phase's tree at B=8 x 1087,
+   dist_train_stage4 on the trained tree's first 2 layers with a skewed
+   router: equal drops). No speed is claimed for the two ranks.
    Each path runs with every launch count set to 0 just before it and
    read just after; each checks the outputs and repeatability and prints
    masks/s or ms/sample and peak memory. Only the main path's and the
@@ -499,6 +517,61 @@ def icl_profile(root: str) -> None:
         f"{int(first.output_ids.sum())}, {time.time() - t0:.3f} s a call; "
         f"{gpu_line()}")
     profile_step(run, top=6, always=True)
+
+
+def stage4_step(root: str, layers: int = 8) -> None:
+    """`--stage4-step ROOT [LAYERS]`: stage-4 training steps from the
+    package under ROOT (this checkout, or another commit's unpacked tree):
+    moe_train_phase's model and batch (MedPLIB-7b-2e at full width, its
+    first LAYERS layers, top-1 at capacity 1.5 through the sort dispatch,
+    LoRA q / v, B=4 x 1087 tokens x ga 8), one warm-up step and five timed
+    ones (host clock ending in a synchronize), and each step's loss. Run it
+    for two trees in one call to compare their steps."""
+    import shutil
+    import tempfile
+
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from medplib_tpu_torch.config import TrainConfig, flagship_cfg
+    from medplib_tpu_torch.models.medplib import Batch
+    from medplib_tpu_torch.ops import moe
+    from medplib_tpu_torch.ops.cuda import _build
+    from medplib_tpu_torch.train import lora, trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    dev = torch.device("cuda", 0)
+    cfg = flagship_cfg(layers, moe=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_stage4(cfg, gen, dev)
+    params["llm"] = lora.inject(gen, params["llm"], ("q_proj", "v_proj"),
+                                r=8)
+    B, T, GA = 4, 512, 8
+    rng = np.random.default_rng(0)
+    micro = [make_batch(cfg, B, T, rng, dev) for _ in range(GA)]
+    batches = Batch(*[torch.stack(xs) for xs in zip(*micro)])
+    del micro
+    tcfg = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=100,
+                       grad_accumulation_steps=GA, lora_dropout=0.05)
+    log_dir = tempfile.mkdtemp(prefix="stage4_step_")
+    try:
+        tr = trainer.Trainer(cfg, tcfg, params, log_dir)
+        del params
+        times, losses = [], []
+        for _ in range(6):
+            t0 = time.time()
+            tr.state, m = tr.step_fn(tr.state, batches)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    timed = times[1:]
+    log(f"[stage-4 step] {moe.__file__}: {layers} layers, B={B} x ga {GA}:"
+        f" warm-up {times[0]:.3f} s, steps "
+        f"{', '.join(f'{t:.3f}' for t in timed)} s (mean "
+        f"{sum(timed) / len(timed):.3f}, min {min(timed):.3f}); losses "
+        f"{losses}; {gpu_line()}")
 
 
 def _grouped_library_ms(xin, w, tile_gid, bm):
@@ -1612,12 +1685,14 @@ def profile_step(fn, top: int = 14, always: bool = False) -> None:
             f"{n:6d} x  {key[:110]}")
 
 
-def train_phase(dev, results, card):
+def train_phase(dev, results, card, keep=None):
     """The stage-3 QLoRA train step at full width (bench_train's config):
     dense LLaMA-7B + CLIP ViT-L/14-336 + SAM-Med2D ViT-B, bf16 init on the
     card from a seeded generator, the LLM int8, LoRA q/v r=8 with dropout
     0.05, B=8 x T_in=512 (1087 spliced tokens), remat; one warm-up step
-    and three timed ones (host clock ending in a synchronize)."""
+    and three timed ones (host clock ending in a synchronize). A `keep`
+    dict receives the tree as it was before the first step ("params",
+    for dist_train_stage3)."""
     import torch
     import torch.nn.functional as F
     from medplib_tpu_torch.config import TrainConfig, flagship_cfg
@@ -1639,6 +1714,8 @@ def train_phase(dev, results, card):
     tcfg = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=100)
     state, tx = trainer.create_state(params, tcfg)
     step = trainer.make_train_step(cfg, tcfg, tx)
+    if keep is not None:
+        keep["params"] = params
     before = _int8_fingerprint(state.params)
     lora_b0 = state.params["llm"]["layers"]["attn"]["q_proj"]["lora_b"]
 
@@ -4192,6 +4269,759 @@ def packed_path(dev, results, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# distribution on one card (dist_path) and the opt-in modules (opt_in_path)
+# ---------------------------------------------------------------------------
+
+# masks of a distributed generate against one process's (the JAX package's
+# sharded-decode tolerance, tests/test_sharded_decode.py)
+DIST_MASK_TOL = dict(atol=2e-3, rtol=1e-3)
+# The opt-in paths against the default ones (norm-relative). One layer's
+# op, within OPT_IN_REL_TOL: W8A8 on K3 rounds its (acc·w_s)·a_s epilogue
+# where the default path rounds acc·a_s·w_s (a bf16 ulp on a share of the
+# elements: 1.7e-3 on the CPU rehearsal); the ragged dispatch multiplies
+# bf16-dequantized weights where K1 scales f32 sums. A whole random
+# prefill compounds these roundings at every projection of every layer
+# (act-quant steps, near-tied routers): there the knob must move the
+# output no more than OPT_IN_FLOOR_FACTOR times the default path's own
+# change under a one-ulp move of every input element (its noise floor,
+# same run; the card read 6.995e-02 against a floor of 8.384e-02 for the
+# stacked attention, 1.215e-02 against 1.985e-02 for the stacked MLP).
+OPT_IN_REL_TOL = 1e-2
+OPT_IN_FLOOR_FACTOR = 1.0
+# The stacked MLP re-quantizes silu(g)·u unrounded where the default path
+# rounds it to bf16 first (as the JAX package's two paths do), so some
+# act-quant steps flip: 8.5e-3 on one layer in the CPU rehearsal.
+OPT_IN_MLP_TOL = 3e-2
+
+
+def start_rank_pair():
+    """The two rank processes of every distributed check, spawned once:
+    gloo on cuda:0 (NCCL refuses two ranks on one device; gloo stages
+    CUDA tensors through the host). Params and batches reach them through
+    CUDA IPC (no copy of a 7B tree)."""
+    from medplib_tpu_torch.parallel.dryrun import RankPool
+    return RankPool(2, device="cuda:0", backend="gloo", timeout=600,
+                    threads=2)
+
+
+def _rank_prep(shape, params, batch):
+    """(mesh, this rank's params shards, its rows of the batch)."""
+    import torch
+    from medplib_tpu_torch.config import MeshConfig
+    from medplib_tpu_torch.parallel import mesh as pm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pm.make_mesh(MeshConfig(*shape))
+    return (mesh, pm.shard_params(mesh, params),
+            pm.host_local_batch_to_global(mesh, batch))
+
+
+def _rank_serve(dev, shape, params, cfg, batch, new, ep_shard, stream):
+    """One rank of the distributed serving checks (W8A8 / W4A8 prefill as
+    the main path): generate, and with `stream` stream_prefill -> two
+    decode chunks -> stream_ground, each with its launch counts; outputs
+    all-gathered over the row shards, on the host."""
+    import torch
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.parallel import mesh as pm
+    from medplib_tpu_torch.utils.quantize import dynamic_act_quant
+    mesh, local, lb = _rank_prep(shape, params, batch)
+
+    def rows(x):
+        return mesh.all_gather(x, pm.ROWS).float().cpu()
+
+    out = {}
+    with pm.set_mesh(mesh), dynamic_act_quant(True):
+        reset_counts()
+        t0 = time.time()
+        r = medplib.generate(local, cfg, lb, max_new_tokens=new,
+                             ep_shard=ep_shard)
+        torch.cuda.synchronize()
+        out.update(gen_s=time.time() - t0, gen_counts=kernel_counts(),
+                   ids=rows(r.output_ids), masks=rows(r.pred_masks),
+                   valid=rows(r.seg_valid))
+        if stream:
+            reset_counts()
+            t0 = time.time()
+            st = medplib.stream_prefill(local, cfg, lb, new,
+                                        ep_shard=ep_shard)
+            torch.cuda.synchronize()
+            out["prefill_s"] = time.time() - t0
+            out["prefill_counts"], chunks, toks = kernel_counts(), [], []
+            t0 = time.time()
+            for n in (new // 2, new - new // 2):
+                reset_counts()
+                st, t, _ = medplib.stream_decode_chunk(local, cfg, st, n,
+                                                       ep_shard=ep_shard)
+                torch.cuda.synchronize()
+                chunks.append((n, kernel_counts()))
+                toks.append(t)
+            out["decode_s"] = time.time() - t0
+            masks, valid = medplib.stream_ground(local, cfg, lb, st)
+            out.update(chunk_counts=chunks, stream_ids=rows(
+                torch.cat(toks, 1)), stream_masks=rows(masks),
+                stream_valid=rows(valid))
+    _rank_release()
+    return out
+
+
+def _rank_release():
+    """A rank gives its cached device memory back at the end of a job (the
+    pair lives through the whole run, beside the later phases' trees)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_once(params, cfg, tcfg, batch, ep_shard=False, mesh=None):
+    """One make_train_step update of `batch` (no microbatch axis) ->
+    {loss, grad_norm, LoRA leaves before / after and their clipped
+    gradients (Adam's first moment after one update is (1 - beta1) times
+    it; whole leaves, host f32), the dropped-entry mask of every sort
+    dispatch (over the global batch, host bool), launches, seconds}."""
+    import torch
+    from medplib_tpu_torch.models.medplib import Batch
+    from medplib_tpu_torch.train import trainer
+    from medplib_tpu_torch.utils import tree as tree_util
+    t_start = time.time()
+    state, tx = trainer.create_state(params, tcfg)
+    step = trainer.make_train_step(cfg, tcfg, tx, ep_shard=ep_shard)
+    reset_counts()
+    t0 = time.time()
+    setup_s = t0 - t_start
+    with count_drops() as dropped:
+        new, m = step(state, Batch(*[None if x is None else x[None]
+                                     for x in batch]))
+        torch.cuda.synchronize()
+    secs, counts = time.time() - t0, kernel_counts()
+
+    def lora_leaves(tree):
+        if mesh is not None:
+            tree = trainer.consolidate(mesh, tree)
+        return {"/".join(p): v.float().cpu()
+                for p, v in tree_util.leaves_with_paths(tree)
+                if p[-1] in ("lora_a", "lora_b")}
+
+    paths = [p for p, _ in tree_util.leaves_with_paths(state.params)]
+    mask = (tree_util.leaves(tx.mask) if tx.mask is not None
+            else [True] * len(paths))
+    grads = {}
+    for p, mu in zip([p for p, k in zip(paths, mask) if k],
+                     new.opt_state.mu):
+        if p[-1] in ("lora_a", "lora_b"):
+            if mesh is not None:
+                mu = trainer._full(mesh, p, mu)
+            grads["/".join(p)] = mu.float().cpu() / (1 - tcfg.beta1)
+    t1 = time.time()
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "before": lora_leaves(state.params),
+           "after": lora_leaves(new.params), "grads": grads,
+           "drops": [d.cpu() for d in dropped], "counts": counts,
+           "s": secs}
+    out["setup_s"], out["post_s"] = setup_s, time.time() - t1 + (
+        t1 - t0 - secs)
+    return out
+
+
+def _rank_train(dev, shape, params, cfg, tcfg, batch, ep_shard):
+    from medplib_tpu_torch.parallel import mesh as pm
+    t0 = time.time()
+    mesh, local, lb = _rank_prep(shape, params, batch)
+    prep = time.time() - t0
+    with pm.set_mesh(mesh):
+        out = _train_once(local, cfg, tcfg, lb, ep_shard, mesh)
+    out["rank_s"] = time.time() - t0
+    out["prep_s"] = prep
+    _rank_release()
+    return out
+
+
+def _update_rel(got, want, key=None) -> float:
+    """Relative Frobenius error over the LoRA leaves of the updates
+    (after - before), or of got[key] against want[key]."""
+    num = den = 0.0
+    for k in want["after"]:
+        if key is None:
+            dw = want["after"][k] - want["before"][k]
+            dg = got["after"][k] - got["before"][k]
+        else:
+            dw, dg = want[key][k], got[key][k]
+        num += float(((dg - dw) ** 2).sum())
+        den += float((dw ** 2).sum())
+    return (num / den) ** 0.5 if den else float("inf")
+
+
+# A distributed step against one process's, relative Frobenius over the
+# LoRA leaves: their reduced gradients within DIST_GRAD_REL_TOL (bf16 sums
+# in another order), their updates within DIST_UPDATE_REL_TOL. Adam's
+# first update is lr·g / (|g| + eps): the sign of a near-zero gradient
+# element flips that element's whole update, ~1% of the lora_b elements
+# of the tiny trees of the CPU rehearsal (update rel 2.4e-2 to 7.2e-2 at
+# equal loss and gradient norm).
+DIST_GRAD_REL_TOL = 1e-2
+DIST_UPDATE_REL_TOL = 1e-1
+
+
+def _same_step(name, got, want):
+    import torch
+    lrel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    nrel = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    grel = _update_rel(got, want, "grads")
+    urel = _update_rel(got, want)
+    drops_eq = len(got["drops"]) == len(want["drops"]) and all(
+        torch.equal(a, b) for a, b in zip(got["drops"], want["drops"]))
+    log(f"[{name}] loss {got['loss']:.6f} vs one process {want['loss']:.6f}"
+        f" (rel {lrel:.2e} <= 1e-3), grad norm {got['grad_norm']:.6f} vs "
+        f"{want['grad_norm']:.6f} (rel {nrel:.2e} <= 1e-3), LoRA gradient "
+        f"rel {grel:.2e} (<= {DIST_GRAD_REL_TOL:g}), LoRA update rel "
+        f"{urel:.2e} (<= {DIST_UPDATE_REL_TOL:g}); dropped entries per "
+        f"dispatch {[int(d.sum()) for d in got['drops']]} vs "
+        f"{[int(d.sum()) for d in want['drops']]}, the same entries "
+        f"{drops_eq}; rank step {got['s']:.2f} s, one process "
+        f"{want['s']:.2f} s")
+    if lrel > 1e-3 or nrel > 1e-3 or grel > DIST_GRAD_REL_TOL \
+            or urel > DIST_UPDATE_REL_TOL or not drops_eq:
+        raise AssertionError(f"{name}: the distributed step differs from "
+                             f"one process")
+
+
+def ulp_moved(x):
+    """x with every element moved one ulp of its dtype up or down (a
+    seeded choice per element)."""
+    import torch
+    g = torch.Generator(device=x.device).manual_seed(11)
+    up = torch.rand(x.shape, generator=g, device=x.device) < 0.5
+    inf = torch.full_like(x, float("inf"))
+    return torch.nextafter(x, torch.where(up, inf, -inf))
+
+
+def _forced_logits(params, cfg, batch, k, moved=False):
+    """f32 logits of the last k positions of the spliced `batch`, weight-
+    only linears (the decode arithmetic); moved: every embedding moved one
+    ulp first."""
+    import torch
+    from medplib_tpu_torch.models import llama, medplib
+    with torch.no_grad():
+        emb, _, mask, _, _ = medplib.splice_batch(params, cfg, batch)
+        if moved:
+            emb = ulp_moved(emb)
+        hidden, _, _ = medplib._llm_forward(params, cfg, emb, mask,
+                                            train=False)
+        return llama.logits(params["llm"], hidden[:, -k:])
+
+
+def _rank_forced(dev, shape, params, cfg, batch, k, ref):
+    """One rank's teacher-forced logits against `ref` -> (rel err, top-1
+    agreement)."""
+    from medplib_tpu_torch.parallel import mesh as pm
+    mesh, local, lb = _rank_prep(shape, params, batch)
+    with pm.set_mesh(mesh):
+        got = mesh.all_gather(_forced_logits(local, cfg, lb, k), pm.ROWS)
+    out = (rel_err(got, ref),
+           float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
+    del got
+    _rank_release()
+    return out
+
+
+# TP = 2 runs the decode's weight-only linears in another arithmetic
+# (column blocks at half the width, row-parallel f32 partial sums), so
+# random weights' near-tied greedy choices can flip. It is held by its
+# teacher-forced logits against one process's within TP_FLOOR_FACTOR times
+# one process's own change under a one-ulp move of the embeddings, with no
+# more than TP_FLOOR_FACTOR times that move's top-1 flips plus one, and
+# its greedy tokens at least TP_MIN_TOKEN_AGREE equal to the main path's.
+TP_FLOOR_FACTOR = 2.0
+TP_MIN_TOKEN_AGREE = 0.98
+
+
+def _hold_generate(name, got, ids, masks, what):
+    """Log how the gathered outputs agree with one process's; -> whether
+    tokens are equal and masks within DIST_MASK_TOL."""
+    import torch
+    ids, masks = ids.float().cpu(), masks.float().cpu()
+    same = float((got["ids"] == ids).float().mean())
+    merr = float((got["masks"] - masks).abs().max())
+    ok = same == 1.0 and bool(torch.allclose(got["masks"], masks,
+                                             **DIST_MASK_TOL))
+    log(f"[{name}] tokens equal to {what}: {same * 100:.1f}%; mask max abs "
+        f"err {merr:.3e} (atol 2e-3, rtol 1e-3)")
+    return ok
+
+
+def row_count_gemm_witness(dev, cfg):
+    """The cause the EP reference rests on: cuBLAS's bf16 products at
+    shapes of the flagship's generate, over a B=16 call's rows and over
+    its first B=8 rows alone (seeded inputs): the share of those rows'
+    outputs that are bit-equal, their largest difference, and each one's
+    largest error against an f64 product. -> {name: share}."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(3)
+    h, v, vis = cfg.llm.hidden_size, cfg.vocab_size_padded, cfg.vision
+    out = {}
+    for name, m, k, n in (
+            ("decode projection (weight-only, dequantized)", 16, h, h),
+            ("decode lm_head", 16, h, v),
+            ("CLIP MLP in", 16 * (vis.num_patches + 1), vis.hidden_size,
+             vis.intermediate_size)):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device=dev)
+             / k ** 0.5).to(torch.bfloat16)
+        full = (x @ w)[:m // 2]
+        half = x[:m // 2] @ w
+        ref = x[:m // 2].double() @ w.double()
+        eq = float((full == half).float().mean())
+        log(f"[row-count witness] {name} [{m} | {m // 2}, {k}] @ [{k}, {n}]"
+            f" bf16: the first {m // 2} rows {eq * 100:.2f}% bit-equal, max"
+            f" |diff| {float((full.float() - half.float()).abs().max()):.3e};"
+            f" max error vs f64 {float((full.double() - ref).abs().max()):.3e}"
+            f" ({m} rows) / {float((half.double() - ref).abs().max()):.3e} "
+            f"({m // 2} rows)")
+        out[name] = eq
+    return out
+
+
+def dist_serving(pool, dev, card, params):
+    """EP = 2 (mesh (1, 2, 1)) and TP = 2 (mesh (1, 1, 2)) on two gloo
+    ranks sharing the card, and NCCL at world size 1, on the main path's
+    int4h flagship at full width and depth: B=16 x T_in=48, 10 new tokens,
+    W8A8 / W4A8 prefill.
+
+    EP decodes through the expert-parallel gmm (K1, three calls a layer at
+    every step, no K2). Each rank's dense layers run its 8 rows, and the
+    row count changes cuBLAS's bf16 results (logged here: one process's
+    two B=8 calls against its B=16 call, and row_count_gemm_witness), so
+    the arithmetic EP must reproduce is one process's on the same row blocks:
+    two B=8 calls with MEDPLIB_DECODE_FUSED=0; EP must equal them (tokens,
+    masks within DIST_MASK_TOL). Its agreement with the B=16 one-process
+    calls (three-call and K2 decode, the main path's) is logged: random
+    weights leave near-tied greedy choices that a last-bit change flips.
+    TP and NCCL hold the main path's call. Every check runs before the
+    first failure is raised."""
+    import torch
+    from medplib_tpu_torch.config import MeshConfig, flagship_cfg
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.parallel import mesh as pm
+    from medplib_tpu_torch.utils.quantize import dynamic_act_quant
+
+    cfg = flagship_cfg(32, moe=True)
+    L, NEW = cfg.llm.num_layers, 10
+    batch = make_batch(cfg, 16, 48, np.random.default_rng(0), dev)
+
+    def one(b, fused):
+        os.environ["MEDPLIB_DECODE_FUSED"] = "1" if fused else "0"
+        try:
+            with dynamic_act_quant(True):
+                r = medplib.generate(params, cfg, b, max_new_tokens=NEW)
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["MEDPLIB_DECODE_FUSED"]
+        return r
+
+    main_ref, k1_ref = one(batch, True), one(batch, False)
+    blocks = [one(pm.host_local_batch_to_global(
+        pm.Mesh(MeshConfig(1, 2, 1), r), batch), False) for r in (0, 1)]
+    block_ids = torch.cat([b.output_ids for b in blocks])
+    block_masks = torch.cat([b.pred_masks for b in blocks])
+    res, failed = {}, []
+    # witness of that cause, with no mesh at all: one process's two B=8
+    # calls against its one B=16 call, and cuBLAS at the model's shapes
+    _hold_generate("row-count witness", {
+        "ids": block_ids.float().cpu(), "masks": block_masks.float().cpu()},
+        k1_ref.output_ids, k1_ref.pred_masks, "one B=16 call (one process "
+        "both, no mesh, three-call K1 decode): two B=8 calls")
+    res["gemm_witness"] = row_count_gemm_witness(dev, cfg)
+    t0 = time.time()
+    ep = pool.run(_rank_serve, (1, 2, 1), params, cfg, batch, NEW, True,
+                  True)
+    res["ep_s"] = time.time() - t0
+    for rank, o in enumerate(ep):
+        chunks = [(n, c["gmm_int4h"], c["moe_ffn_decode_int4h"])
+                  for n, c in o["chunk_counts"]]
+        log(f"[dist EP=2] rank {rank}: generate {o['gen_s']:.2f} s (stream: "
+            f"prefill {o['prefill_s']:.2f} s, {NEW} decode steps "
+            f"{o['decode_s']:.2f} s); K1 / "
+            f"K2 launches: generate {o['gen_counts']['gmm_int4h']} / "
+            f"{o['gen_counts']['moe_ffn_decode_int4h']}, stream_prefill "
+            f"{o['prefill_counts']['gmm_int4h']} / "
+            f"{o['prefill_counts']['moe_ffn_decode_int4h']}, decode chunks "
+            f"(steps, K1, K2) {chunks}")
+        expect_counts(f"dist EP=2 rank {rank} generate", o["gen_counts"],
+                      gmm_int4h=3 * L * (1 + NEW))
+        expect_counts(f"dist EP=2 rank {rank} prefill", o["prefill_counts"],
+                      gmm_int4h=3 * L)
+        for n, c in o["chunk_counts"]:
+            expect_counts(f"dist EP=2 rank {rank} decode x{n}", c,
+                          gmm_int4h=3 * L * n)
+    o = ep[0]
+    if not _hold_generate("dist EP=2", o, block_ids, block_masks,
+                          "one process on the ranks' row blocks (B=8 "
+                          "calls, three-call K1 decode)"):
+        failed.append("EP = 2 against one process")
+    _hold_generate("dist EP=2", o, k1_ref.output_ids, k1_ref.pred_masks,
+                   "one B=16 call, three-call K1 decode")
+    _hold_generate("dist EP=2", o, main_ref.output_ids, main_ref.pred_masks,
+                   "the main path (B=16, K2 decode)")
+    sok = (torch.equal(o["stream_ids"], o["ids"])
+           and torch.equal(o["stream_valid"], o["valid"])
+           and torch.allclose(o["stream_masks"], o["masks"],
+                              **DIST_MASK_TOL))
+    log(f"[dist EP=2] stream_prefill -> 2 decode chunks -> stream_ground "
+        f"equal to EP generate: {sok}; EP run {res['ep_s']:.1f} s")
+    if not sok:
+        failed.append("EP = 2 streaming against EP generate")
+
+    t0 = time.time()
+    tp = pool.run(_rank_serve, (1, 1, 2), params, cfg, batch, NEW, False,
+                  False)
+    res["tp_s"] = time.time() - t0
+    for rank, o in enumerate(tp):
+        log(f"[dist TP=2] rank {rank}: generate {o['gen_s']:.2f} s")
+        expect_counts(f"dist TP=2 rank {rank}", o["gen_counts"],
+                      gmm_int4h=3 * L, moe_ffn_decode_int4h=L * NEW)
+    _hold_generate("dist TP=2", tp[0], main_ref.output_ids,
+                   main_ref.pred_masks, "the main path")
+    agree = float((tp[0]["ids"] == main_ref.output_ids.float().cpu()
+                   ).float().mean())
+    rows_eq = (tp[0]["ids"] == main_ref.output_ids.float().cpu()).all(1)
+    mask_ok = bool(torch.allclose(tp[0]["masks"][rows_eq],
+                                  main_ref.pred_masks.float().cpu()[rows_eq],
+                                  **DIST_MASK_TOL))
+    # teacher-forced, on the first 8 rows (the row-parallel sums of a
+    # weight-only prefill dominate its time): the prompt and the main
+    # path's tokens
+    rows = slice(0, 8)
+    ids = torch.cat([batch.input_ids[rows], main_ref.output_ids[rows].to(
+        batch.input_ids.dtype)], 1)
+    fb = type(batch)(*[None if x is None else x[rows] for x in batch])
+    fb = fb._replace(input_ids=ids, input_mask=torch.ones_like(ids),
+                     labels=ids)
+    k = NEW + 1
+    ref = _forced_logits(params, cfg, fb, k)
+    moved = _forced_logits(params, cfg, fb, k, moved=True)
+    floor = rel_err(moved, ref)
+    floor_agree = float((moved.argmax(-1) == ref.argmax(-1)).float().mean())
+    t0 = time.time()
+    tf = pool.run(_rank_forced, (1, 1, 2), params, cfg, fb, k, ref)[0]
+    log(f"[dist TP=2] greedy tokens {agree * 100:.1f}% equal to the main "
+        f"path's (>= {TP_MIN_TOKEN_AGREE:g}); masks of the rows with equal "
+        f"tokens within tolerance {mask_ok}; teacher-forced logits of the "
+        f"{k} generated positions of 8 rows (weight-only, "
+        f"{time.time() - t0:.1f} s): "
+        f"rel {tf[0]:.3e}, top-1 agreement {tf[1]:.4f}; one process under a"
+        f" one-ulp move of the embeddings: rel {floor:.3e}, agreement "
+        f"{floor_agree:.4f}")
+    res["tp_forced"] = (tf[0], tf[1], floor, floor_agree)
+    n_pos = ref.shape[0] * ref.shape[1]
+    flips, floor_flips = (round((1 - a) * n_pos) for a in (tf[1],
+                                                           floor_agree))
+    if (agree < TP_MIN_TOKEN_AGREE or not mask_ok
+            or tf[0] > TP_FLOOR_FACTOR * floor
+            or flips > TP_FLOOR_FACTOR * floor_flips + 1):
+        failed.append("TP = 2 against one process")
+    try:
+        res["nccl"] = nccl_world1(dev, params, cfg, batch, NEW, main_ref)
+    except AssertionError as e:
+        failed.append(str(e))
+    if failed:
+        raise AssertionError("distributed serving: " + "; ".join(failed))
+    return res
+
+
+def nccl_world1(dev, params, cfg, batch, new, ref):
+    """NCCL at world size 1: init_distributed and a (1, 1, 1) mesh, the
+    three collectives on card tensors (identities), then the main path's
+    generate under the mesh (its MoE aux sums run through NCCL): tokens
+    equal to the main path's, launches K1 3L and K2 L x new."""
+    import torch
+    import torch.distributed as dist
+    from medplib_tpu_torch.config import MeshConfig
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.parallel import mesh as pm
+    from medplib_tpu_torch.parallel.dryrun import free_port
+    from medplib_tpu_torch.utils.quantize import dynamic_act_quant
+    t0 = time.time()
+    pm.init_distributed(f"localhost:{free_port()}", 1, 0, device="cuda:0")
+    try:
+        mesh = pm.make_mesh(MeshConfig(1, 1, 1))
+        x = torch.randn(64, 96, device=dev)
+        coll = (torch.equal(mesh.all_reduce(x, pm.AXIS_NAMES), x)
+                and torch.equal(mesh.all_gather(x, pm.ROWS, dim=1), x)
+                and torch.equal(mesh.reduce_scatter(x, "model"), x))
+        with pm.set_mesh(mesh), dynamic_act_quant(True):
+            reset_counts()
+            r = medplib.generate(params, cfg, batch, max_new_tokens=new)
+            torch.cuda.synchronize()
+        counts, backend = kernel_counts(), dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    L = cfg.llm.num_layers
+    log(f"[dist NCCL world 1] backend {backend}; collectives exact {coll};"
+        f" {time.time() - t0:.1f} s with the process group")
+    expect_counts("dist NCCL world 1", counts, gmm_int4h=3 * L,
+                  moe_ffn_decode_int4h=L * new)
+    same = bool(torch.equal(r.output_ids, ref.output_ids))
+    log(f"[dist NCCL world 1] tokens equal to the main path: {same}")
+    if backend != "nccl" or not coll or not same:
+        raise AssertionError("NCCL at world size 1 differs")
+    return time.time() - t0
+
+
+def dist_train_stage3(pool, dev, card, params):
+    """DP = 2 (mesh (2, 1, 1)): one stage-3 QLoRA step of train_phase's
+    tree (before its first step) at B=8 x 1087 tokens, 4 rows a rank,
+    against one process's B=8 step (warmup 0, so the first update moves
+    the adapters; LoRA dropout 0.05, whose masks both draw for the whole
+    batch): loss and gradient norm within 1e-3, LoRA gradients and updates
+    within DIST_GRAD_REL_TOL and DIST_UPDATE_REL_TOL."""
+    from medplib_tpu_torch.config import TrainConfig, flagship_cfg
+    cfg = flagship_cfg(32, moe=False)
+    batch = make_batch(cfg, 8, 512, np.random.default_rng(0), dev)
+    tcfg = TrainConfig(lr=1e-4, warmup_steps=0, total_steps=100)
+    want = _train_once(params, cfg, tcfg, batch)
+    t0 = time.time()
+    got = pool.run(_rank_train, (2, 1, 1), params, cfg, tcfg, batch, False)
+    log(f"[dist DP=2 stage 3] ranks' job {time.time() - t0:.1f} s (in the "
+        f"ranks: mesh and shards {got[0]['prep_s']:.2f} s, state and step "
+        f"function {got[0]['setup_s']:.2f} s, the step {got[0]['s']:.2f} s,"
+        f" the results {got[0]['post_s']:.2f} s, the whole job "
+        f"{got[0]['rank_s']:.1f} s)")
+    for rank, g in enumerate(got):
+        expect_counts(f"dist DP=2 stage 3 rank {rank}", g["counts"],
+                      flash_fwd=64, flash_bwd_dq=32, flash_bwd_dkv=32)
+    _same_step("dist DP=2 stage 3", got[0], want)
+    return got[0]["s"]
+
+
+def dist_train_stage4(pool, dev, card, trained):
+    """DP = 2 (mesh (2, 1, 1)): one stage-4 step on the trained tree's
+    first 2 layers at full width (B=4 x 1087 tokens, 2 rows a rank) with
+    a skewed router (skew_router, on copies of the embedding and router)
+    so that top-1 at capacity 1.5 drops tokens: the dropped entries of
+    every dispatch equal one process's, loss and LoRA updates as stage
+    3."""
+    from medplib_tpu_torch.config import TrainConfig, flagship_cfg
+    cfg = flagship_cfg(2, moe=True)
+    llm = layer_slice(trained["llm"], 2)
+    llm["embed_tokens"] = {"embedding":
+                           llm["embed_tokens"]["embedding"].clone()}
+    llm["layers"]["moe"]["router"] = {
+        "kernel": llm["layers"]["moe"]["router"]["kernel"].clone()}
+    tree = dict(trained, llm=llm)
+    skew_router(tree)
+    batch = make_batch(cfg, 4, 512, np.random.default_rng(7), dev)
+    tcfg = TrainConfig(lr=1e-4, warmup_steps=0, total_steps=100,
+                       lora_dropout=0.05)
+    want = _train_once(tree, cfg, tcfg, batch)
+    got = pool.run(_rank_train, (2, 1, 1), tree, cfg, tcfg, batch, False)
+    if not sum(int(d.sum()) for d in want["drops"]):
+        raise AssertionError("the skewed router dropped no token")
+    _same_step("dist DP=2 stage 4", got[0], want)
+    _same_step("dist DP=2 stage 4 rank 1", got[1], want)
+    return got[0]["s"]
+
+
+def opt_in_path(dev, card, params):
+    """The opt-in modules on the card: MEDPLIB_STACK_ATTN=1 on one B=16
+    prefill of the int4h flagship (K3 W8A8 for q / k / v / o, 4 a layer)
+    against the default W8A8 path; MEDPLIB_STACK_MLP=1 on a dense int8
+    stack (2 layers at 7B width, M padded to 11264; K3 3 a layer);
+    dispatch_mode="ragged" against "gmm" (K1) on one full-width MoE layer;
+    the serving worker with device_preprocess=True on the front end's 24
+    PNG images against the host path (<= 2/255 before normalize); the
+    native preprocessing library built and loaded here, against the numpy
+    path (<= 1/255)."""
+    import torch
+    from medplib_tpu_torch import native
+    from medplib_tpu_torch.config import flagship_cfg
+    from medplib_tpu_torch.data import preprocess as pp
+    from medplib_tpu_torch.models import llama, medplib, moe_llama
+    from medplib_tpu_torch.ops import moe
+    from medplib_tpu_torch.serve import protocol
+    from medplib_tpu_torch.serve import worker as wk
+    from medplib_tpu_torch.utils import quantize as qz
+    from medplib_tpu_torch.utils.quantize import dynamic_act_quant
+
+    cfg = flagship_cfg(32, moe=True)
+    L = cfg.llm.num_layers
+    res = {}
+
+    def knob_pair(name, run, x, **want):
+        """Hold run(x) with the knob against run(x) without it within
+        OPT_IN_FLOOR_FACTOR times the default path's change under
+        ulp_moved(x); the knob's launches checked."""
+        reset_counts()
+        base = run(x)
+        torch.cuda.synchronize()
+        base_counts = kernel_counts()
+        floor = rel_err(run(ulp_moved(x)), base)
+        os.environ[name] = "1"
+        try:
+            t0 = time.time()
+            reset_counts()
+            got = run(x)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+        finally:
+            del os.environ[name]
+        counts = kernel_counts()
+        rel = rel_err(got, base)
+        log(f"[opt-in {name}=1] whole forward: rel err vs the default path "
+            f"{rel:.3e} (<= {OPT_IN_FLOOR_FACTOR:g} x the default path's "
+            f"move under a one-ulp move of its input, {floor:.3e}); "
+            f"launches "
+            f"{counts}, default {base_counts}; {secs:.2f} s")
+        expect_counts(f"opt-in {name}", counts, **want)
+        if rel > OPT_IN_FLOOR_FACTOR * floor:
+            raise AssertionError(f"{name}=1 disagrees with the default path")
+        return rel, floor
+
+    batch = make_batch(cfg, 16, 48, np.random.default_rng(0), dev)
+    with torch.no_grad():
+        emb, _, mask, _, _ = medplib.splice_batch(params, cfg, batch)
+        # one projection first: layer 0's q / o on the prefill's rows
+        from medplib_tpu_torch.ops import stacked
+        from medplib_tpu_torch.ops.norms import rms_norm
+        from medplib_tpu_torch.train.lora import linear, linear_t
+        lay0 = llama.layer_params(params["llm"]["layers"], 0)
+        h0 = rms_norm(emb, lay0["input_layernorm"]["weight"],
+                      cfg.llm.rms_norm_eps)
+        stacks = stacked.stack_attn_for_w8a8(params["llm"]["layers"],
+                                             h0.shape[0] * h0.shape[1])
+        if stacks is None:
+            raise AssertionError("the flagship's attention stacks are not "
+                                 "eligible for the stacked W8A8 path")
+        xq, xsc, rows = stacked.quantize_rows_padded(
+            h0.reshape(-1, h0.shape[-1]))
+        proj = {}
+        with dynamic_act_quant(True):
+            for n, fn in (("q_proj", linear_t), ("o_proj", linear)):
+                want_p = fn(lay0["attn"][n], h0).reshape(rows, -1)
+                got_p = stacked.stacked_w8a8_linear(stacks[n], xq, xsc, 0,
+                                                    rows)
+                proj[n] = rel_err(got_p, want_p)
+        log(f"[opt-in MEDPLIB_STACK_ATTN=1] layer 0 on the B=16 prefill's "
+            f"rows, K3 W8A8 vs the default W8A8: q_proj rel "
+            f"{proj['q_proj']:.3e}, o_proj rel {proj['o_proj']:.3e} (<= "
+            f"{OPT_IN_REL_TOL:g})")
+        if max(proj.values()) > OPT_IN_REL_TOL:
+            raise AssertionError("stacked W8A8 projection disagrees")
+
+        def prefill(e):
+            with dynamic_act_quant(True):
+                return moe_llama.forward(params["llm"], cfg.llm, cfg.moe,
+                                         e, mask, train=False)[0]
+        res["stack_attn"] = knob_pair("MEDPLIB_STACK_ATTN", prefill, emb,
+                                      gmm=4 * L, gmm_int4h=3 * L)
+
+        dcfg = flagship_cfg(2, moe=False).llm
+        gen = torch.Generator(device=dev).manual_seed(5)
+        dense = llama.init_llama(gen, dcfg, torch.bfloat16, device=dev)
+        dense = qz.quantize_tree(dense, bits=8)
+        dense["layers"]["mlp"] = qz.pad_dense_mlp_for_gmm(
+            dense["layers"]["mlp"])
+        x = torch.randn((4, 512, dcfg.hidden_size), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        mstacks = stacked.stack_mlp_for_w8a8(dense["layers"], 4 * 512)
+        if mstacks is None:
+            raise AssertionError("the padded dense MLP stacks are not "
+                                 "eligible for the stacked W8A8 path")
+        with dynamic_act_quant(True):
+            want_m = llama.dense_mlp(
+                llama.layer_params(dense["layers"], 0)["mlp"], x)
+        got_m = stacked.stacked_dense_mlp(mstacks, x, 0)
+        mlp_rel = rel_err(got_m, want_m)
+        log(f"[opt-in MEDPLIB_STACK_MLP=1] layer 0, B=4 x 512 rows: K3 W8A8 "
+            f"SwiGLU vs the default W8A8 rel {mlp_rel:.3e} (<= "
+            f"{OPT_IN_MLP_TOL:g})")
+        if mlp_rel > OPT_IN_MLP_TOL:
+            raise AssertionError("stacked W8A8 MLP disagrees")
+
+        def dense_prefill(e):
+            with dynamic_act_quant(True):
+                return llama.forward(dense, dcfg, e)[0]
+        res["stack_mlp"] = knob_pair("MEDPLIB_STACK_MLP", dense_prefill, x,
+                                     gmm=3 * dcfg.num_layers)
+        del dense
+
+        mp = llama.layer_params(params["llm"]["layers"], 0)["moe"]
+        xs, outs, times = emb, {}, {}
+        for mode in ("gmm", "ragged"):
+            reset_counts()
+            t0 = time.time()
+            outs[mode] = moe.moe_mlp(mp, xs, cfg.moe, train=False,
+                                     dispatch_mode=mode)[0]
+            torch.cuda.synchronize()
+            times[mode] = time.time() - t0
+            if mode == "gmm":
+                expect_counts("opt-in gmm layer", kernel_counts(),
+                              gmm_int4h=3)
+            else:
+                expect_counts("opt-in ragged layer", kernel_counts())
+        rel = rel_err(outs["ragged"], outs["gmm"])
+        log(f"[opt-in ragged] one MoE layer, {xs.shape[0] * xs.shape[1]} "
+            f"tokens: rel err vs gmm {rel:.3e} (<= {OPT_IN_REL_TOL:g}); "
+            f"ragged {times['ragged']:.3f} s, gmm {times['gmm']:.3f} s "
+            f"(first calls, host clock)")
+        if rel > OPT_IN_REL_TOL:
+            raise AssertionError("the ragged dispatch disagrees with gmm")
+        res["ragged"] = rel
+
+    tok = StubTokenizer(cfg.seg_token_idx, cfg.vocab_size_padded)
+    dev_w = wk.ModelWorker(cfg, params, tok, device_preprocess=True)
+    host_w = wk.ModelWorker(cfg, params, tok)
+    worst = [0.0, 0.0]
+    t_dev = t_host = 0.0
+    imgs = [protocol.decode_image_b64(p["images"][0])
+            for p in front_payloads(cfg)]
+    for img in imgs:
+        t0 = time.time()
+        a = dev_w.build_sample("<image>\nhi", img, None)
+        t1 = time.time()
+        b = host_w.build_sample("<image>\nhi", img, None)
+        t_dev, t_host = t_dev + t1 - t0, t_host + time.time() - t1
+        if tuple(a["resize_hw"]) != tuple(b["resize_hw"]):
+            raise AssertionError("device preprocess: another resize_hw")
+        worst[0] = max(worst[0], float((np.abs(a["image_sam"] - b[
+            "image_sam"]) * pp.SAM_PIXEL_STD).max()))
+        worst[1] = max(worst[1], float((np.abs(a["image_clip"] - b[
+            "image_clip"]) * pp.CLIP_STD * 255).max()))
+    log(f"[opt-in device preprocess] {len(imgs)} front-end PNGs (512 x 640)"
+        f": max |device - host| {worst[0]:.3f} (SAM) / {worst[1]:.3f} "
+        f"(CLIP) grey levels (<= 2); {t_dev * 1e3 / len(imgs):.1f} ms / "
+        f"{t_host * 1e3 / len(imgs):.1f} ms per image (device / host)")
+    if max(worst) > 2.0:
+        raise AssertionError("device preprocess differs from the host path")
+    res["devpre"] = worst
+
+    t0 = time.time()
+    loaded = native.available()
+    t_build = time.time() - t0
+    nat = [0.0, 0.0]
+    for img in imgs[:8]:
+        sam_n, _ = pp.preprocess_sam(img)
+        clip_n = pp.preprocess_clip(img)
+        pp.USE_NATIVE = False
+        try:
+            sam_p, _ = pp.preprocess_sam(img)
+            clip_p = pp.preprocess_clip(img)
+        finally:
+            pp.USE_NATIVE = True
+        nat[0] = max(nat[0], float((np.abs(sam_n - sam_p)
+                                    * pp.SAM_PIXEL_STD).max()))
+        nat[1] = max(nat[1], float((np.abs(clip_n - clip_p)
+                                    * pp.CLIP_STD * 255).max()))
+    log(f"[opt-in native] library {native.library_path().name} loaded "
+        f"{loaded} ({t_build:.1f} s with its g++ build), used "
+        f"{pp._native() is native}; max |native - numpy| {nat[0]:.2e} / "
+        f"{nat[1]:.2e} grey levels (<= 1)")
+    if not loaded or pp._native() is not native or max(nat) > 1.0:
+        raise AssertionError("the native preprocessing library failed")
+    res["native"] = nat
+    return res
+
+
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "gmm_int4h": ("medplib_tpu_torch/csrc/gmm_int4h.cu",
                   "medplib_tpu/ops/pallas/gmm.py:348"),
@@ -4223,7 +5053,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--profiles"]:
         PROFILES = True
     elif sys.argv[1:] and sys.argv[1] not in ("--k2-equal-share",
-                                              "--icl-profile"):
+                                              "--icl-profile",
+                                              "--stage4-step"):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -4232,6 +5063,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--icl-profile"]:
         icl_profile(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--stage4-step"]:
+        stage4_step(sys.argv[2], *[int(a) for a in sys.argv[3:4]])
         return 0
     sys.path.insert(0, HERE)
     from medplib_tpu_torch.ops.cuda import _build
@@ -4266,6 +5100,18 @@ def main() -> int:
         f"{_build.build_log.strip()}")
     sass_phase(_build.library_path(), _build.build_log)
     lap("build and SASS counts")
+    # the distributed checks' two rank processes start now, so that their
+    # start-up overlaps the kernel phases
+    pool = start_rank_pair()
+    try:
+        return _phases(dev, card, lap, t_run, pool)
+    finally:
+        pool.close()
+
+
+def _phases(dev, card, lap, t_run, pool) -> int:
+    """Every phase after the build, then the result lines."""
+    import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -4294,6 +5140,10 @@ def main() -> int:
     lap("small card-vs-CPU checks")
     masks_per_s, peak, params = main_path(dev, results, card)
     lap("main path")
+    dist = dist_serving(pool, dev, card, params)
+    lap("distributed serving (EP = 2, TP = 2, NCCL world 1)")
+    optin = opt_in_path(dev, card, params)
+    lap("opt-in modules")
     engine = engine_path(dev, results, card, params)
     lap("engine path")
     t0 = time.time()
@@ -4312,11 +5162,16 @@ def main() -> int:
     lap("int8 path")
     packed = packed_path(dev, results, card)
     lap("packed path")
-    tokens_per_s, train_peak = train_phase(dev, results, card)
+    keep = {}
+    tokens_per_s, train_peak = train_phase(dev, results, card, keep)
     torch.cuda.empty_cache()
     lap("stage-3 training")
+    dist["dp3_s"] = dist_train_stage3(pool, dev, card, keep.pop("params"))
+    lap("distributed stage-3 step (DP = 2)")
     stage4 = moe_train_phase(dev, card, keep_params=True)
     lap("stage-4 training")
+    dist["dp4_s"] = dist_train_stage4(pool, dev, card, stage4["params"])
+    lap("distributed stage-4 step (DP = 2)")
     exp = export_path(dev, card, stage4.pop("params"), masks_per_s)
     torch.cuda.empty_cache()
     lap("export path")
@@ -4369,7 +5224,15 @@ def main() -> int:
           f"{masks_per_s:.3f}), merged logits rel err {exp['rel']:.3e}, "
           f"top-1 agreement {exp['agree']:.4f}, CLI round trip "
           f"{exp['cli_s']:.1f} s; MPT-7B greedy B=4 {mptr['tok_s']:.1f} "
-          f"new tokens/s, peak {mptr['peak']:.2f} GiB; run "
+          f"new tokens/s, peak {mptr['peak']:.2f} GiB; distributed checks "
+          f"(two gloo ranks on one card, no speed claim): EP=2 "
+          f"{dist['ep_s']:.1f} s, TP=2 {dist['tp_s']:.1f} s, NCCL world 1 "
+          f"{dist['nccl']:.1f} s, DP=2 steps {dist['dp3_s']:.2f} / "
+          f"{dist['dp4_s']:.2f} s; opt-in rel err (noise floor) "
+          f"stack-attn {optin['stack_attn'][0]:.2e} "
+          f"({optin['stack_attn'][1]:.2e}), stack-mlp "
+          f"{optin['stack_mlp'][0]:.2e} ({optin['stack_mlp'][1]:.2e}), "
+          f"ragged {optin['ragged']:.2e}; run "
           f"{time.time() - t_run:.1f} s; {card}",
           flush=True)
     print(card, flush=True)

@@ -27,6 +27,10 @@ layout and function names so each counterpart is easy to find:
   utils           released-checkpoint loader (hf_weights, export) and its
                   inverse (hf_export), weight bridge (convert),
                   quantization, tree views, checkpoints, logging
+  parallel        the (data, expert, model) mesh over torch.distributed,
+                  sharding rules, tensor parallelism, rank pools and the
+                  multi-process dry run
+  native          the C++ preprocessing library (built at first use)
 
 It imports torch and numpy, never jax.
 """

@@ -34,12 +34,17 @@ class PrefetchLoader:
     """Iterates Batch trees with a leading [accum] microbatch axis (the
     train step's contract) on `device`, forever, loading samples
     concurrently. num_workers=0 loads synchronously in the caller's
-    thread."""
+    thread. shard=(i, n): load only block i of n of every global batch of
+    batch_size rows (a process's rows under a mesh; the index stream is
+    the same in every process)."""
 
     def __init__(self, dataset, cc: CollatorConfig, batch_size: int,
                  accum_steps: int = 1, num_workers: int = 4,
                  prefetch: int = 2, seed: int = 42, collate_fn=None,
-                 device="cuda"):
+                 device="cuda", shard=(0, 1)):
+        if batch_size % shard[1]:
+            raise ValueError(f"batch of {batch_size} rows does not split "
+                             f"over {shard[1]} shards")
         self.dataset = dataset
         self.cc = cc
         # collate_fn(samples, cc) -> (arrays, meta): data/icl_dataset's
@@ -51,6 +56,7 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.device = device
+        self.shard = shard
         self._stop = threading.Event()
 
     def _index_stream(self) -> Iterator[list]:
@@ -68,6 +74,9 @@ class PrefetchLoader:
             yield micro_groups
 
     def _build(self, micro_groups, pool: Optional[ThreadPoolExecutor]):
+        i, n = self.shard
+        c = self.batch_size // n
+        micro_groups = [g[i * c:(i + 1) * c] for g in micro_groups]
         if pool is not None:
             flat = [i for g in micro_groups for i in g]
             it = iter(list(pool.map(self.dataset.__getitem__, flat)))

@@ -13,10 +13,12 @@ Region:    resize the mask's longest side to 336 -> center-pad 336 -> 1/14
 
 Two resamplers, both the separable triangle filter of PIL's BILINEAR:
 
-- `_resize_float` is what the JAX package runs by default for uint8 RGB
-  images (its C++ library, medplib_tpu/native/preprocess.cpp): per-axis
-  weights computed in double and stored as float32, float32 sums in tap
-  order, no uint8 rounding. preprocess_sam / preprocess_clip use it.
+- the float resampler of the C++ library (the port's copy of it,
+  medplib_tpu_torch/native, built at first use): per-axis weights computed
+  in double and stored as float32, float32 sums in tap order, no uint8
+  rounding. preprocess_sam / preprocess_clip run the library on uint8 RGB
+  images when it loads (`_native`, USE_NATIVE as in the JAX package), else
+  `_resize_float`, the same computation in numpy.
 - `resize_longest_side` is PIL's `Image.resize(..., BILINEAR)`, which the
   JAX package calls for masks and as its fallback: on uint8 images PIL's
   fixed-point arithmetic (22-bit weights, a uint8 rounding after each
@@ -176,8 +178,27 @@ def _is_rgb_u8(image: np.ndarray) -> bool:
     return image.ndim == 3 and image.dtype == np.uint8
 
 
+def _native():
+    """The native library's wrappers (medplib_tpu_torch/native): lazy,
+    cached, None where it does not build or load."""
+    global _NATIVE
+    if _NATIVE is _UNSET:
+        from medplib_tpu_torch import native
+        _NATIVE = native if native.available() else None
+    return _NATIVE
+
+
+_UNSET = object()
+_NATIVE = _UNSET
+USE_NATIVE = True
+
+
 def preprocess_sam(image_rgb: np.ndarray, size: int = 256):
     """-> (pixels [size, size, 3] f32 normalized, resize_hw before pad)."""
+    nat = _native() if USE_NATIVE else None
+    if nat is not None and _is_rgb_u8(image_rgb):
+        return nat.sam_preprocess(image_rgb, size, SAM_PIXEL_MEAN,
+                                  SAM_PIXEL_STD)
     if _is_rgb_u8(image_rgb):
         resize_hw = _longest_side_hw(*image_rgb.shape[:2], size)
         resized = _resize_float(image_rgb, *resize_hw)
@@ -190,6 +211,9 @@ def preprocess_sam(image_rgb: np.ndarray, size: int = 256):
 
 def preprocess_clip(image_rgb: np.ndarray, size: int = 336) -> np.ndarray:
     """-> [size, size, 3] f32, CLIP-normalized."""
+    nat = _native() if USE_NATIVE else None
+    if nat is not None and _is_rgb_u8(image_rgb):
+        return nat.clip_preprocess(image_rgb, size, CLIP_MEAN, CLIP_STD)
     if _is_rgb_u8(image_rgb):
         resized = _resize_float(
             image_rgb, *_longest_side_hw(*image_rgb.shape[:2], size))

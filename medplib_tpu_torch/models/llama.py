@@ -13,6 +13,17 @@ Packed trees (`pack_inference`): q/k/v fuse into one transposed
 on K7 (ops/cuda/int8_matmul), an int4h one on K9 (ops/cuda/int4_matmul),
 a float one on the LoRA linear.
 
+Tensor parallelism (parallel/tp.py): under a mesh with a model axis the
+layers run on the rank's heads and MLP block (`tp.local_cfg`), q / k / v
+and gate / up column-parallel, o / down row-parallel with a sum over
+`model`, the embedding and lm_head split on the vocabulary; the cache holds
+the rank's heads.
+
+Opt-in whole-stack W8A8 prefill (ops/stacked.py, MEDPLIB_STACK_ATTN=1 /
+MEDPLIB_STACK_MLP=1, both 0 by default as in the JAX package): under
+dynamic_act_quant at S >= 1024, the attention projections or the dense MLP
+of an int8 tree run on K3 with the layer index as the group id.
+
 KV cache: prefill, decode and the chunked-prefill extend write the cache
 IN PLACE (the JAX package returns a new cache), so a decode loop never
 copies it. With quant=True it holds int8 k / v and f32
@@ -28,6 +39,7 @@ explicitly, so its recompute sees what its forward saw.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -45,6 +57,7 @@ from medplib_tpu_torch.ops.attention import (causal_attention,
 from medplib_tpu_torch.ops.initializers import dense_init, embed_init
 from medplib_tpu_torch.ops.norms import rms_norm
 from medplib_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from medplib_tpu_torch.parallel import tp
 from medplib_tpu_torch.train import lora
 from medplib_tpu_torch.train.lora import linear, linear_t
 from medplib_tpu_torch.utils.quantize import (act_quant_enabled,
@@ -69,6 +82,7 @@ class KVCache:
     def init(cfg: LlamaConfig, batch: int, max_len: int,
              dtype=torch.bfloat16, device="cuda",
              quant: bool = False) -> "KVCache":
+        cfg = tp.local_cfg(cfg)        # a model rank caches its heads
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.head_dim)
         zeros = lambda s, dt: torch.zeros(s, dtype=dt,  # noqa: E731
@@ -162,12 +176,17 @@ def _packed_linear(p: Params, x: torch.Tensor, transposed: bool):
 
 def dense_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: down(silu(gate(x)) * up(x)); one wide gate-up product on a
-    packed tree."""
+    packed tree. Under tensor parallelism gate / up give the rank's block
+    of the intermediate and down sums the blocks' products."""
     if "gateup_proj" in p:
-        gate, up = _packed_linear(p["gateup_proj"], x, False).chunk(2, -1)
+        node = p["gateup_proj"]
+        half = node["kernel"].shape[-1] // 2
+        node = tp.packed_local(node, (half, half), False)
+        gate, up = _packed_linear(node, x, False).chunk(2, -1)
     else:
-        gate, up = linear(p["gate_proj"], x), linear(p["up_proj"], x)
-    return linear(p["down_proj"], _silu(gate) * up)
+        gate = tp.column_linear(p["gate_proj"], x)
+        up = tp.column_linear(p["up_proj"], x)
+    return tp.row_linear(p["down_proj"], _silu(gate) * up)
 
 
 def dense_mlp_layer(layer_p: Params, x: torch.Tensor):
@@ -177,15 +196,25 @@ def dense_mlp_layer(layer_p: Params, x: torch.Tensor):
 MlpApply = Callable[[Params, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg: LlamaConfig, cos, sin):
+def _qkv(p: Params, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
+         stacked: Optional[Params] = None, layer_idx: int = 0):
     b, t, _ = x.shape
-    if "qkv_proj" in p:        # packed: one wide product, split on columns
-        qd = cfg.num_heads * cfg.head_dim
-        kd = cfg.num_kv_heads * cfg.head_dim
-        q, k, v = _packed_linear(p["qkv_proj"], x, True).split(
-            [qd, kd, kd], dim=-1)
+    qd = cfg.num_heads * cfg.head_dim
+    kd = cfg.num_kv_heads * cfg.head_dim
+    if stacked is not None:    # ops/stacked: one quant pass, three K3 calls
+        from medplib_tpu_torch.ops.stacked import (quantize_rows_padded,
+                                                   stacked_w8a8_linear)
+        xq, xsc, rows = quantize_rows_padded(x.reshape(b * t, -1))
+        q, k, v = (stacked_w8a8_linear(stacked[n], xq, xsc, layer_idx, rows)
+                   .to(x.dtype) for n in ("q_proj", "k_proj", "v_proj"))
+    elif "qkv_proj" in p:        # packed: one wide product, split on columns
+        node = p["qkv_proj"]
+        if tp.model_axis() is not None:   # cfg is the rank's (local_cfg)
+            m = tp.model_axis()[1]
+            node = tp.packed_local(node, (qd * m, kd * m, kd * m), True)
+        q, k, v = _packed_linear(node, x, True).split([qd, kd, kd], dim=-1)
     else:
-        q, k, v = (linear_t(p[n], x)
+        q, k, v = (tp.column_linear(p[n], x, transposed=True)
                    for n in ("q_proj", "k_proj", "v_proj"))
     q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
@@ -195,13 +224,24 @@ def _qkv(p: Params, x: torch.Tensor, cfg: LlamaConfig, cos, sin):
 
 def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: LlamaConfig,
                           cos, sin, attn_mask: Optional[torch.Tensor],
-                          mlp_apply: MlpApply):
-    """-> (x', (k, v), aux)."""
+                          mlp_apply: MlpApply,
+                          attn_stacked: Optional[Params] = None,
+                          layer_idx: int = 0):
+    """-> (x', (k, v), aux). attn_stacked: the whole-stack W8A8 attention
+    projections (ops/stacked.py), addressed at layer_idx."""
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
-    q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
+    q, k, v = _qkv(p["attn"], h, cfg, cos, sin, attn_stacked, layer_idx)
     attn = causal_attention(q, k, v, attn_mask)
     b, t = x.shape[:2]
-    x = x + linear(p["attn"]["o_proj"], attn.reshape(b, t, -1))
+    if attn_stacked is not None:
+        from medplib_tpu_torch.ops.stacked import (quantize_rows_padded,
+                                                   stacked_w8a8_linear)
+        aq, asc, rows = quantize_rows_padded(attn.reshape(b * t, -1))
+        o = stacked_w8a8_linear(attn_stacked["o_proj"], aq, asc, layer_idx,
+                                rows)
+        x = x + o.reshape(b, t, -1).to(x.dtype)
+    else:
+        x = x + tp.row_linear(p["attn"]["o_proj"], attn.reshape(b, t, -1))
     h = rms_norm(x, p["post_attention_layernorm"]["weight"],
                  cfg.rms_norm_eps)
     y, aux = mlp_apply(p, h)
@@ -248,7 +288,7 @@ def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: LlamaConfig,
         put(k_cache, k[:, 0])
         put(v_cache, v[:, 0])
         attn = decode_attention(q, k_cache, v_cache, length + 1)
-    x = x + linear(p["attn"]["o_proj"], attn.reshape(b, 1, -1))
+    x = x + tp.row_linear(p["attn"]["o_proj"], attn.reshape(b, 1, -1))
     h = rms_norm(x, p["post_attention_layernorm"]["weight"],
                  cfg.rms_norm_eps)
     y, _ = mlp_apply(p, h)
@@ -259,26 +299,44 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             mlp_apply: MlpApply = dense_mlp_layer,
-            cache: Optional[KVCache] = None, remat: bool = False):
+            cache: Optional[KVCache] = None, remat: bool = False,
+            unroll: bool = False):
     """Prefill over the layer stack. input_embeds [B, T, H].
     -> (hidden_post_norm [B, T, H], cache|None, aux_loss). With a cache,
     K/V land at positions [0, T) and cache.length is set from the
     attn_mask row sums (left-aligned sequences). remat: checkpoint each
-    layer (training; no cache)."""
+    layer (training; no cache). unroll: the JAX package's Python-unrolled
+    layers, which the port's loop always is; as there, it turns the
+    opt-in whole-stack W8A8 knobs off."""
     if remat and cache is not None:
         raise ValueError("remat is for training, without a KV cache")
+    cfg = tp.local_cfg(cfg)
     b, t, _ = input_embeds.shape
     dev = input_embeds.device
     if positions is None:
         positions = torch.arange(t, device=dev)[None].expand(b, t)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     drop, act_quant = lora.dropout_state(), act_quant_enabled()
+    attn_stacked = None
+    if act_quant and not unroll:   # opt-in A/B knobs (ops/stacked.py)
+        from medplib_tpu_torch.ops import stacked as st
+        from medplib_tpu_torch.parallel.mesh import row_shards
+        s_glob = b * t * row_shards()
+        if os.environ.get("MEDPLIB_STACK_ATTN", "0") == "1":
+            attn_stacked = st.stack_attn_for_w8a8(params["layers"], s_glob)
+        if (mlp_apply is dense_mlp_layer
+                and os.environ.get("MEDPLIB_STACK_MLP", "0") == "1"):
+            mlp_stacks = st.stack_mlp_for_w8a8(params["layers"], s_glob)
+            if mlp_stacks is not None:
+                def mlp_apply(layer_p, h, _s=mlp_stacks):  # noqa: F811
+                    return (st.stacked_dense_mlp(_s, h, layer_p["layer_idx"]),
+                            torch.zeros((), device=h.device))
 
     def layer(i, x):
         with lora.dropout_scope(drop, i), dynamic_act_quant(act_quant):
             return decoder_layer_prefill(
-                layer_params(params["layers"], i), x, cfg, cos, sin,
-                attn_mask, mlp_apply)
+                dict(layer_params(params["layers"], i), layer_idx=i), x, cfg,
+                cos, sin, attn_mask, mlp_apply, attn_stacked, i)
 
     def remat_layer(i, x):
         x, _, a = layer(i, x)
@@ -309,9 +367,12 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
 
 def forward_decode(params: Params, cfg: LlamaConfig,
                    input_embeds: torch.Tensor, cache: KVCache,
-                   mlp_apply: MlpApply = dense_mlp_layer):
+                   mlp_apply: MlpApply = dense_mlp_layer,
+                   unroll: bool = False):
     """One decode step. input_embeds [B, 1, H] -> (hidden [B, 1, H],
-    cache with length + 1; K/V written in place)."""
+    cache with length + 1; K/V written in place). unroll: as in forward
+    (no effect here)."""
+    cfg = tp.local_cfg(cfg)
     cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim,
                             cfg.rope_theta)
     x = input_embeds
@@ -337,6 +398,7 @@ def forward_extend(params: Params, cfg: LlamaConfig,
     cache.length is NOT advanced: the caller sets it from the prompt mask
     after the last chunk (medplib.stream_prefill_finish).
     -> (hidden_post_norm [B, C, H], cache)."""
+    cfg = tp.local_cfg(cfg)
     b, c, _ = input_embeds.shape
     c0 = int(c0)
     if c0 < 0 or c0 + c > cache.k.shape[2]:
@@ -361,8 +423,8 @@ def forward_extend(params: Params, cfg: LlamaConfig,
             cache.v[i, :, span] = v.to(cache.v.dtype)
             attn = extend_attention(q.to(cache.k.dtype), cache.k[i],
                                     cache.v[i], c0)
-        x = x + linear(p["attn"]["o_proj"],
-                       attn.to(x.dtype).reshape(b, c, -1))
+        x = x + tp.row_linear(p["attn"]["o_proj"],
+                              attn.to(x.dtype).reshape(b, c, -1))
         h = rms_norm(x, p["post_attention_layernorm"]["weight"],
                      cfg.rms_norm_eps)
         y, _ = mlp_apply(p, h)
@@ -374,11 +436,15 @@ def forward_extend(params: Params, cfg: LlamaConfig,
 def embed(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     """Token ids -> embeddings; negative sentinel ids clamp to 0 (their
     slots are overwritten by the splice)."""
-    return params["embed_tokens"]["embedding"][input_ids.clamp(min=0).long()]
+    return tp.embed(params["embed_tokens"]["embedding"],
+                    input_ids.clamp(min=0).long())
 
 
 def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    return linear(params["lm_head"], hidden).float()
+    """f32 logits over the whole vocabulary (all-gathered from the model
+    ranks' blocks under tensor parallelism)."""
+    return tp.gather_vocab(tp.column_linear(params["lm_head"],
+                                            hidden).float())
 
 
 def pack_inference(llm_params: Params) -> Params:

@@ -1,6 +1,8 @@
 """Training losses (medplib_tpu/models/losses.py): shifted next-token cross
 entropy and the mask losses (BCE, Dice, IoU, focal), all in float32, with
-masked means over the valid masks."""
+masked means over the valid masks. Under a mesh the sums and counts run
+over the global batch (parallel/mesh.row_sum), so every rank gets the
+one-process loss of the whole batch."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from medplib_tpu_torch.config import IGNORE_INDEX
+from medplib_tpu_torch.parallel.mesh import row_shards, row_sum
 
 
 def cross_entropy_loss(logits: torch.Tensor,
@@ -23,15 +26,18 @@ def cross_entropy_loss(logits: torch.Tensor,
     logp = F.log_softmax(shift_logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return row_sum(nll.sum()) / row_sum(valid.sum()).clamp(min=1)
 
 
 def _masked_mean(per_mask: torch.Tensor,
                  valid: Optional[torch.Tensor]) -> torch.Tensor:
     if valid is None:
-        return per_mask.mean()
+        if row_shards() == 1:
+            return per_mask.mean()
+        n = per_mask.numel() * row_shards()
+        return row_sum(per_mask.sum()) / n
     v = valid.float()
-    return (per_mask * v).sum() / (v.sum() + 1e-8)
+    return row_sum((per_mask * v).sum()) / (row_sum(v.sum()) + 1e-8)
 
 
 def sigmoid_ce_loss(pred: torch.Tensor, target: torch.Tensor,

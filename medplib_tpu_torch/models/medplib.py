@@ -16,6 +16,15 @@ ground_seg_slots / stream_ground; generate runs on the same decode step),
 and the training forward `model_forward` (CE + mask losses, the MoE
 router aux loss, frozen CLIP and SAM encoders, per-layer remat), dense or
 MoE (top-1 / top-2, Residual-MoE, mixed stacks).
+
+Distribution: under a mesh (parallel/mesh.set_mesh) each rank passes its
+rows of the global batch and its shards of the params; the losses are the
+global masked means (models/losses), `ep_shard` runs the MoE experts
+expert-parallel over the mesh's expert axis (models/moe_llama), CLIP and
+SAM stay replicated and handle the rank's rows, and the language model
+splits over the model axis (parallel/tp.py). `unroll` / `unroll_layers`
+are the JAX package's Python-unrolled layer loop: the port's loop always
+is one, so they change nothing.
 """
 
 from __future__ import annotations
@@ -233,20 +242,24 @@ def splice_batch(params: Params, cfg: MedplibConfig, batch: Batch,
 
 
 def _llm_forward(params, cfg: MedplibConfig, embeds, attn_mask, cache=None,
-                 train=True, remat=False):
+                 train=True, remat=False, ep_shard=False, unroll=False):
     if cfg.moe.enable:
         return moe_llama.forward(params["llm"], cfg.llm, cfg.moe, embeds,
                                  attn_mask, cache=cache, remat=remat,
-                                 train=train)
+                                 train=train, ep_shard=ep_shard,
+                                 unroll=unroll)
     return llama.forward(params["llm"], cfg.llm, embeds, attn_mask,
-                         cache=cache, remat=remat)
+                         cache=cache, remat=remat, unroll=unroll)
 
 
-def _llm_decode(params, cfg: MedplibConfig, embeds, cache):
+def _llm_decode(params, cfg: MedplibConfig, embeds, cache, ep_shard=False,
+                unroll=False):
     if cfg.moe.enable:
         return moe_llama.forward_decode(params["llm"], cfg.llm, cfg.moe,
-                                        embeds, cache)
-    return llama.forward_decode(params["llm"], cfg.llm, embeds, cache)
+                                        embeds, cache, ep_shard=ep_shard,
+                                        unroll=unroll)
+    return llama.forward_decode(params["llm"], cfg.llm, embeds, cache,
+                                unroll=unroll)
 
 
 def decode_seg_masks(params: Params, cfg: MedplibConfig,
@@ -276,7 +289,7 @@ def decode_seg_masks(params: Params, cfg: MedplibConfig,
 def model_forward(params: Params, cfg: MedplibConfig, batch: Batch,
                   train: bool = True, seg_flag: bool = True,
                   rp_flag: bool = False, remat: bool = True,
-                  max_segs: Optional[int] = None):
+                  ep_shard: bool = False, max_segs: Optional[int] = None):
     """Teacher-forced forward -> dict of losses ("loss" is the total):
     shifted CE over the spliced labels, and with seg_flag the mask losses
     of every <SEG> slot decoded at gt_masks' size, valid where a SEG was
@@ -285,7 +298,8 @@ def model_forward(params: Params, cfg: MedplibConfig, batch: Batch,
     embeds, labels_out, attn_mask, seg_mask, _ = splice_batch(
         params, cfg, batch, need_region=rp_flag)
     hidden, _, aux = _llm_forward(params, cfg, embeds, attn_mask,
-                                  train=train, remat=remat)
+                                  train=train, remat=remat,
+                                  ep_shard=ep_shard)
     logits = llama.logits(params["llm"], hidden)
     ce = losses.cross_entropy_loss(logits, labels_out) * cfg.seg.ce_loss_weight
     if cfg.moe.enable:
@@ -368,7 +382,8 @@ def _first_token(params, cfg: MedplibConfig, last_hidden, seg_emb,
 
 
 def _make_decode_step(params, cfg: MedplibConfig, eos_id: int,
-                      do_sample: bool, temperature, top_p, dev):
+                      do_sample: bool, temperature, top_p, dev,
+                      ep_shard: bool = False, unroll: bool = False):
     """The decode step shared by generate and stream_decode_chunk.
 
     carry = (cache, tok, done, seg_emb [B, S, D], seg_count [B],
@@ -384,7 +399,8 @@ def _make_decode_step(params, cfg: MedplibConfig, eos_id: int,
     def step(carry):
         cache, tok, done, seg_emb, seg_count, last_cap, key = carry
         emb = llama.embed(params["llm"], tok[:, None])
-        hidden, cache = _llm_decode(params, cfg, emb, cache)
+        hidden, cache = _llm_decode(params, cfg, emb, cache, ep_shard,
+                                    unroll)
         sub = None
         if do_sample:
             key, sub = sampling.split_rows(key)
@@ -428,7 +444,8 @@ def generate(params: Params, cfg: MedplibConfig, batch: Batch,
              ground: bool = True, max_segs: int = 1,
              do_sample: bool = False, temperature=1.0, top_p=1.0,
              rng: sampling.Seed = None,
-             kv_quant: bool = False) -> GenerateResult:
+             kv_quant: bool = False, ep_shard: bool = False,
+             unroll_layers: bool = False) -> GenerateResult:
     """Decode + pixel grounding. SEG hidden states are captured inside the
     loop (prompt SEGs first, then generated ones, up to max_segs); a row
     with no SEG grounds the last step's projected hidden in slot 0.
@@ -439,15 +456,16 @@ def generate(params: Params, cfg: MedplibConfig, batch: Batch,
     tensors; rows with temperature < 1e-4 stay greedy) from per-row
     streams seeded by rng (ops/sampling.row_keys: None is seed 0, an int,
     [B] per-row seeds or a [B, 2] state). kv_quant: int8 KV cache with
-    per-token-per-head scales."""
+    per-token-per-head scales. ep_shard: expert-parallel MoE under a
+    mesh (module docstring)."""
     b = batch.input_ids.shape[0]
     dev = batch.input_ids.device
     state = stream_prefill(params, cfg, batch, max_new_tokens, rp_flag,
                            max_segs, do_sample, temperature, top_p, rng,
-                           kv_quant)
+                           kv_quant, ep_shard)
     state, output_ids, dones = stream_decode_chunk(
         params, cfg, state, max_new_tokens, eos_id, do_sample, temperature,
-        top_p)
+        top_p, ep_shard)
     num_generated = (~dones).sum(1)
     has_seg = state.seg_count > 0
     seg_valid = (torch.arange(max_segs, device=dev)[None, :]
@@ -484,7 +502,8 @@ def stream_prefill(params: Params, cfg: MedplibConfig, batch: Batch,
                    max_new_tokens: int, rp_flag: bool = False,
                    max_segs: int = 1, do_sample: bool = False,
                    temperature=1.0, top_p=1.0, rng: sampling.Seed = None,
-                   kv_quant: bool = False) -> StreamState:
+                   kv_quant: bool = False, ep_shard: bool = False
+                   ) -> StreamState:
     """Splice + prefill into a cache of T + max_new_tokens positions ->
     the state for stream_decode_chunk, whose first token is already
     chosen (SEG capture as in generate: prompt SEGs, then a SEG as the
@@ -498,7 +517,7 @@ def stream_prefill(params: Params, cfg: MedplibConfig, batch: Batch,
                                dtype=embeds.dtype, device=dev,
                                quant=kv_quant)
     hidden, cache, _ = _llm_forward(params, cfg, embeds, attn_mask, cache,
-                                    train=False)
+                                    train=False, ep_shard=ep_shard)
     seg_emb, seg_count = _prompt_segs(params, hidden, seg_mask, max_segs,
                                       embeds.dtype)
     tok, seg_emb, seg_count, last_cap, key = _first_token(
@@ -513,12 +532,13 @@ def stream_prefill(params: Params, cfg: MedplibConfig, batch: Batch,
 @torch.no_grad()
 def stream_decode_chunk(params: Params, cfg: MedplibConfig,
                         state: StreamState, chunk: int, eos_id: int = 2,
-                        do_sample: bool = False, temperature=1.0, top_p=1.0):
+                        do_sample: bool = False, temperature=1.0, top_p=1.0,
+                        ep_shard: bool = False):
     """Decode `chunk` tokens from the state (its cache is written in
     place) -> (new state, tokens [B, chunk], done-before-step
     [B, chunk]). The first token out is the one the state carried in."""
     step = _make_decode_step(params, cfg, eos_id, do_sample, temperature,
-                             top_p, state.tok.device)
+                             top_p, state.tok.device, ep_shard)
     carry, toks, dones = tuple(state), [], []
     for _ in range(chunk):
         carry, (t, d) = step(carry)
@@ -579,10 +599,11 @@ def stream_prefill_begin(params: Params, cfg: MedplibConfig, batch: Batch,
     return embeds, attn_mask, seg_mask, carry
 
 
-def _llm_extend(params, cfg: MedplibConfig, embeds, cache, c0):
+def _llm_extend(params, cfg: MedplibConfig, embeds, cache, c0,
+                ep_shard=False):
     if cfg.moe.enable:
         return moe_llama.forward_extend(params["llm"], cfg.llm, cfg.moe,
-                                        embeds, cache, c0)
+                                        embeds, cache, c0, ep_shard=ep_shard)
     return llama.forward_extend(params["llm"], cfg.llm, embeds, cache, c0)
 
 
@@ -590,14 +611,15 @@ def _llm_extend(params, cfg: MedplibConfig, embeds, cache, c0):
 def stream_prefill_chunk(params: Params, cfg: MedplibConfig,
                          carry: PrefillCarry, embeds: torch.Tensor,
                          attn_mask: torch.Tensor, seg_mask: torch.Tensor,
-                         c0: int, chunk_tokens: int) -> PrefillCarry:
+                         c0: int, chunk_tokens: int,
+                         ep_shard: bool = False) -> PrefillCarry:
     """Prompt positions [c0, c0 + chunk_tokens): extend the cache (in
     place), append the chunk's prompt-SEG captures to the slots in
     sequence order, and track each row's last-real-position hidden."""
     c0 = int(c0)
     span = slice(c0, c0 + chunk_tokens)
     hidden, cache = _llm_extend(params, cfg, embeds[:, span], carry.cache,
-                                c0)
+                                c0, ep_shard)
     max_segs = carry.seg_emb.shape[1]
     p_emb, p_valid, _ = splice_ops.gather_seg_embeddings(
         text_hidden_fcs(params["text_hidden_fcs"], hidden),

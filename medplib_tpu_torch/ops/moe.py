@@ -10,8 +10,23 @@ and its dispatches (medplib_tpu/ops/moe.py).
   kernel K3 for int8 and float experts, K1 for int4h(G=2) experts; or, at
   decode on the whole-stack path, the fused int4h kernel K2; exactly
   equivalent to "sort" when capacity >= S;
+- "ragged": top-1 with no capacity, each expert contracting only its own
+  tokens (`_ragged_moe`, the JAX package's jax.lax.ragged_dot dispatch);
 - "auto": gmm for inference, top-1, capacity >= S and S >= 1024 tokens,
   else sort (the JAX gates, moe.py:481-486).
+
+Under a mesh (parallel/mesh.set_mesh) the tokens are this rank's rows of
+a global batch, and every dispatch returns what one process returns on the
+global batch: S, the capacity, the `auto` switch and the aux loss are the
+global ones, and the capacity dispatches route on the all-gathered router
+logits (slot positions in global token order; top-2 second choices after
+every first choice of the batch). With ep_shard and an expert axis, each
+rank computes only its own experts' block (`_gmm_moe_ep` for the zero-drop
+gmm path, the expert-group capacity dispatch otherwise); without
+ep_shard an expert leaf that shard_params split over the expert axis is
+all-gathered. Outside a mesh the capacity dispatches run on a 1-rank mesh
+(local_mesh, every collective an identity): one process takes the same
+code as each rank.
 
 A Residual-MoE layer (`residual_mlp` + `coefficient` in its params) mixes
 a dense SwiGLU copy into every dispatch's output (`_apply_residual`).
@@ -27,6 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from medplib_tpu_torch.config import MoeConfig
+from medplib_tpu_torch.parallel.mesh import (AXIS_EXPERT, ROWS,
+                                             current_mesh, local_mesh,
+                                             row_shards, row_sum)
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -162,29 +180,42 @@ def sort_dispatch(logits: torch.Tensor, k: int, capacity: int) -> SortDispatch:
                         aux_loss=aux)
 
 
+def _aux_loss_rows(gates: torch.Tensor, idx: torch.Tensor, e: int):
+    """_aux_loss of a rank's rows over the global batch: the means are
+    global (row sums over the mesh's row shards)."""
+    if current_mesh() is None:
+        return _aux_loss(gates, idx, e)
+    n = gates.shape[0] * row_shards()
+    sums = row_sum(torch.cat([gates.sum(0),
+                              F.one_hot(idx, e).float().sum(0)])) / n
+    return (sums[:e] * sums[e:]).sum() * e
+
+
 def _route_top1(logits: torch.Tensor):
     """softmax in f32, first-maximum argmax, the top prob as the gate."""
     e = logits.shape[-1]
     gates = torch.softmax(logits.float(), dim=-1)
     idx = torch.argmax(gates, dim=-1)
     gate_s = torch.gather(gates, 1, idx[:, None])[:, 0]
-    return idx, gate_s, _aux_loss(gates, idx, e)
+    return idx, gate_s, _aux_loss_rows(gates, idx, e)
 
 
 def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
              block_m: int = 512, stacked: bool = False):
     """Top-1 expert MLP via the grouped matmuls (K3 / K1) over a
     group-aligned buffer, or, for decode tiles (block_m <= 64) on the
-    whole-stack path with int4h experts, the fused decode kernel K2, in
-    A8 unless MEDPLIB_DECODE_A8=0 (the JAX caller's variable and
-    default)."""
+    whole-stack path with int4h experts, the fused decode kernel K2
+    (unless MEDPLIB_DECODE_FUSED=0, which keeps the three grouped calls),
+    in A8 unless MEDPLIB_DECODE_A8=0 (the JAX caller's variables and
+    defaults)."""
     from medplib_tpu_torch.ops.cuda.gmm import align_groups
     from medplib_tpu_torch.ops.cuda.moe_decode import (
         fused_decode_eligible, moe_ffn_decode_int4h)
 
     e = logits.shape[-1]
     idx, gate_s, aux = _route_top1(logits)
-    if stacked and block_m <= 64 and fused_decode_eligible(experts, e):
+    if stacked and block_m <= 64 and fused_decode_eligible(experts, e) \
+            and os.environ.get("MEDPLIB_DECODE_FUSED", "1") == "1":
         # A8 unless MEDPLIB_DECODE_A8=0, as the JAX caller reads it
         y = moe_ffn_decode_int4h(
             xs, experts, idx.to(torch.int32), gate_s, e,
@@ -195,6 +226,74 @@ def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
     # gate rounded to out_al's dtype, product unrounded (as compiled)
     y = (out_al[dest].float()
          * gate_s[:, None].to(out_al.dtype).float()).to(dtype)
+    return y, aux
+
+
+def _gmm_moe_ep(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
+                num_experts: int, ep: int, gid_offset: int = 0,
+                block_m: int = 512):
+    """Expert-parallel grouped-matmul dispatch, top-1 (JAX _gmm_moe_ep).
+
+    The rank all-gathers the tokens, expert ids and gates of its expert
+    group (the ranks that share its data index), routes them to ITS
+    experts (remote tokens go to the dummy group e_loc with a zero gate,
+    computed against expert e_loc - 1's weights and dropped by the gate),
+    runs one _gmm_ffn over its [E/ep, ...] expert block (K1 for int4h(G=2)
+    experts, K3 for int8, three calls at any tile size: never the fused
+    decode kernel), and reduce-scatters the rows back to their home ranks,
+    where each token holds one nonzero contribution. `experts` are the
+    layer's rank-local nodes (_expert_view); gid_offset addresses them
+    inside a larger stack (0 for one layer's block). The aux loss comes
+    from the global logits."""
+    from medplib_tpu_torch.ops.cuda.gmm import align_groups
+
+    mesh = current_mesh()
+    e_loc = num_experts // ep
+    idx, gate_s, aux = _route_top1(logits)
+    ep_idx = mesh.index(AXIS_EXPERT)
+    xg = mesh.all_gather(xs, AXIS_EXPERT)
+    # expert ids (exact in f32) and gates in one gather
+    ig = mesh.all_gather(torch.stack([idx.float(), gate_s], 1), AXIS_EXPERT)
+    idxg, gateg = ig[:, 0].long(), ig[:, 1]
+    sel = torch.div(idxg, e_loc, rounding_mode="floor") == ep_idx
+    lidx = torch.where(sel, idxg - ep_idx * e_loc,
+                       torch.full_like(idxg, e_loc))
+    gm = torch.where(sel, gateg, torch.zeros_like(gateg))
+    x_al, dest, tile_gid = align_groups(xg, lidx, e_loc + 1, block_m)
+    tile_gid = tile_gid.clamp(max=e_loc - 1) + int(gid_offset)
+    out_al = _gmm_ffn(x_al, tile_gid, experts, dtype, block_m, stacked=True)
+    yg = (out_al[dest].float()
+          * gm[:, None].to(out_al.dtype).float()).to(dtype)
+    return mesh.reduce_scatter(yg, AXIS_EXPERT), aux
+
+
+def _ragged_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype):
+    """Zero-padding top-1 expert MLP (JAX _ragged_moe): tokens stably
+    sorted by chosen expert, each expert contracting only its own rows,
+    outputs scattered back by the permutation. The JAX package computes
+    this with jax.lax.ragged_dot, outside any Pallas kernel, so it is no
+    kernel port: one torch.matmul per expert over its group of the sorted
+    rows, against the expert's weights dequantized to the activation
+    dtype. Exactly the capacity dispatch when capacity >= S."""
+    from medplib_tpu_torch.train.lora import dequant_kernel
+    s, h = xs.shape
+    e = logits.shape[-1]
+    idx, gate_s, aux = _route_top1(logits)
+    order = torch.argsort(idx, stable=True)
+    sizes = torch.bincount(idx, minlength=e).tolist()
+    xs_sorted = xs[order]
+
+    def rag(node, xin):
+        w = dequant_kernel(node, xin.dtype)
+        return torch.cat([part @ w[g] for g, part in
+                          enumerate(torch.split(xin, sizes))])
+
+    h1 = rag(experts["gate_proj"], xs_sorted)
+    h2 = rag(experts["up_proj"], xs_sorted)
+    out = rag(experts["down_proj"], _silu(h1) * h2)
+    y_sorted = out * gate_s[order][:, None].to(out.dtype)
+    y = xs.new_zeros((s, h), dtype=dtype)
+    y[order] = y_sorted.to(dtype)
     return y, aux
 
 
@@ -268,69 +367,178 @@ def _apply_residual(moe_params, xs: torch.Tensor, y: torch.Tensor,
     beside the experts, the two mixed by a learned 2-way softmax of the
     token. The coefficient is taken in f32 (f32 kernel, f32 bias, f32
     softmax), then cast to `dtype`; y·c0 + r·c1 is formed in `dtype`."""
+    from medplib_tpu_torch.models.llama import dense_mlp
     from medplib_tpu_torch.train.lora import dequant_kernel
-    from medplib_tpu_torch.train.lora import linear as lora_linear
-    rk = moe_params["residual_mlp"]
-    r1 = lora_linear(rk["gate_proj"], xs)
-    r2 = lora_linear(rk["up_proj"], xs)
-    r_out = lora_linear(rk["down_proj"], _silu(r1) * r2)
+    r_out = dense_mlp(moe_params["residual_mlp"], xs)   # TP-aware
     ck = moe_params["coefficient"]
     coef = xs.float() @ dequant_kernel(ck, torch.float32).float()
     coef = torch.softmax(coef + ck["bias"].float(), dim=-1).to(dtype)
     return y.to(dtype) * coef[:, 0:1] + r_out.to(dtype) * coef[:, 1:2]
 
 
+def _expert_ffn(ek, expert_in: torch.Tensor) -> torch.Tensor:
+    """SwiGLU over [E, C, H] expert buffers."""
+    h1 = _expert_mm(ek["gate_proj"], expert_in)
+    h2 = _expert_mm(ek["up_proj"], expert_in)
+    return _expert_mm(ek["down_proj"], _silu(h1) * h2)
+
+
+def _expert_view(experts, e: int, ep: int):
+    """One layer's expert nodes as a dispatch under the ambient mesh needs
+    them: with ep > 1, this rank's [E/ep, ...] block of every leaf (a leaf
+    that shard_params left whole is narrowed, a free view); with ep == 1,
+    whole [E, ...] leaves (a leaf split over the expert axis is
+    all-gathered)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return experts
+    e_loc = e // ep
+    e0 = mesh.index(AXIS_EXPERT) * e_loc
+
+    def leaf(v):
+        if ep > 1:
+            return v if v.shape[0] == e_loc else v.narrow(0, e0, e_loc)
+        return v if v.shape[0] == e else mesh.all_gather(v, AXIS_EXPERT)
+
+    return {n: {k: leaf(v) for k, v in node.items()}
+            for n, node in experts.items()}
+
+
+def _sort_moe(mesh, xs, logits, experts, k: int, capacity: int, e: int,
+              ep: int, dtype):
+    """The capacity-sort dispatch of a rank's rows (one process: a 1-rank
+    mesh, whose collectives are identities).
+
+    Routing is sort_dispatch of the all-gathered logits (global capacity,
+    slot order and drops, aux loss from the global gates). The rank then
+    serves its expert group's tokens (its own rows, or with ep > 1 the
+    rows of every rank that shares its data index, all-gathered) on its
+    experts: their kept entries packed into a compact [E/ep, C_loc]
+    buffer in global slot order, C_loc = min(C, k group tokens) (when
+    the group is the whole batch and ep == 1, the global [E, C] slots
+    themselves: packing them cost 3% of a stage-4 step on an H100,
+    chip_smoke.py --stage4-step), the
+    expert FFN, the combine, and with ep > 1 a reduce-scatter of the
+    group's rows back to their ranks (each entry lands on exactly one
+    rank, so the sums are those of one process)."""
+    s, h = xs.shape
+    dev = xs.device
+    r, sg = mesh.index(ROWS), s * mesh.size(ROWS)
+    logits_g = mesh.all_gather(logits, ROWS)
+    d = sort_dispatch(logits_g, k, capacity)
+    if ep > 1:
+        xs_grp = mesh.all_gather(xs, AXIS_EXPERT)
+        g0 = (r // ep) * ep * s
+        e0 = mesh.index(AXIS_EXPERT) * (e // ep)
+    else:
+        xs_grp, g0, e0 = xs, r * s, 0
+    e_loc, n = e // ep, xs_grp.shape[0]
+    tok = torch.arange(n, device=dev).repeat(k)
+    if n == sg and e_loc == e:
+        # the group is the whole batch on every expert (one process, or
+        # one row shard without ep): the global slots are already compact
+        c_loc, slot_tok, lslot, prob = (capacity, d.slot_token,
+                                        d.token_slot, d.token_prob)
+    else:
+        ent = (torch.arange(k, device=dev)[:, None] * sg + g0
+               + torch.arange(n, device=dev)[None, :]).reshape(-1)
+        slot, prob = d.token_slot[ent], d.token_prob[ent]
+        ex = torch.div(slot, capacity, rounding_mode="floor")
+        mine = (slot < e * capacity) & (ex >= e0) & (ex < e0 + e_loc)
+        key = torch.where(mine, slot, torch.full_like(slot, e * capacity))
+        order = torch.argsort(key, stable=True)
+        ks = key[order]
+        le = torch.where(ks < e * capacity,
+                         torch.div(ks, capacity, rounding_mode="floor") - e0,
+                         torch.full_like(ks, e_loc))
+        rank = torch.arange(len(ks), device=dev) - torch.searchsorted(le, le)
+        c_loc = min(capacity, k * n)
+        lslot_sorted = torch.where(le < e_loc, le * c_loc + rank,
+                                   torch.full_like(le, e_loc * c_loc))
+        lslot = torch.empty_like(lslot_sorted)
+        lslot[order] = lslot_sorted
+        slot_tok = torch.full((e_loc * c_loc + 1,), n, dtype=torch.long,
+                              device=dev)
+        slot_tok[lslot_sorted] = tok[order]
+        slot_tok = slot_tok[:-1]
+    xs_pad = torch.cat([xs_grp, xs_grp.new_zeros((1, h))])
+    out_e = _expert_ffn(experts, xs_pad[slot_tok].reshape(e_loc, c_loc, h))
+    flat_out = torch.cat([out_e.reshape(e_loc * c_loc, h),
+                          out_e.new_zeros((1, h))])
+    contrib = flat_out[lslot] * prob[:, None].to(out_e.dtype)
+    y = xs_grp.new_zeros((n, h), dtype=dtype).index_add_(
+        0, tok, contrib.to(dtype))
+    if ep > 1:
+        y = mesh.reduce_scatter(y, AXIS_EXPERT)
+    return y, d.aux_loss
+
+
+def _einsum_moe(mesh, xs, logits, experts, k: int, capacity: int, e: int,
+                ep: int, dtype):
+    """The one-hot (GShard) dispatch of a rank's rows (one process: a
+    1-rank mesh): the einsums over the all-gathered batch, on this rank's
+    experts (with ep > 1 the partial outputs are summed over the expert
+    axis), then this rank's rows."""
+    s = xs.shape[0]
+    r = mesh.index(ROWS)
+    xs_g = mesh.all_gather(xs, ROWS)
+    g = gate(mesh.all_gather(logits, ROWS), k, capacity)
+    e0 = mesh.index(AXIS_EXPERT) * (e // ep) if ep > 1 else 0
+    sl = slice(e0, e0 + e // ep)
+    expert_in = torch.einsum("sec,sh->ech", g.dispatch[:, sl].to(xs.dtype),
+                             xs_g)
+    out_e = _expert_ffn(experts, expert_in)
+    y = torch.einsum("sec,ech->sh", g.combine[:, sl].to(dtype), out_e)
+    if ep > 1:
+        y = mesh.all_reduce(y, AXIS_EXPERT)
+    return y[r * s:(r + 1) * s], g.aux_loss
+
+
 def moe_mlp(moe_params, x: torch.Tensor, cfg: MoeConfig, train: bool = True,
-            dispatch_mode: str = "auto", block_m: int = 512,
-            stacked: bool = False):
+            ep_shard: bool = False, dispatch_mode: str = "auto",
+            block_m: int = 512, stacked: bool = False):
     """SwiGLU MoE MLP of one layer.
 
     moe_params: {"router": {"kernel": [H, E]}, "experts": {gate_proj|up_proj:
     {"kernel": [E, H, M] (or int4h [E, H/2, M] + scale4h)}, down_proj: ...},
     optionally "residual_mlp" (a dense MLP node) and "coefficient"
     ({"kernel": [H, 2], "bias": [2]})}. x [B, T, H] -> ([B, T, H],
-    aux_loss). dispatch_mode: "sort", "einsum", "gmm" or "auto" (module
-    docstring). `stacked` marks the whole-stack eligibility of
-    models/moe_llama (it enables the fused decode kernel)."""
+    aux_loss). dispatch_mode: "sort", "einsum", "gmm", "ragged" or "auto"
+    (module docstring). `stacked` marks the whole-stack eligibility of
+    models/moe_llama (it enables the fused decode kernel). ep_shard: run
+    the experts expert-parallel over the ambient mesh's expert axis (with
+    dispatch_mode="gmm": _gmm_moe_ep)."""
     b, t, h = x.shape
     s = b * t
     xs = x.reshape(s, h)
     e = moe_params["router"]["kernel"].shape[-1]
+    mesh = current_mesh()
+    s_glob = s * row_shards()
+    ep = mesh.size(AXIS_EXPERT) if (mesh is not None and ep_shard) else 1
     cf = cfg.capacity_factor if train else cfg.eval_capacity_factor
-    capacity = capacity_for(s, e, cf, cfg.min_capacity)
+    capacity = capacity_for(s_glob, e, cf, cfg.min_capacity)
     logits = xs.float() @ moe_params["router"]["kernel"].float()
 
     if dispatch_mode == "auto":
-        zero_drop = (not train) and cfg.top_k == 1 and capacity >= s
-        dispatch_mode = "gmm" if zero_drop and s >= 1024 else "sort"
+        zero_drop = (not train) and cfg.top_k == 1 and capacity >= s_glob \
+            and not ep_shard
+        dispatch_mode = "gmm" if zero_drop and s_glob >= 1024 else "sort"
+    # ragged contracts every expert on the rank's own rows
+    experts = _expert_view(moe_params["experts"], e,
+                           1 if dispatch_mode == "ragged" else ep)
 
-    if dispatch_mode == "gmm":
-        y, aux = _gmm_moe(xs, logits, moe_params["experts"], x.dtype,
+    if dispatch_mode == "gmm" and ep > 1:
+        y, aux = _gmm_moe_ep(xs, logits, experts, x.dtype, e, ep,
+                             block_m=block_m)
+    elif dispatch_mode == "gmm":
+        y, aux = _gmm_moe(xs, logits, experts, x.dtype,
                           block_m=block_m, stacked=stacked)
+    elif dispatch_mode == "ragged":
+        y, aux = _ragged_moe(xs, logits, experts, x.dtype)
     elif dispatch_mode in ("sort", "einsum"):
-        if dispatch_mode == "sort":
-            d = sort_dispatch(logits, cfg.top_k, capacity)
-            xs_pad = torch.cat([xs, xs.new_zeros((1, h))])
-            expert_in = xs_pad[d.slot_token].reshape(e, capacity, h)
-            aux = d.aux_loss
-        else:
-            g = gate(logits, cfg.top_k, capacity)
-            expert_in = torch.einsum("sec,sh->ech", g.dispatch.to(x.dtype),
-                                     xs)
-            aux = g.aux_loss
-        ek = moe_params["experts"]
-        h1 = _expert_mm(ek["gate_proj"], expert_in)
-        h2 = _expert_mm(ek["up_proj"], expert_in)
-        out_e = _expert_mm(ek["down_proj"], _silu(h1) * h2)
-        if dispatch_mode == "sort":
-            flat_out = torch.cat([out_e.reshape(e * capacity, h),
-                                  out_e.new_zeros((1, h))])
-            contrib = (flat_out[d.token_slot]
-                       * d.token_prob[:, None].to(out_e.dtype))
-            y = x.new_zeros((s, h)).index_add_(0, d.token_src,
-                                               contrib.to(x.dtype))
-        else:
-            y = torch.einsum("sec,ech->sh", g.combine.to(x.dtype), out_e)
+        fn = _sort_moe if dispatch_mode == "sort" else _einsum_moe
+        y, aux = fn(mesh or local_mesh(), xs, logits, experts, cfg.top_k,
+                    capacity, e, ep, x.dtype)
     else:
         raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
 

@@ -112,10 +112,10 @@ class ModelWorker:
                  kv_quant: bool = False,
                  device_preprocess: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None):
-        if device_preprocess:
-            raise NotImplementedError(
-                "device_preprocess: ops/device_preprocess.py is not ported "
-                "(ROADMAP Queue 1 item 10); the host preprocess runs")
+        # device preprocess (ops/device_preprocess.py) is opt-in, as in the
+        # JAX package (default off): resize, pad and normalize as two
+        # matmuls per image on the params' device
+        self.device_preprocess = bool(device_preprocess)
         self.cfg, self.params, self.tok = cfg, params, tokenizer
         self.device = params["llm"]["embed_tokens"]["embedding"].device
         self.kv_quant = kv_quant
@@ -199,9 +199,18 @@ class ModelWorker:
     # ---- generation ----
     def build_sample(self, prompt: str, image_rgb: np.ndarray,
                      region_mask: Optional[np.ndarray]) -> Dict:
-        image_sam, resize_hw = pp.preprocess_sam(image_rgb,
-                                                 self.cfg.sam.image_size)
-        image_clip = pp.preprocess_clip(image_rgb, self.cfg.vision.image_size)
+        if self.device_preprocess:
+            from medplib_tpu_torch.ops.device_preprocess import \
+                dual_preprocess
+            sam_t, clip_t, resize_hw = dual_preprocess(
+                image_rgb, self.cfg.sam.image_size,
+                self.cfg.vision.image_size, self.device)
+            image_sam, image_clip = sam_t.cpu().numpy(), clip_t.cpu().numpy()
+        else:
+            image_sam, resize_hw = pp.preprocess_sam(image_rgb,
+                                                     self.cfg.sam.image_size)
+            image_clip = pp.preprocess_clip(image_rgb,
+                                            self.cfg.vision.image_size)
         ids = tk.tokenizer_image_token(prompt, self.tok)
         sample = {
             "input_ids": np.asarray(ids, np.int64),

@@ -15,8 +15,16 @@ Usage (stage-4 style MoE SFT on the card):
     --grad-accumulation-steps 8
 A CPU debug run: add --tiny --version random --device cpu.
 
-The port trains in one process on one device: --mesh-* above 1,
---coordinator and --num-processes above 1 raise NotImplementedError.
+Several processes (parallel/mesh.py): every process runs this CLI with
+the same --coordinator host:port (rank 0 listens there), the same
+--num-processes and its own --process-id; --mesh-data / --mesh-expert /
+--mesh-model lay the processes out (their product is the process count;
+--mesh-expert > 1 trains the MoE expert-parallel). Each process loads its
+own rows of every global batch (--batch-size and --val-batch-size are
+global), trains its shards, and rank 0 writes the consolidated
+checkpoint. NCCL on CUDA devices (one per process), gloo on the CPU:
+  python -m medplib_tpu_torch.train.cli ... --coordinator localhost:29500 \
+    --num-processes 2 --process-id 0 --mesh-data 2     (and --process-id 1)
 """
 
 from __future__ import annotations
@@ -130,27 +138,41 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if (args.coordinator or args.num_processes > 1 or args.mesh_data > 1
-            or args.mesh_expert > 1 or args.mesh_model > 1):
-        raise NotImplementedError(
-            "multi-device and multi-process training (--mesh-* > 1, "
-            "--coordinator) is not ported yet: ROADMAP Queue 1 item 9")
+    n_mesh = args.mesh_data * args.mesh_expert * args.mesh_model
+    if args.num_processes > 1 and not args.coordinator:
+        raise ValueError("--num-processes > 1 needs --coordinator")
+    if n_mesh != args.num_processes:
+        raise ValueError(f"the mesh ({args.mesh_data}, {args.mesh_expert}, "
+                         f"{args.mesh_model}) needs {n_mesh} processes, "
+                         f"--num-processes is {args.num_processes}")
+    import contextlib
+
+    import numpy as np
     import torch
     from transformers import AutoTokenizer
 
-    from medplib_tpu_torch.config import (MedplibConfig, MoeConfig,
-                                          ProjectorConfig, SegConfig,
-                                          TrainConfig)
+    from medplib_tpu_torch.config import (MedplibConfig, MeshConfig,
+                                          MoeConfig, ProjectorConfig,
+                                          SegConfig, TrainConfig)
     from medplib_tpu_torch.data import tokenize as tk
     from medplib_tpu_torch.data.dataset import (CollatorConfig, DataConfig,
                                                 LazySupervisedDataset,
                                                 collate, to_model_batch)
     from medplib_tpu_torch.data.loader import PrefetchLoader
     from medplib_tpu_torch.models.medplib import image_tokens_per_image
+    from medplib_tpu_torch.parallel import mesh as mesh_lib
     from medplib_tpu_torch.train import lora as lora_lib
     from medplib_tpu_torch.train.trainer import Trainer
 
     device = torch.device(args.device)
+    mesh = None
+    if args.coordinator:
+        device = mesh_lib.init_distributed(
+            args.coordinator, args.num_processes, args.process_id,
+            device=args.device)
+        mesh = mesh_lib.make_mesh(MeshConfig(args.mesh_data,
+                                             args.mesh_expert,
+                                             args.mesh_model))
     tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
     tk.add_special_tokens(tokenizer)
     seg_idx = tokenizer.convert_tokens_to_ids("<SEG>")
@@ -200,6 +222,11 @@ def main(argv=None):
         params["llm"] = lora_lib.inject(
             torch.Generator(device=device).manual_seed(0), params["llm"],
             tuple(args.lora_target_modules.split(",")), args.lora_r)
+    if mesh is not None:
+        params = mesh_lib.shard_params(mesh, params)
+    # this process's rows of each global batch
+    shard = ((mesh.index(mesh_lib.ROWS), mesh.size(mesh_lib.ROWS))
+             if mesh is not None else (0, 1))
 
     tcfg = TrainConfig(
         lr=args.lr, warmup_steps=args.warmup_steps,
@@ -256,7 +283,7 @@ def main(argv=None):
             dataset, cc, batch_size=args.batch_size,
             accum_steps=args.grad_accumulation_steps,
             num_workers=args.workers, seed=42, collate_fn=collate_fn,
-            device=device))
+            device=device, shard=shard))
 
     # per-epoch validation: one in-order pass; the last partial batch is
     # padded to the static shape with its padding rows' mask_valid cleared
@@ -266,33 +293,42 @@ def main(argv=None):
         vb = args.val_batch_size or args.batch_size
         vcollate = collate_fn or collate
 
+        if vb % shard[1]:
+            raise ValueError(f"validation batch {vb} does not split over "
+                             f"{shard[1]} row shards")
+        rows = slice(shard[0] * vb // shard[1],
+                     (shard[0] + 1) * vb // shard[1])
+
         def val_batches_fn():
             n = len(val_dataset)
             for start in range(0, n, vb):
-                samples = [val_dataset[i]
-                           for i in range(start, min(start + vb, n))]
-                n_real = len(samples)
-                while len(samples) < vb:
-                    samples.append(samples[-1])
-                arrays, _ = vcollate(samples, cc)
-                arrays["mask_valid"][n_real:] = False
+                idx = list(range(start, min(start + vb, n)))
+                n_real = len(idx)
+                idx += [idx[-1]] * (vb - n_real)
+                real = [j < n_real for j in range(vb)][rows]
+                arrays, _ = vcollate([val_dataset[i] for i in idx[rows]], cc)
+                arrays["mask_valid"][~np.asarray(real)] = False
                 yield to_model_batch(arrays, device)
 
     log_dir = os.path.join(args.log_base_dir, args.exp_name)
-    trainer = Trainer(cfg, tcfg, params, log_dir, seg_flag=not args.no_seg,
-                      rp_flag=args.region_fea_adapter
-                      or args.region_geo_sampler)
-    if args.eval_only:
-        if val_batches_fn is None:
-            raise SystemExit("--eval-only needs --val-data-path "
-                             "(and not --no-eval)")
-        step = trainer.resume_if_possible()
-        vres = trainer.validate(val_batches_fn())
-        print(f"eval_only @ step {step}: "
-              f"giou={vres['giou']:.4f} ciou={vres['ciou']:.4f} "
-              f"dice={vres['dice']:.4f} loss={vres['loss']:.4f}")
-        return vres
-    final = trainer.fit(batch_iterator, val_batches_fn=val_batches_fn)
+    with (mesh_lib.set_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        trainer = Trainer(cfg, tcfg, params, log_dir,
+                          seg_flag=not args.no_seg,
+                          rp_flag=args.region_fea_adapter
+                          or args.region_geo_sampler,
+                          ep_shard=args.mesh_expert > 1)
+        if args.eval_only:
+            if val_batches_fn is None:
+                raise SystemExit("--eval-only needs --val-data-path "
+                                 "(and not --no-eval)")
+            step = trainer.resume_if_possible()
+            vres = trainer.validate(val_batches_fn())
+            print(f"eval_only @ step {step}: "
+                  f"giou={vres['giou']:.4f} ciou={vres['ciou']:.4f} "
+                  f"dice={vres['dice']:.4f} loss={vres['loss']:.4f}")
+            return vres
+        final = trainer.fit(batch_iterator, val_batches_fn=val_batches_fn)
     print(f"training done at step {final}; checkpoints in {log_dir}")
     return final
 

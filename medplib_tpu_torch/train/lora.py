@@ -79,8 +79,13 @@ def mix_seed(*xs: int) -> int:
     return h
 
 
-def _lora_input(x: torch.Tensor) -> torch.Tensor:
-    """Dropout on the adapter input inside lora_dropout_ctx."""
+def _lora_input(x: torch.Tensor, cols=None) -> torch.Tensor:
+    """Dropout on the adapter input inside lora_dropout_ctx. Under a mesh
+    x holds this rank's rows of the batch (dim 0) and, with cols = (i, m)
+    (a row-parallel linear), block i of m of the features: the mask is
+    drawn for the whole batch and feature width, as one process draws it,
+    and this rank's block is kept."""
+    from medplib_tpu_torch.parallel.mesh import ROWS, current_mesh
     st = dropout_state()
     if not st or st["rate"] <= 0.0:
         return x
@@ -88,7 +93,17 @@ def _lora_input(x: torch.Tensor) -> torch.Tensor:
     gen = torch.Generator(device=x.device)
     gen.manual_seed(mix_seed(st["seed"], st["scope"], st["n"]))
     keep = 1.0 - st["rate"]
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    shape, r0, c0 = list(x.shape), 0, 0
+    mesh = current_mesh()
+    if mesh is not None:
+        shape[0] *= mesh.size(ROWS)
+        r0 = mesh.index(ROWS) * x.shape[0]
+    if cols is not None:
+        shape[-1] *= cols[1]
+        c0 = cols[0] * x.shape[-1]
+    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    mask = mask.narrow(0, r0, x.shape[0]).narrow(
+        x.dim() - 1, c0, x.shape[-1])
     return torch.where(mask, x / keep,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -216,14 +231,17 @@ def dequant_kernel(p: Params, dtype) -> torch.Tensor:
 def _use_w8a8(p: Params, x: torch.Tensor) -> bool:
     """W8A8 engages under dynamic_act_quant() for 2D int8 nodes without
     adapters when the call has >= 512 rows (prefill); decode stays
-    weight-only."""
+    weight-only. Under a mesh the rows are those of the global batch (the
+    rank's times the row shards), so every rank switches as one process
+    does."""
     if "scale" not in p or p["kernel"].dtype != torch.int8 \
             or p["kernel"].dim() != 2 or "lora_a" in p:
         return False
     from medplib_tpu_torch.utils.quantize import act_quant_enabled
     if not act_quant_enabled():
         return False
-    rows = 1
+    from medplib_tpu_torch.parallel.mesh import row_shards
+    rows = row_shards()
     for d in x.shape[:-1]:
         rows *= d
     return rows >= 512

@@ -19,6 +19,11 @@ schedule and rounds its constants differently:
 
 `Optimizer.update` takes and returns lists aligned with the trainable
 leaves (`Optimizer.select(tree)`), in the tree's leaf order.
+
+Under a mesh the leaves are this rank's shards: `global_norm` then sums a
+split leaf's squares over the axes it is split over, and counts a whole
+(replicated) leaf once, so the clip sees the norm of the whole tree; the
+moments are elementwise and live with their shards.
 """
 
 from __future__ import annotations
@@ -53,10 +58,16 @@ def warmup_decay_schedule(cfg: TrainConfig) -> Schedule:
     return lambda count: warm(count) if count < b else decay(count - b)
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor], mesh=None,
+                shard_axes: Optional[List[tuple]] = None) -> torch.Tensor:
     """optax.global_norm: per-leaf sums in the leaf's dtype, promoted as
-    they are added."""
-    return torch.sqrt(sum((g * g).sum() for g in grads))
+    they are added. With a mesh, shard_axes[i] names the axes leaf i is
+    split over: its sum of squares is summed over them."""
+    sq = [(g * g).sum() for g in grads]
+    if mesh is not None and shard_axes is not None:
+        sq = [mesh.all_reduce(s, ax) if ax else s
+              for s, ax in zip(sq, shard_axes)]
+    return torch.sqrt(sum(sq))
 
 
 def _c(x, like: torch.Tensor) -> torch.Tensor:
@@ -96,12 +107,16 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: OptState,
-               params: List[torch.Tensor]):
+               params: List[torch.Tensor],
+               g_norm: Optional[torch.Tensor] = None):
         """-> (updates, new state); grads, params and updates are lists
-        aligned with `select(params)`."""
+        aligned with `select(params)`. g_norm: the clip's global norm when
+        the caller has it (a sharded tree's, from global_norm with its
+        mesh), else global_norm(grads)."""
         cfg = self.cfg
         b1, b2, eps = cfg.beta1, cfg.beta2, 1e-8
-        g_norm = global_norm(grads)
+        if g_norm is None:
+            g_norm = global_norm(grads)
         keep = g_norm < cfg.grad_clip_norm
         grads = [torch.where(keep, g, (g / g_norm.to(g.dtype))
                              * _c(cfg.grad_clip_norm, g)) for g in grads]

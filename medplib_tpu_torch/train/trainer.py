@@ -7,6 +7,16 @@ The step differentiates only the trainable leaves (the optimizer's mask):
 a QLoRA tree's frozen int8 base holds integer tensors autograd cannot
 differentiate, and frozen leaves never get a gradient buffer. They pass
 through every update untouched (the same tensors).
+
+Distributed (parallel/mesh.py): called inside set_mesh, the step takes
+this rank's rows and params shards. Every rank computes the global loss,
+differentiates loss / world size, and `reduce_grads` sums each leaf's
+gradient over the ranks that hold the same copy of it (the axes
+shard_spec does not split it over: a replicated leaf over every rank,
+expert leaves under EP over data and model, a TP-split leaf over data and
+expert); the clip's global norm counts every shard once. Validation sums
+the meters over the row shards, and a checkpoint holds the consolidated
+tree one process would save, written by rank 0.
 """
 
 from __future__ import annotations
@@ -21,6 +31,8 @@ import torch
 
 from medplib_tpu_torch.config import MedplibConfig, TrainConfig
 from medplib_tpu_torch.models import medplib
+from medplib_tpu_torch.parallel.mesh import (AXIS_NAMES, ROWS, current_mesh,
+                                             shard_spec, sharded_axes)
 from medplib_tpu_torch.train import lora as lora_lib
 from medplib_tpu_torch.train.optimizer import (OptState, Optimizer,
                                                global_norm, make_optimizer)
@@ -28,6 +40,13 @@ from medplib_tpu_torch.utils import tree as tree_util
 from medplib_tpu_torch.utils.checkpoint import CheckpointManager
 from medplib_tpu_torch.utils.logging import (AverageMeter, ProgressMeter,
                                              ScalarWriter)
+
+
+class _NoWriter:
+    def add_scalar(self, *_a, **_k):
+        pass
+
+    add_scalars = add_scalar
 
 
 class TrainState(NamedTuple):
@@ -41,6 +60,14 @@ def create_state(params, tcfg: TrainConfig):
             if tcfg.lora_enable else None)
     tx = make_optimizer(tcfg, mask)
     return TrainState(params=params, opt_state=tx.init(params), step=0), tx
+
+
+def _full(mesh, path, leaf):
+    """A whole leaf from this rank's shard of it."""
+    for dim, a in enumerate(shard_spec(path, leaf)):
+        if a is not None and mesh.size(a) > 1:
+            leaf = mesh.all_gather(leaf, a, dim=dim)
+    return leaf
 
 
 def _microbatch(batches: medplib.Batch, i: int) -> medplib.Batch:
@@ -64,8 +91,43 @@ def accumulation_path(ga: int) -> str:
     return "scan"
 
 
+def _leaf_axes(tree) -> list:
+    """The mesh axes each leaf of `tree` is split over (shard_spec)."""
+    return [sharded_axes(shard_spec(path, leaf))
+            for path, leaf in tree_util.leaves_with_paths(tree)]
+
+
+def reduce_grads(mesh, grads: list, split: list) -> list:
+    """Sum each gradient over the mesh axes its leaf is NOT split over
+    (the ranks holding the same copy), one collective per (axes, dtype)
+    bucket."""
+    out = list(grads)
+    buckets: Dict[tuple, list] = {}
+    for i, (g, ax) in enumerate(zip(grads, split)):
+        rest = tuple(a for a in AXIS_NAMES
+                     if a not in ax and mesh.size(a) > 1)
+        if rest:
+            buckets.setdefault((rest, g.dtype), []).append(i)
+    for (rest, _), idx in buckets.items():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        flat = mesh.all_reduce(flat, rest)
+        for i, part in zip(idx, torch.split(flat, [grads[i].numel()
+                                                   for i in idx])):
+            out[i] = part.reshape(grads[i].shape)
+    return out
+
+
+def consolidate(mesh, tree):
+    """The whole tree from this rank's shards (a collective: every rank
+    calls it)."""
+    lv = [_full(mesh, p, leaf)
+          for p, leaf in tree_util.leaves_with_paths(tree)]
+    return tree_util.unflatten(tree, lv)
+
+
 def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
-                    seg_flag: bool = True, rp_flag: bool = False):
+                    seg_flag: bool = True, rp_flag: bool = False,
+                    ep_shard: bool = False):
     """One update over `grad_accumulation_steps` microbatches.
 
     batches: a Batch whose tensors carry a leading [GA] microbatch axis.
@@ -74,7 +136,8 @@ def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
     index, so every update draws fresh masks and the whole schedule is
     reproducible. The microbatch gradients and metrics are summed as
     `accumulation_path` says, then divided by ga. rp_flag splices the
-    region features (stage 2, region adapter or geo sampler)."""
+    region features (stage 2, region adapter or geo sampler). ep_shard:
+    expert-parallel MoE under the ambient mesh (module docstring)."""
     ga = tcfg.grad_accumulation_steps
     drop_rate = tcfg.lora_dropout if tcfg.lora_enable else 0.0
     base_seed = tcfg.seed ^ 0x10A4
@@ -83,11 +146,13 @@ def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
         with lora_lib.lora_dropout_ctx(seed, drop_rate):
             out = medplib.model_forward(params, cfg, batch, train=True,
                                         seg_flag=seg_flag, rp_flag=rp_flag,
-                                        remat=True)
+                                        remat=True, ep_shard=ep_shard)
         metrics = {k: v.detach() for k, v in out.items() if v.dim() == 0}
         return out["loss"], metrics
 
     def train_step(state: TrainState, batches: medplib.Batch):
+        mesh = current_mesh()
+        world = 1 if mesh is None else mesh.world
         leaves = tree_util.leaves(state.params)
         m_lv = (tree_util.leaves(tx.mask) if tx.mask is not None
                 else [True] * len(leaves))
@@ -100,7 +165,8 @@ def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
         def grads_of(i):
             seed = lora_lib.mix_seed(base_seed, state.step, i)
             loss, metrics = loss_fn(full, _microbatch(batches, i), seed)
-            g = torch.autograd.grad(loss, train_lv, allow_unused=True)
+            g = torch.autograd.grad(loss / world if world > 1 else loss,
+                                    train_lv, allow_unused=True)
             return ([torch.zeros_like(p) if gi is None else gi
                      for gi, p in zip(g, train_lv)], metrics)
 
@@ -121,13 +187,20 @@ def make_train_step(cfg: MedplibConfig, tcfg: TrainConfig, tx: Optimizer,
             grads = [g / ga for g in grads]
             metrics = {k: v / ga for k, v in metrics.items()}
 
+        split = None
+        if mesh is not None:
+            split = [ax for ax, m in zip(_leaf_axes(state.params), m_lv)
+                     if m]
+            grads = reduce_grads(mesh, grads, split)
+        g_norm = global_norm(grads, mesh, split)
         params_lv = [p.detach() for p in train_lv]
-        updates, opt_state = tx.update(grads, state.opt_state, params_lv)
+        updates, opt_state = tx.update(grads, state.opt_state, params_lv,
+                                       g_norm)
         new = iter([(p + u).to(p.dtype) for p, u in zip(params_lv, updates)])
         params = tree_util.unflatten(
             state.params,
             [next(new) if m else p for p, m in zip(leaves, m_lv)])
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = g_norm
         return TrainState(params=params, opt_state=opt_state,
                           step=state.step + 1), metrics
 
@@ -138,7 +211,8 @@ class Trainer:
     """Epoch loop with checkpoints, resume and scalar logging."""
 
     def __init__(self, cfg: MedplibConfig, tcfg: TrainConfig, params,
-                 log_dir: str, seg_flag: bool = True, rp_flag: bool = False):
+                 log_dir: str, seg_flag: bool = True, rp_flag: bool = False,
+                 ep_shard: bool = False):
         if not cfg.seg.train_mask_decoder:
             # SegConfig.train_mask_decoder gates the mask decoder's
             # trainability
@@ -146,34 +220,72 @@ class Trainer:
                 m for m in tcfg.sft_modules if m != "mask_decoder"))
         self.cfg, self.tcfg = cfg, tcfg
         self.state, self.tx = create_state(params, tcfg)
-        self.step_fn = make_train_step(cfg, tcfg, self.tx, seg_flag, rp_flag)
-        self.writer = ScalarWriter(log_dir)
+        self.step_fn = make_train_step(cfg, tcfg, self.tx, seg_flag, rp_flag,
+                                       ep_shard)
+        mesh = current_mesh()
+        # one scalar log per run: rank 0 writes it under a mesh
+        self.writer = (ScalarWriter(log_dir) if mesh is None or mesh.rank == 0
+                       else _NoWriter())
         self.ckpt = CheckpointManager(os.path.join(log_dir, "ckpt_model"))
         self.log_dir = log_dir
-        self._rp_flag = rp_flag
+        self._rp_flag, self._ep_shard = rp_flag, ep_shard
 
     def _tree(self, state: TrainState) -> Dict[str, Any]:
+        """The checkpointed tree; under a mesh the consolidated one (the
+        moments take their leaves' layouts)."""
         o = state.opt_state
-        return {"params": state.params,
+        params, mu, nu = state.params, list(o.mu), list(o.nu)
+        mesh = current_mesh()
+        if mesh is not None:
+            paths = [p for p, _ in tree_util.leaves_with_paths(params)]
+            sel = [p for p, m in zip(paths, self._mask_leaves()) if m]
+            params = consolidate(mesh, params)
+            mu, nu = ([_full(mesh, p, t) for p, t in zip(sel, ts)]
+                      for ts in (mu, nu))
+        return {"params": params,
                 "opt_state": {"count": torch.tensor(o.count),
-                              "mu": list(o.mu), "nu": list(o.nu)},
+                              "mu": mu, "nu": nu},
                 "step": torch.tensor(state.step)}
 
+    def _mask_leaves(self) -> list:
+        lv = tree_util.leaves(self.state.params)
+        return (tree_util.leaves(self.tx.mask) if self.tx.mask is not None
+                else [True] * len(lv))
+
     def resume_if_possible(self) -> int:
-        """Restore the newest checkpoint -> its global step (0 if none)."""
+        """Restore the newest checkpoint -> its global step (0 if none).
+        Under a mesh every rank reads the consolidated tree and keeps its
+        shards."""
         restored, step = self.ckpt.restore(self._tree(self.state))
         if step is None:
             return 0
         o = restored["opt_state"]
+        params, mu, nu = restored["params"], o["mu"], o["nu"]
+        mesh = current_mesh()
+        if mesh is not None:
+            from medplib_tpu_torch.parallel.mesh import (shard_leaf,
+                                                         shard_params)
+            paths = [p for p, _ in tree_util.leaves_with_paths(params)]
+            sel = [p for p, m in zip(paths, self._mask_leaves()) if m]
+            params = shard_params(mesh, params)
+            mu, nu = ([shard_leaf(mesh, shard_spec(p, t), t)
+                       for p, t in zip(sel, ts)] for ts in (mu, nu))
         self.state = TrainState(
-            params=restored["params"],
-            opt_state=OptState(count=int(o["count"]), mu=o["mu"],
-                               nu=o["nu"]),
+            params=params,
+            opt_state=OptState(count=int(o["count"]), mu=mu, nu=nu),
             step=int(restored["step"]))
         return int(step)
 
     def save(self, step: int):
-        self.ckpt.save(step, self._tree(self.state))
+        """Write the checkpoint (under a mesh: consolidated, by rank 0,
+        the others waiting for it)."""
+        tree = self._tree(self.state)
+        mesh = current_mesh()
+        if mesh is None or mesh.rank == 0:
+            self.ckpt.save(step, tree)
+        if mesh is not None and mesh.groups:
+            import torch.distributed as dist
+            dist.barrier()
 
     def validate(self, val_batches: Iterator) -> Dict[str, float]:
         """The in-train validation pass: a teacher-forced model_forward
@@ -181,9 +293,11 @@ class Trainer:
         (seg_valid & mask_valid) binarized at sigmoid > 0.1 in the padded
         SAM frame against gt_masks. -> giou (mean per-sample IoU, SegMeter),
         ciou (IoU of the summed intersections and unions), miou, dice (the
-        mean of 2·IoU / (1 + IoU)) and the mean loss. The pass runs in one
-        process: summing the meters over processes waits for the port's
-        multi-process training."""
+        mean of 2·IoU / (1 + IoU)) and the mean loss. Under a mesh each rank
+        runs its rows and the meter state, the IoU, dice and loss sums and
+        their counts are summed over the row shards (the JAX package sums
+        them over processes), so every rank returns the one-process
+        result."""
         from medplib_tpu_torch.eval.seg_metrics import (SegMeter,
                                                         binarize_logits)
         meter = SegMeter()
@@ -192,7 +306,8 @@ class Trainer:
             for batch in val_batches:
                 out = medplib.model_forward(
                     self.state.params, self.cfg, batch, train=False,
-                    seg_flag=True, rp_flag=self._rp_flag, remat=False)
+                    seg_flag=True, rp_flag=self._rp_flag, remat=False,
+                    ep_shard=self._ep_shard)
                 preds = out["pred_masks"].float().cpu().numpy()
                 valid = (out["seg_valid"].cpu().numpy()
                          & batch.mask_valid.bool().cpu().numpy())
@@ -204,11 +319,26 @@ class Trainer:
                     union = float(np.logical_or(pred > 0, gts[b, s]).sum())
                     inter = float(np.logical_and(pred > 0, gts[b, s]).sum())
                     iou_list.append(inter / union if union else 0.0)
+        sums = np.asarray([sum(iou_list), sum(2 * i / (1 + i)
+                                              for i in iou_list),
+                           len(iou_list), sum(loss_list), len(loss_list)],
+                          np.float64)
+        mesh = current_mesh()
+        if mesh is not None:
+            nc = meter.num_classes
+            packed = torch.from_numpy(np.concatenate([
+                meter.inter_sum, meter.union_sum, meter.iou_sum,
+                [meter.count], sums]).astype(np.float64))
+            total = mesh.all_reduce(packed, ROWS).numpy()
+            meter.inter_sum, meter.union_sum, meter.iou_sum = (
+                total[:nc], total[nc:2 * nc], total[2 * nc:3 * nc])
+            meter.count = int(total[3 * nc])
+            sums = total[3 * nc + 1:]
+        iou_sum, dice_sum, n_iou, loss_sum, n_loss = sums
         res = meter.results()
-        n = max(len(iou_list), 1)
-        res.update(miou=float(sum(iou_list) / n),
-                   dice=float(sum(2 * i / (1 + i) for i in iou_list) / n),
-                   loss=float(sum(loss_list) / max(len(loss_list), 1)))
+        n = max(n_iou, 1)
+        res.update(miou=float(iou_sum / n), dice=float(dice_sum / n),
+                   loss=float(loss_sum / max(n_loss, 1)))
         return res
 
     def fit(self, batch_iterator: Callable[[], Iterator],

@@ -184,7 +184,7 @@ def test_einsum_dispatch_matches_jax_and_sort(k, cf, drops):
     close(aux_s, aux_e.numpy(), rtol=1e-6, atol=1e-6)
     assert drops and drops[-1] > 0
     with pytest.raises(ValueError, match="dispatch_mode"):
-        tmoe.moe_mlp(tp, _t(x), port_cfg(mcfg), dispatch_mode="ragged")
+        tmoe.moe_mlp(tp, _t(x), port_cfg(mcfg), dispatch_mode="bogus")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

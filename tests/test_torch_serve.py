@@ -271,9 +271,26 @@ def test_worker_error_chunk_matches_jax(workers):
 
 
 def test_device_preprocess_is_not_ported(tiny):
-    _, _, pcfg, tp = tiny
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        twk.ModelWorker(pcfg, tp, Tok(), device_preprocess=True)
+    """(Named for the raise it replaced: ops/device_preprocess.py is ported
+    now.) device_preprocess=True: the sample's image fields within 2 grey
+    levels of the host path's, and the stream equal to the JAX worker's
+    with device_preprocess=True, chunk for chunk."""
+    from medplib_tpu_torch.data import preprocess as tpp
+    cfg, jp, pcfg, tp = tiny
+    kw = dict(max_seq_len=48, max_new_tokens=8)
+    tw = twk.ModelWorker(pcfg, tp, Tok(), device_preprocess=True, **kw)
+    host = twk.ModelWorker(pcfg, tp, Tok(), **kw)
+    img = _image(3, (70, 90))
+    got = tw.build_sample("<image>\nhi", img, None)
+    want = host.build_sample("<image>\nhi", img, None)
+    assert tuple(got["resize_hw"]) == tuple(want["resize_hw"])
+    for k, std in (("image_sam", tpp.SAM_PIXEL_STD),
+                   ("image_clip", tpp.CLIP_STD * 255)):
+        assert got[k].shape == want[k].shape
+        assert (np.abs(got[k] - want[k]) * std).max() <= 2.0
+    jw = jwk.ModelWorker(cfg, jp, Tok(), device_preprocess=True, **kw)
+    for kind in ("vqa", "seg"):
+        assert _drain(tw, _payload(kind)) == _drain(jw, _payload(kind))
 
 
 def test_sampled_request_reproduces_and_seed_moves_it(tiny):

@@ -3,7 +3,7 @@ the JAX CLI's flags and defaults (plus --device), two training steps with
 per-epoch validation and a --eval-only pass on tiny configs (plain, ICL,
 and MoE seeded from donor checkpoints), the stage-4 expert surgery held
 leaf for leaf to the JAX CLI's from the same donor directories, and the
-mesh / multi-process flags refusing to run.
+mesh / multi-process flags refusing inconsistent settings.
 
 The tokenizer is the offline stub of tests/test_cli.py, patched into
 transformers.AutoTokenizer.from_pretrained; images are written from a
@@ -53,11 +53,14 @@ def test_argparser_matches_jax():
 
 @pytest.mark.parametrize("flag", [["--mesh-data", "2"], ["--mesh-expert", "2"],
                                   ["--mesh-model", "2"],
-                                  ["--coordinator", "localhost:1234"],
+                                  ["--coordinator", "localhost:1234",
+                                   "--mesh-data", "2"],
                                   ["--num-processes", "2"]])
 def test_mesh_and_multiprocess_flags_raise(flag, fake_tokenizer):  # noqa: F811
-    """No silent single-device run: the process stops."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    """A mesh that does not match the process count, or several processes
+    without a coordinator, stop the process before anything is built (the
+    multi-process run itself: tests/test_torch_distributed.py)."""
+    with pytest.raises(ValueError, match="processes|coordinator"):
         tcli.main(["--version", "random", "--tokenizer", "fake", "--tiny",
                    "--dataset-json", "x", "--image-folder", "y",
                    "--device", "cpu"] + flag)
