@@ -1670,7 +1670,7 @@ def profile_step(fn, top: int = 14, always: bool = False) -> None:
     torch.cuda.synchronize()
     t_all = time.time()
     with profiling.trace(None) as prof:
-        with profiling.annotate("chip_smoke.profile_step"):
+        with profiling.span("profile_step"):
             t0 = time.time()
             fn()
             torch.cuda.synchronize()

@@ -60,6 +60,7 @@ from medplib_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from medplib_tpu_torch.parallel import tp
 from medplib_tpu_torch.train import lora
 from medplib_tpu_torch.train.lora import linear, linear_t
+from medplib_tpu_torch.utils import profiling
 from medplib_tpu_torch.utils.quantize import (act_quant_enabled,
                                               dynamic_act_quant)
 
@@ -230,18 +231,20 @@ def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: LlamaConfig,
     """-> (x', (k, v), aux). attn_stacked: the whole-stack W8A8 attention
     projections (ops/stacked.py), addressed at layer_idx."""
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
-    q, k, v = _qkv(p["attn"], h, cfg, cos, sin, attn_stacked, layer_idx)
-    attn = causal_attention(q, k, v, attn_mask)
-    b, t = x.shape[:2]
-    if attn_stacked is not None:
-        from medplib_tpu_torch.ops.stacked import (quantize_rows_padded,
-                                                   stacked_w8a8_linear)
-        aq, asc, rows = quantize_rows_padded(attn.reshape(b * t, -1))
-        o = stacked_w8a8_linear(attn_stacked["o_proj"], aq, asc, layer_idx,
-                                rows)
-        x = x + o.reshape(b, t, -1).to(x.dtype)
-    else:
-        x = x + tp.row_linear(p["attn"]["o_proj"], attn.reshape(b, t, -1))
+    with profiling.span("attn"):
+        q, k, v = _qkv(p["attn"], h, cfg, cos, sin, attn_stacked, layer_idx)
+        attn = causal_attention(q, k, v, attn_mask)
+        b, t = x.shape[:2]
+        if attn_stacked is not None:
+            from medplib_tpu_torch.ops.stacked import (quantize_rows_padded,
+                                                       stacked_w8a8_linear)
+            aq, asc, rows = quantize_rows_padded(attn.reshape(b * t, -1))
+            o = stacked_w8a8_linear(attn_stacked["o_proj"], aq, asc,
+                                    layer_idx, rows)
+            x = x + o.reshape(b, t, -1).to(x.dtype)
+        else:
+            x = x + tp.row_linear(p["attn"]["o_proj"],
+                                  attn.reshape(b, t, -1))
     h = rms_norm(x, p["post_attention_layernorm"]["weight"],
                  cfg.rms_norm_eps)
     y, aux = mlp_apply(p, h)
@@ -264,31 +267,32 @@ def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: LlamaConfig,
     decoding past its cache (serve/engine.py). Such a row writes back the
     value already at its clamped position, so no host sync is needed."""
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
-    q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
-    b = x.shape[0]
-    bidx = torch.arange(b, device=x.device)
-    pos = length.long()
-    ok = pos < k_cache.shape[1]
-    pos = pos.clamp(max=k_cache.shape[1] - 1)
+    with profiling.span("attn"):
+        q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
+        b = x.shape[0]
+        bidx = torch.arange(b, device=x.device)
+        pos = length.long()
+        ok = pos < k_cache.shape[1]
+        pos = pos.clamp(max=k_cache.shape[1] - 1)
 
-    def put(cache, new):
-        keep = ok.reshape((b,) + (1,) * (new.dim() - 1))
-        cache[bidx, pos] = torch.where(keep, new.to(cache.dtype),
-                                       cache[bidx, pos])
+        def put(cache, new):
+            keep = ok.reshape((b,) + (1,) * (new.dim() - 1))
+            cache[bidx, pos] = torch.where(keep, new.to(cache.dtype),
+                                           cache[bidx, pos])
 
-    if k_scale is not None:
-        kq, ksc = quantize_kv(k[:, 0])
-        vq, vsc = quantize_kv(v[:, 0])
-        for cache, new in ((k_cache, kq), (k_scale, ksc), (v_cache, vq),
-                           (v_scale, vsc)):
-            put(cache, new)
-        attn = decode_attention_quant(q, k_cache, k_scale, v_cache, v_scale,
-                                      length + 1)
-    else:
-        put(k_cache, k[:, 0])
-        put(v_cache, v[:, 0])
-        attn = decode_attention(q, k_cache, v_cache, length + 1)
-    x = x + tp.row_linear(p["attn"]["o_proj"], attn.reshape(b, 1, -1))
+        if k_scale is not None:
+            kq, ksc = quantize_kv(k[:, 0])
+            vq, vsc = quantize_kv(v[:, 0])
+            for cache, new in ((k_cache, kq), (k_scale, ksc), (v_cache, vq),
+                               (v_scale, vsc)):
+                put(cache, new)
+            attn = decode_attention_quant(q, k_cache, k_scale, v_cache,
+                                          v_scale, length + 1)
+        else:
+            put(k_cache, k[:, 0])
+            put(v_cache, v[:, 0])
+            attn = decode_attention(q, k_cache, v_cache, length + 1)
+        x = x + tp.row_linear(p["attn"]["o_proj"], attn.reshape(b, 1, -1))
     h = rms_norm(x, p["post_attention_layernorm"]["weight"],
                  cfg.rms_norm_eps)
     y, _ = mlp_apply(p, h)
@@ -345,18 +349,21 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
     x = input_embeds
     aux = torch.zeros((), device=dev)
     for i in range(cfg.num_layers):
-        if remat:
-            x, a = checkpoint(remat_layer, i, x, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            x, (k, v), a = layer(i, x)
-            if cache is not None and cache.quantized:
-                cache.k[i, :, :t], cache.k_scale[i, :, :t] = quantize_kv(k)
-                cache.v[i, :, :t], cache.v_scale[i, :, :t] = quantize_kv(v)
-            elif cache is not None:
-                cache.k[i, :, :t] = k.to(cache.k.dtype)
-                cache.v[i, :, :t] = v.to(cache.v.dtype)
-        aux = aux + a
+        with profiling.span("llm.layer", layer=i):
+            if remat:
+                x, a = checkpoint(remat_layer, i, x, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, (k, v), a = layer(i, x)
+                if cache is not None and cache.quantized:
+                    cache.k[i, :, :t], cache.k_scale[i, :, :t] = \
+                        quantize_kv(k)
+                    cache.v[i, :, :t], cache.v_scale[i, :, :t] = \
+                        quantize_kv(v)
+                elif cache is not None:
+                    cache.k[i, :, :t] = k.to(cache.k.dtype)
+                    cache.v[i, :, :t] = v.to(cache.v.dtype)
+            aux = aux + a
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     if cache is not None:
         cache.length = (attn_mask.int().sum(-1).to(torch.int32)
@@ -379,9 +386,10 @@ def forward_decode(params: Params, cfg: LlamaConfig,
     for i in range(cfg.num_layers):
         scales = ((cache.k_scale[i], cache.v_scale[i]) if cache.quantized
                   else (None, None))
-        x = decoder_layer_decode(layer_params(params["layers"], i), x, cfg,
-                                 cos, sin, cache.k[i], cache.v[i],
-                                 cache.length, mlp_apply, *scales)
+        with profiling.span("llm.layer", layer=i):
+            x = decoder_layer_decode(layer_params(params["layers"], i), x,
+                                     cfg, cos, sin, cache.k[i], cache.v[i],
+                                     cache.length, mlp_apply, *scales)
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     cache.length = cache.length + 1
     return x, cache
@@ -408,29 +416,39 @@ def forward_extend(params: Params, cfg: LlamaConfig,
     positions = (c0 + torch.arange(c, device=dev))[None].expand(b, c)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     x = input_embeds
+    span = slice(c0, c0 + c)
     for i in range(cfg.num_layers):
-        p = layer_params(params["layers"], i)
-        h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
+        with profiling.span("llm.layer", layer=i):
+            x = _extend_layer(layer_params(params["layers"], i), i, x, cfg,
+                              cos, sin, cache, span, mlp_apply)
+    x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
+    return x, cache
+
+
+def _extend_layer(p: Params, i: int, x, cfg: LlamaConfig, cos, sin,
+                  cache: KVCache, span: slice, mlp_apply: MlpApply):
+    """Layer i of forward_extend over the prompt positions `span`."""
+    b, c = x.shape[:2]
+    h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
+    with profiling.span("attn"):
         q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
-        span = slice(c0, c0 + c)
         if cache.quantized:
             cache.k[i, :, span], cache.k_scale[i, :, span] = quantize_kv(k)
             cache.v[i, :, span], cache.v_scale[i, :, span] = quantize_kv(v)
             attn = extend_attention_quant(q, cache.k[i], cache.k_scale[i],
-                                          cache.v[i], cache.v_scale[i], c0)
+                                          cache.v[i], cache.v_scale[i],
+                                          span.start)
         else:
             cache.k[i, :, span] = k.to(cache.k.dtype)
             cache.v[i, :, span] = v.to(cache.v.dtype)
             attn = extend_attention(q.to(cache.k.dtype), cache.k[i],
-                                    cache.v[i], c0)
+                                    cache.v[i], span.start)
         x = x + tp.row_linear(p["attn"]["o_proj"],
                               attn.to(x.dtype).reshape(b, c, -1))
-        h = rms_norm(x, p["post_attention_layernorm"]["weight"],
-                     cfg.rms_norm_eps)
-        y, _ = mlp_apply(p, h)
-        x = x + y
-    x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
-    return x, cache
+    h = rms_norm(x, p["post_attention_layernorm"]["weight"],
+                 cfg.rms_norm_eps)
+    y, _ = mlp_apply(p, h)
+    return x + y
 
 
 def embed(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -443,8 +461,9 @@ def embed(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
 def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """f32 logits over the whole vocabulary (all-gathered from the model
     ranks' blocks under tensor parallelism)."""
-    return tp.gather_vocab(tp.column_linear(params["lm_head"],
-                                            hidden).float())
+    with profiling.span("lm_head"):
+        return tp.gather_vocab(tp.column_linear(params["lm_head"],
+                                                hidden).float())
 
 
 def pack_inference(llm_params: Params) -> Params:

@@ -40,6 +40,7 @@ from medplib_tpu_torch.models import (clip, geo_sampler, llama, losses,
 from medplib_tpu_torch.ops import sampling
 from medplib_tpu_torch.ops import splice as splice_ops
 from medplib_tpu_torch.ops.initializers import dense_init
+from medplib_tpu_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -144,6 +145,7 @@ def image_tokens_per_image(cfg: MedplibConfig) -> int:
     return cfg.vision.num_patches
 
 
+@profiling.span("encode_images")
 def encode_images(params: Params, cfg: MedplibConfig,
                   images_clip: torch.Tensor,
                   image_is_mask: Optional[torch.Tensor] = None,
@@ -211,34 +213,35 @@ def splice_batch(params: Params, cfg: MedplibConfig, batch: Batch,
     buffer, l_max, region_fmap = encode_images(
         params, cfg, batch.images_clip, batch.image_is_mask,
         batch.mask_images, need_region)
-    n_img = batch.images_clip.shape[1]
-    dev = batch.input_ids.device
-    starts = (torch.arange(n_img, device=dev) * l_max)[None, :].expand(
-        batch.image_token_lengths.shape)
-    sm = splice_ops.compute_splice_map(
-        batch.input_ids, batch.input_mask, batch.image_token_lengths,
-        out_len=_out_len(cfg, batch), image_feat_starts=starts)
+    with profiling.span("splice"):
+        n_img = batch.images_clip.shape[1]
+        dev = batch.input_ids.device
+        starts = (torch.arange(n_img, device=dev) * l_max)[None, :].expand(
+            batch.image_token_lengths.shape)
+        sm = splice_ops.compute_splice_map(
+            batch.input_ids, batch.input_mask, batch.image_token_lengths,
+            out_len=_out_len(cfg, batch), image_feat_starts=starts)
 
-    region_feats = None
-    if need_region:
-        if batch.region_masks is None or batch.region_valid is None:
-            raise ValueError("rp_flag reads Batch.region_masks and "
-                             "region_valid (Batch.make fills them)")
-        if cfg.projector.region_geo_sampler:
-            region_feats = geo_sampler.apply_geo_sampler(
-                params["region_geo_sampler"], region_fmap,
-                batch.region_masks, batch.region_valid,
-                pooler_mode=cfg.projector.sampler_pooler_mode)
-        else:
-            region_feats = projector.region_pool(
-                region_fmap, batch.region_masks, batch.region_valid)
+        region_feats = None
+        if need_region:
+            if batch.region_masks is None or batch.region_valid is None:
+                raise ValueError("rp_flag reads Batch.region_masks and "
+                                 "region_valid (Batch.make fills them)")
+            if cfg.projector.region_geo_sampler:
+                region_feats = geo_sampler.apply_geo_sampler(
+                    params["region_geo_sampler"], region_fmap,
+                    batch.region_masks, batch.region_valid,
+                    pooler_mode=cfg.projector.sampler_pooler_mode)
+            else:
+                region_feats = projector.region_pool(
+                    region_fmap, batch.region_masks, batch.region_valid)
 
-    token_embeds = llama.embed(params["llm"], batch.input_ids)
-    embeds, labels_out, seg_mask = splice_ops.splice_embeddings(
-        sm, batch.input_ids, token_embeds, buffer,
-        region_features=region_feats, labels=batch.labels,
-        seg_token_idx=cfg.seg_token_idx)
-    return embeds, labels_out, sm.attn_mask, seg_mask, sm
+        token_embeds = llama.embed(params["llm"], batch.input_ids)
+        embeds, labels_out, seg_mask = splice_ops.splice_embeddings(
+            sm, batch.input_ids, token_embeds, buffer,
+            region_features=region_feats, labels=batch.labels,
+            seg_token_idx=cfg.seg_token_idx)
+        return embeds, labels_out, sm.attn_mask, seg_mask, sm
 
 
 def _llm_forward(params, cfg: MedplibConfig, embeds, attn_mask, cache=None,
@@ -262,6 +265,7 @@ def _llm_decode(params, cfg: MedplibConfig, embeds, cache, ep_shard=False,
                                 unroll=unroll)
 
 
+@profiling.span("sam.decode")
 def decode_seg_masks(params: Params, cfg: MedplibConfig,
                      sam_embeddings: torch.Tensor, seg_embeds: torch.Tensor,
                      out_size: Optional[int] = None):
@@ -371,13 +375,15 @@ def _first_token(params, cfg: MedplibConfig, last_hidden, seg_emb,
     """The first new token from each row's last prompt hidden [B, 1, H]
     (a SEG there captures that hidden) -> (tok, seg_emb, seg_count,
     last_cap, stream keys after one split)."""
-    key, sub = sampling.split_rows(sampling.row_keys(rng, b, dev))
-    tok = sampling.select_token(
-        llama.logits(params["llm"], last_hidden)[:, 0], sub, do_sample,
-        temperature, top_p)
-    first_cap = text_hidden_fcs(params["text_hidden_fcs"], last_hidden)[:, 0]
-    seg_emb, seg_count = _seg_slot_write(seg_emb, seg_count, first_cap,
-                                         tok == cfg.seg_token_idx)
+    logits = llama.logits(params["llm"], last_hidden)[:, 0]
+    with profiling.span("sample"):
+        key, sub = sampling.split_rows(sampling.row_keys(rng, b, dev))
+        tok = sampling.select_token(logits, sub, do_sample, temperature,
+                                    top_p)
+        first_cap = text_hidden_fcs(params["text_hidden_fcs"],
+                                    last_hidden)[:, 0]
+        seg_emb, seg_count = _seg_slot_write(seg_emb, seg_count, first_cap,
+                                             tok == cfg.seg_token_idx)
     return tok, seg_emb, seg_count, first_cap.to(seg_emb.dtype), key
 
 
@@ -401,19 +407,21 @@ def _make_decode_step(params, cfg: MedplibConfig, eos_id: int,
         emb = llama.embed(params["llm"], tok[:, None])
         hidden, cache = _llm_decode(params, cfg, emb, cache, ep_shard,
                                     unroll)
-        sub = None
-        if do_sample:
-            key, sub = sampling.split_rows(key)
-        new_tok = sampling.select_token(
-            llama.logits(params["llm"], hidden)[:, 0], sub, do_sample,
-            temperature, top_p).to(tok.dtype)
-        is_seg = (new_tok == cfg.seg_token_idx) & ~done
-        cap = text_hidden_fcs(fcs, hidden)[:, 0]
-        seg_emb, seg_count = _seg_slot_write(seg_emb, seg_count, cap, is_seg)
-        last_cap = torch.where(done[:, None], last_cap,
-                               cap.to(last_cap.dtype))
-        new_tok = torch.where(done, torch.zeros_like(new_tok), new_tok)
-        new_done = done | (new_tok == eos_id)
+        logits = llama.logits(params["llm"], hidden)[:, 0]
+        with profiling.span("sample"):
+            sub = None
+            if do_sample:
+                key, sub = sampling.split_rows(key)
+            new_tok = sampling.select_token(logits, sub, do_sample,
+                                            temperature, top_p).to(tok.dtype)
+            is_seg = (new_tok == cfg.seg_token_idx) & ~done
+            cap = text_hidden_fcs(fcs, hidden)[:, 0]
+            seg_emb, seg_count = _seg_slot_write(seg_emb, seg_count, cap,
+                                                 is_seg)
+            last_cap = torch.where(done[:, None], last_cap,
+                                   cap.to(last_cap.dtype))
+            new_tok = torch.where(done, torch.zeros_like(new_tok), new_tok)
+            new_done = done | (new_tok == eos_id)
         return ((cache, new_tok, new_done, seg_emb, seg_count, last_cap,
                  key), (tok, done))
 
@@ -437,6 +445,7 @@ def _last_hidden(hidden, attn_mask):
         hidden, 1, last_idx[:, None, None].expand(-1, 1, hidden.shape[-1]))
 
 
+@profiling.span("generate")
 @torch.no_grad()
 def generate(params: Params, cfg: MedplibConfig, batch: Batch,
              max_new_tokens: int = 64, eos_id: int = 2,
@@ -497,6 +506,7 @@ class StreamState(NamedTuple):
     rng: torch.Tensor         # [B, 2] per-row sampling streams
 
 
+@profiling.span("prefill")
 @torch.no_grad()
 def stream_prefill(params: Params, cfg: MedplibConfig, batch: Batch,
                    max_new_tokens: int, rp_flag: bool = False,
@@ -541,7 +551,8 @@ def stream_decode_chunk(params: Params, cfg: MedplibConfig,
                              top_p, state.tok.device, ep_shard)
     carry, toks, dones = tuple(state), [], []
     for _ in range(chunk):
-        carry, (t, d) = step(carry)
+        with profiling.span("decode_step"):
+            carry, (t, d) = step(carry)
         toks.append(t)
         dones.append(d)
     return (StreamState(*carry), torch.stack(toks, dim=1),
@@ -562,6 +573,7 @@ class PrefillCarry(NamedTuple):
     last_hidden: torch.Tensor  # [B, H] hidden at each row's last real pos
 
 
+@profiling.span("prefill")
 @torch.no_grad()
 def stream_prefill_begin(params: Params, cfg: MedplibConfig, batch: Batch,
                          max_new_tokens: int, chunk_tokens: int,
@@ -607,6 +619,7 @@ def _llm_extend(params, cfg: MedplibConfig, embeds, cache, c0,
     return llama.forward_extend(params["llm"], cfg.llm, embeds, cache, c0)
 
 
+@profiling.span("prefill")
 @torch.no_grad()
 def stream_prefill_chunk(params: Params, cfg: MedplibConfig,
                          carry: PrefillCarry, embeds: torch.Tensor,
@@ -640,6 +653,7 @@ def stream_prefill_chunk(params: Params, cfg: MedplibConfig,
                         last_hidden=last_hidden)
 
 
+@profiling.span("prefill")
 @torch.no_grad()
 def stream_prefill_finish(params: Params, cfg: MedplibConfig,
                           carry: PrefillCarry, attn_mask: torch.Tensor,
@@ -662,6 +676,7 @@ def stream_prefill_finish(params: Params, cfg: MedplibConfig,
                        last_cap=last_cap, rng=key)
 
 
+@profiling.span("ground")
 @torch.no_grad()
 def ground_seg_slots(params: Params, cfg: MedplibConfig,
                      images_sam: torch.Tensor, seg_emb: torch.Tensor,

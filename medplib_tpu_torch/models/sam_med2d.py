@@ -23,6 +23,7 @@ from medplib_tpu_torch.config import SamConfig
 from medplib_tpu_torch.models.llama import layer_params
 from medplib_tpu_torch.ops.initializers import dense_init, normal
 from medplib_tpu_torch.ops.norms import layer_norm
+from medplib_tpu_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -256,6 +257,7 @@ def _encoder_block(p: Params, x: torch.Tensor, cfg: SamConfig,
     return x + mlp
 
 
+@profiling.span("sam.encode")
 def encode_image(params: Params, images: torch.Tensor,
                  cfg: SamConfig) -> torch.Tensor:
     """images [B, H, W, 3] -> image embeddings [B, h, w, 256]."""

@@ -45,6 +45,7 @@ from medplib_tpu_torch.config import MoeConfig
 from medplib_tpu_torch.parallel.mesh import (AXIS_EXPERT, ROWS,
                                              current_mesh, local_mesh,
                                              row_shards, row_sum)
+from medplib_tpu_torch.utils import profiling
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -194,10 +195,11 @@ def _aux_loss_rows(gates: torch.Tensor, idx: torch.Tensor, e: int):
 def _route_top1(logits: torch.Tensor):
     """softmax in f32, first-maximum argmax, the top prob as the gate."""
     e = logits.shape[-1]
-    gates = torch.softmax(logits.float(), dim=-1)
-    idx = torch.argmax(gates, dim=-1)
-    gate_s = torch.gather(gates, 1, idx[:, None])[:, 0]
-    return idx, gate_s, _aux_loss_rows(gates, idx, e)
+    with profiling.span("moe.route", S=logits.shape[0]):
+        gates = torch.softmax(logits.float(), dim=-1)
+        idx = torch.argmax(gates, dim=-1)
+        gate_s = torch.gather(gates, 1, idx[:, None])[:, 0]
+        return idx, gate_s, _aux_loss_rows(gates, idx, e)
 
 
 def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
@@ -214,19 +216,21 @@ def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
 
     e = logits.shape[-1]
     idx, gate_s, aux = _route_top1(logits)
-    if stacked and block_m <= 64 and fused_decode_eligible(experts, e) \
-            and os.environ.get("MEDPLIB_DECODE_FUSED", "1") == "1":
-        # A8 unless MEDPLIB_DECODE_A8=0, as the JAX caller reads it
-        y = moe_ffn_decode_int4h(
-            xs, experts, idx.to(torch.int32), gate_s, e,
-            int8_x=os.environ.get("MEDPLIB_DECODE_A8", "1") == "1")
-        return y.to(dtype), aux
-    x_al, dest, tile_gid = align_groups(xs, idx, e, block_m)
-    out_al = _gmm_ffn(x_al, tile_gid, experts, dtype, block_m, stacked)
-    # gate rounded to out_al's dtype, product unrounded (as compiled)
-    y = (out_al[dest].float()
-         * gate_s[:, None].to(out_al.dtype).float()).to(dtype)
-    return y, aux
+    with profiling.span("moe.experts", S=xs.shape[0]) as sp:
+        if stacked and block_m <= 64 and fused_decode_eligible(experts, e) \
+                and os.environ.get("MEDPLIB_DECODE_FUSED", "1") == "1":
+            # A8 unless MEDPLIB_DECODE_A8=0, as the JAX caller reads it
+            y = moe_ffn_decode_int4h(
+                xs, experts, idx.to(torch.int32), gate_s, e,
+                int8_x=os.environ.get("MEDPLIB_DECODE_A8", "1") == "1")
+            return y.to(dtype), aux
+        x_al, dest, tile_gid = align_groups(xs, idx, e, block_m)
+        sp.note(Sp=x_al.shape[0])
+        out_al = _gmm_ffn(x_al, tile_gid, experts, dtype, block_m, stacked)
+        # gate rounded to out_al's dtype, product unrounded (as compiled)
+        y = (out_al[dest].float()
+             * gate_s[:, None].to(out_al.dtype).float()).to(dtype)
+        return y, aux
 
 
 def _gmm_moe_ep(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,

@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from medplib_tpu_torch.ops.initializers import normal
+from medplib_tpu_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -270,8 +271,11 @@ def linear(p: Params, x: torch.Tensor, scale: float = 2.0) -> torch.Tensor:
     elif "scale4h" in p and p["kernel"].dim() == 2:
         from medplib_tpu_torch.utils.quantize import int4h_matmul
         y = int4h_matmul(x, p["kernel"], p["scale4h"])
+    elif p["kernel"].dtype == torch.int8:     # int8, int4 block, int4h
+        with profiling.span("linear.dequant"):
+            y = x @ dequant_kernel(p, x.dtype)
     else:
-        y = x @ dequant_kernel(p, x.dtype)
+        y = x @ p["kernel"]
     return _lora_and_bias(p, x, y, scale)
 
 
@@ -284,8 +288,11 @@ def linear_t(p: Params, x: torch.Tensor, scale: float = 2.0) -> torch.Tensor:
     elif "scale4h" in p and p["kernel"].dim() == 2:
         from medplib_tpu_torch.utils.quantize import int4h_matmul_t
         y = int4h_matmul_t(x, p["kernel"], p["scale4h"])
+    elif p["kernel"].dtype == torch.int8:     # int8, int4 block, int4h
+        with profiling.span("linear.dequant"):
+            y = x @ dequant_kernel(p, x.dtype).t()
     else:
-        y = x @ dequant_kernel(p, x.dtype).t()
+        y = x @ p["kernel"].t()
     return _lora_and_bias(p, x, y, scale)
 
 

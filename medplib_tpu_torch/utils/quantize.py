@@ -28,6 +28,7 @@ from typing import Any, Sequence
 import torch
 
 from medplib_tpu_torch.train.lora import TRANSPOSED_KERNELS
+from medplib_tpu_torch.utils import profiling
 
 SKIP_MODULES = ("sam", "clip", "text_hidden_fcs", "region_fea_adapter",
                 "mask_encoder", "mm_token_compressor", "router",
@@ -390,6 +391,7 @@ def dynamic_act_quant(enabled: bool = True):
         _ACT_QUANT.on = prev
 
 
+@profiling.span("linear.w8a8")
 def int8_dyn_matmul(x: torch.Tensor, w_q: torch.Tensor,
                     w_scale: torch.Tensor, transposed: bool) -> torch.Tensor:
     """y = (quant(x) @ w_q) * row scale * channel scale, with an exact s32

@@ -719,6 +719,53 @@ def test_ragged_widths_match_plain(dev, kernel, transposed):
         assert rel < (1e-5 if got.dtype == torch.float32 else 4e-3)
 
 
+def test_span_summary_puts_moe_kernels_under_moe_experts(dev):
+    """A small MoE generate (tests/test_torch_profiling.py's model, B=16 x
+    1264 spliced tokens) on the card under torch.profiler and
+    utils/profiling.recording(): every K1 launch (W4A8 prefill) and every
+    K2 kernel (fused decode) belongs to moe.experts through the launch's
+    CUPTI correlation, there are MAX_NEW decode steps, and the spans below
+    `generate` hold at least 95% of the device time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.utils import profiling
+    from medplib_tpu_torch.utils.quantize import (dynamic_act_quant,
+                                                  quantize_flagship_moe)
+    from test_torch_profiling import MAX_NEW, _batch, _cfg
+    cfg = _cfg()
+    p = medplib.init_medplib(torch.Generator(device=dev).manual_seed(0),
+                             cfg, torch.float32, dev)
+    p["llm"]["embed_tokens"]["embedding"] *= 50.0
+    p = quantize_flagship_moe(p, 4, 8)
+    batch = medplib.Batch(*(t.to(dev) if t is not None else None for t in
+                            _batch(cfg, 16, 64, np.random.default_rng(0))))
+    with dynamic_act_quant(True):
+        medplib.generate(p, cfg, batch, max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                profiling.recording() as rec:
+            medplib.generate(p, cfg, batch, max_new_tokens=MAX_NEW)
+            torch.cuda.synchronize()
+    out = profiling.span_summary(prof, rec)
+    spans = out["spans"]
+    moe = ("s8_mma_kernel", "moe_prep_kernel", "moe_gateup_kernel",
+           "moe_act_kernel", "moe_down_kernel", "moe_combine_kernel")
+    under = {k for k in moe
+             if any(k in n for n in spans["moe.experts"]["self_kernels"])}
+    assert under == set(moe)
+    for name, r in spans.items():
+        if name != "moe.experts":
+            assert not [n for n in r["self_kernels"]
+                        if any(k in n for k in moe)], name
+    assert spans["decode_step"]["instances"] == MAX_NEW
+    outside = spans["generate"]["self_device_s"] + \
+        spans.get(None, {"device_s": 0.0})["device_s"]
+    assert out["device_s"] > 0 and outside <= 0.05 * out["device_s"]
+
+
 def test_engine_card_matches_cpu(dev):
     """The tiny int4h MoE serving model (chip_smoke.tiny_serving_cfg)
     through BatchedEngine on the CPU and on the card: 4 slots, 4 requests
