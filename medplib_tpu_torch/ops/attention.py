@@ -62,19 +62,29 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Prefill attention. q [B, T, H, D]; k, v [B, S, KV, D] with S >= T;
     attn_mask optional [B, S] 1=keep.
 
-    As in the JAX package, prompts of >= 1024 tokens on the accelerator
-    (here: a CUDA tensor) take flash attention (ops/cuda/flash_attention.py,
-    kernels K4-K6) where the kernels run: head_dim HEAD_DIM (128).
-    Everything else, other head sizes included, takes the plain path, which
-    computes the same function."""
+    On a CUDA tensor with head_dim HEAD_DIM (128), the size the kernels
+    take, every prompt takes flash attention (ops/cuda/flash_attention.py,
+    kernels K4-K6), whatever its length. The JAX package sends only prompts
+    of >= 1024 tokens to its TPU kernel; on the H100 K4 is faster than the
+    plain path from 16 tokens up, forward alone and with the backward
+    (scripts/flash_crossover.py times both): below ~256 tokens the plain
+    path pays ~8 launches to K4's one, above it f32 [B, H, T, S] scores.
+    Everything else, the CPU and other head sizes, takes the plain path,
+    which computes the same function (a row that keeps no key is finite on
+    both routes, but not equal: flash_attention.py) and counts its calls in
+    `causal_attention.plain_calls`."""
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
-    if q.is_cuda and q.shape[1] >= 1024 and q.shape[-1] == HEAD_DIM:
+    if q.is_cuda and q.shape[-1] == HEAD_DIM:
         return flash_attention(q, k, v, attn_mask=attn_mask, causal=True)
+    causal_attention.plain_calls += 1
     bias = make_causal_bias(attn_mask, q.shape[1], k.shape[1],
                             device=q.device)
     return _plain_attention(q, k, v, bias)
+
+
+causal_attention.plain_calls = 0
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

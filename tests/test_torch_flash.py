@@ -144,14 +144,21 @@ def test_flash_autograd_matches_plain_attention(with_mask):
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_causal_attention_takes_plain_path_on_cpu(monkeypatch):
-    """The flash route needs a CUDA tensor: on the CPU even a >= 1024-token
-    prompt with head_dim 128 runs the plain attention."""
+@pytest.mark.parametrize("t", [1024, 687, 64])
+def test_causal_attention_takes_plain_path_on_cpu(monkeypatch, t):
+    """The flash route needs a CUDA tensor: on the CPU a prompt with
+    head_dim 128 runs the plain attention at any length (1024, the serving
+    cell's 687, 64), and the plain route counts the call."""
     def fail(*a, **k):
         raise AssertionError("flash attention on the CPU")
+    monkeypatch.setattr(tatt, "flash_attention", fail)
     monkeypatch.setattr(tf, "flash_attention", fail)
-    q = torch.zeros((1, 1024, 1, 128))
-    assert tatt.causal_attention(q, q, q).shape == q.shape
+    q = torch.zeros((1, t, 1, 128))
+    mask = torch.ones((1, t), dtype=torch.int32)
+    mask[0, t - 5:] = 0
+    n0 = tatt.causal_attention.plain_calls
+    assert tatt.causal_attention(q, q, q, mask).shape == q.shape
+    assert tatt.causal_attention.plain_calls == n0 + 1
 
 
 def test_flash_wrappers_reject_bad_shapes():

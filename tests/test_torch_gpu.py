@@ -190,22 +190,33 @@ def test_moe_decode_f32_rows_on_card(dev, a8):
     assert float((got - want).norm() / want.norm()) < 1e-3
 
 
-def test_long_prompt_attention_takes_flash(dev):
-    """A >= 1024-token prompt with head_dim 128 on the card goes through
-    K4 (one launch) and matches the plain attention path (bf16 out: rel
-    1e-2, the plain path rounds the probabilities to bf16, flash does
-    not)."""
+# (B, T, H, keep lengths, seed): a >= 1024-token prompt with a padded row;
+# the serving cell's shape class (B=16 right-padded rows of 623-687
+# spliced tokens, 32 heads); a short prompt, which takes flash too (no
+# length gate)
+@pytest.mark.parametrize("b,t,h,lens,seed", [
+    (2, 1030, 4, (1030, 1000), 1),
+    (16, 687, 32, tuple(623 + round(64 * i / 15) for i in range(16)), 687),
+    (2, 40, 32, (40, 33), 40),
+])
+def test_long_prompt_attention_takes_flash(dev, b, t, h, lens, seed):
+    """A prompt with head_dim 128 on the card goes through K4 (one launch,
+    the plain route's counter unchanged) at any length and matches the
+    plain attention path (bf16 out: rel 1e-2, the plain path rounds the
+    probabilities to bf16, flash does not)."""
     from medplib_tpu_torch.ops import attention as A
     from medplib_tpu_torch.ops.cuda import flash_attention as FA
-    gen = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = (torch.randn((2, 1030, 4, 128), generator=gen, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, t, h, 128), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
-    mask = torch.ones((2, 1030), dtype=torch.int32, device=dev)
-    mask[1, 1000:] = 0
-    n0 = FA.flash_forward.launches
+    assert len(lens) == b
+    mask = (torch.arange(t, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+    n0, p0 = FA.flash_forward.launches, A.causal_attention.plain_calls
     got = A.causal_attention(q, k, v, mask)
     assert FA.flash_forward.launches == n0 + 1
-    bias = A.make_causal_bias(mask, 1030, 1030, device=dev)
+    assert A.causal_attention.plain_calls == p0
+    bias = A.make_causal_bias(mask, t, t, device=dev)
     want = A._plain_attention(q, k, v, bias)
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).norm()
@@ -214,8 +225,9 @@ def test_long_prompt_attention_takes_flash(dev):
 
 def test_long_prompt_head_dim_256_takes_plain_attention(dev):
     """A 1024-token prompt with head_dim 256 on the card: the flash kernels
-    take head_dim 128 only, so it takes the plain attention (no launch),
-    equal to the same function on the CPU (f32: rel 1e-5)."""
+    take head_dim 128 only, so it takes the plain attention (no launch, one
+    plain call counted), equal to the same function on the CPU (f32: rel
+    1e-5)."""
     from medplib_tpu_torch.ops import attention as A
     from medplib_tpu_torch.ops.cuda import flash_attention as FA
     gen = torch.Generator().manual_seed(3)
@@ -223,12 +235,48 @@ def test_long_prompt_head_dim_256_takes_plain_attention(dev):
                for _ in range(3))
     mask = torch.ones((1, 1024), dtype=torch.int32)
     mask[0, 1000:] = 0
-    n0 = FA.flash_forward.launches
+    n0, p0 = FA.flash_forward.launches, A.causal_attention.plain_calls
     got = A.causal_attention(q.to(dev), k.to(dev), v.to(dev), mask.to(dev))
     torch.cuda.synchronize()
     assert FA.flash_forward.launches == n0
+    assert A.causal_attention.plain_calls == p0 + 1
     want = A.causal_attention(q, k, v, mask)
     assert float((got.cpu() - want).norm() / want.norm()) < 1e-5
+
+
+def test_grounded_generate_prefill_takes_flash(dev):
+    """A B=16 grounded generate at the serving widths (int4h MoE flagship,
+    32 heads x 128, 2 layers), rows right-padded to 623-687 spliced tokens
+    as in the serving benchmark: the prefill launches K4 once a layer and
+    the plain route never runs; tokens in range, masks finite."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from medplib_tpu_torch.config import flagship_cfg
+    from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.ops import attention as A
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    from medplib_tpu_torch.utils.quantize import dynamic_act_quant
+    cfg = flagship_cfg(2, moe=True)
+    params = cs.init_flagship(cfg, torch.Generator(device=dev).manual_seed(0),
+                              dev)
+    rng = np.random.default_rng(0)
+    b, t, new = 16, 112, 4
+    batch = cs.make_batch(cfg, b, t, rng, dev)
+    ids, mask = batch.input_ids.clone(), batch.input_mask.clone()
+    ids[:, t - 3] = 5
+    for r, n in enumerate(rng.permutation(np.rint(np.linspace(48, t, b)))):
+        n = int(n)
+        ids[r, n:], mask[r, n:] = 0, 0
+        ids[r, n - 3] = cfg.seg_token_idx
+    batch = batch._replace(input_ids=ids, input_mask=mask)
+    n0, p0 = FA.flash_forward.launches, A.causal_attention.plain_calls
+    with dynamic_act_quant(True):
+        r = medplib.generate(params, cfg, batch, max_new_tokens=new)
+    torch.cuda.synchronize()
+    assert FA.flash_forward.launches == n0 + cfg.llm.num_layers
+    assert A.causal_attention.plain_calls == p0
+    cs.check_result(r, cfg, b, new)
 
 
 @pytest.mark.parametrize("b,t,s,h,dtype", [
@@ -236,6 +284,7 @@ def test_long_prompt_head_dim_256_takes_plain_attention(dev):
     (3, 1087, 1087, 2, torch.bfloat16),
     (3, 50, 130, 2, torch.bfloat16),
     (4, 1789, 1789, 32, torch.bfloat16),   # the ICL prefill
+    (12, 700, 700, 32, torch.bfloat16),    # a short stage-3 prompt
 ])
 def test_flash_kernels_match_plain(dev, b, t, s, h, dtype):
     """K4 / K5 / K6 against their plain versions (the backward ones from
