@@ -20,12 +20,14 @@
    K8, K3 W8A8, K1 W4A8, K2 A8).
 3. Kernel phases: each kernel at the shapes its main path gives it (K1,
    K2 in A8 and bf16-x modes at the flagship serving shapes, K2 also at
-   block_n 128 / 256 / 512 and at B=80 rows; K3 in W8A8 at the int8-expert flagship shapes, int8-w and
+   block_n 128 / 256 / 512, at B=80 rows and with 6 of 64 experts a row
+   at DeepSeek-V2-Lite's decode (B=64, H=2048, M=1536); K3 in W8A8 at the int8-expert flagship shapes, int8-w and
    float bf16 at the ICL shapes, transposed at a small shape; K7
    int8_matmul and K9 int4h_matmul at the packed dense serving shapes,
    prefill and decode, both layouts; K8 w8a8_matmul, on no path, at the
    dense W8A8 shapes; K4, K5, K6 at the stage-3 training shape, K4 also
-   at the ICL shape) against
+   at the ICL shape and at the serving prefill's, including its <192,
+   128> instantiation at DeepSeek-V2-Lite's B=64 x 623-687) against
    its plain PyTorch version on the same card (TF32 off), with the
    tolerance stated; timed with CUDA events beside the plain version, the
    least time the card could take (bound_ms) and a library yardstick
@@ -210,7 +212,7 @@ def sass_phase(lib_path, build_log: str) -> None:
     instructions in each instance of the tensor-core kernels (HMMA in
     w8_mma_kernel: K7 on bf16 x, K3 int8-w / bf16; int4h_mma_kernel: K9 on
     bf16 x (int4_matmul.cu, 8 instances) and K1 on float x (gmm_int4h.cu,
-    2); flash_fwd_mma_kernel, flash_dq_mma_kernel and
+    2); flash_fwd_mma_kernel (2: MLA's <192, 128>), flash_dq_mma_kernel and
     flash_dkv_mma_kernel: K4, K5 and K6 on bf16; moe_gateup_kernel and
     moe_down_kernel<false>: K2 on bf16 x; IMMA in s8_mma_kernel: K8
     (int8_matmul.cu, 4 instances), K3 W8A8 (gmm.cu, 4) and K1 W4A8
@@ -235,7 +237,7 @@ def sass_phase(lib_path, build_log: str) -> None:
             fns[-1][1] += bool(re.search(r"\bHMMA\b", line))
             fns[-1][2] += bool(re.search(r"\bIMMA\b", line))
     hmma = {"w8_mma_kernel": 12, "int4h_mma_kernel": 10,
-            "flash_fwd_mma_kernel": 1, "flash_dq_mma_kernel": 1,
+            "flash_fwd_mma_kernel": 2, "flash_dq_mma_kernel": 1,
             "flash_dkv_mma_kernel": 1, "moe_gateup_kernelILb0": 1,
             "moe_down_kernelILb0": 1}        # kernel -> its instances
     imma = {"s8_mma_kernel": 10, "moe_gateup_kernelILb1": 1,
@@ -400,7 +402,8 @@ def k2_phase(gen, dev, results):
     M=11264, 2 experts (one layer), A8 and bf16 x at the default block_n
     (512), A8 also at block_n 128 / 256 / 512, then B=80 (two counted
     launches). Each against its plain version at rel Frobenius 1e-3, with
-    the share of bit-equal elements printed."""
+    the share of bit-equal elements printed. Then k2_topk_case (k experts
+    a row), into the kernels line under "topk"."""
     import torch
     from medplib_tpu_torch.ops.cuda import moe_decode as D
     b, e = 16, 2
@@ -460,6 +463,59 @@ def k2_phase(gen, dev, results):
         f"rel={rel:.3e} (rel Frobenius <= 1e-3)")
     if rel > 1e-3 or launches != 2:
         raise AssertionError("K2 at B=80 disagrees with plain")
+    results["moe_ffn_decode_int4h"]["topk"] = k2_topk_case(gen, dev)
+
+
+def k2_topk_case(gen, dev, b=64, h=2048, m=1536, e=64, k=6):
+    """K2 with k experts a row at DeepSeek-V2-Lite's decode: B=64 rows, 6
+    distinct of 64 experts each, H=2048, expert width 1408 padded to
+    1536. A8 against its plain version bit for bit (the integer products
+    and the combine's order are the plain version's), bf16 x at rel
+    Frobenius <= 1e-3; one counted launch; A8 timed with CUDA events
+    beside its plain version and its bound (the weights of the experts
+    the batch routes to, read once). -> the kernels line's record."""
+    import torch
+    from medplib_tpu_torch.ops.cuda import moe_decode as D
+    experts = {}
+    for name, (kk, n) in (("gate_proj", (h, m)), ("up_proj", (h, m)),
+                          ("down_proj", (m, h))):
+        packed, scale = _random_int4h(gen, e, kk, n, dev)
+        experts[name] = {"kernel": packed, "scale4h": scale}
+    x = (torch.randn((b, h), generator=gen, device=dev) * 0.5).to(
+        torch.bfloat16)
+    idx = torch.stack([torch.randperm(e, generator=gen, device=dev)[:k]
+                       for _ in range(b)]).to(torch.int32)
+    gate = torch.rand((b, k), generator=gen, device=dev) * 0.2
+    rec = dict(B=b, H=h, M=m, E=e, k=k)
+    for mode, a8 in (("A8", True), ("bf16", False)):
+        n0 = D.moe_ffn_decode_int4h.launches
+        got = D.moe_ffn_decode_int4h(x, experts, idx, gate, e, int8_x=a8)
+        want = D.moe_ffn_decode_int4h_plain(x, experts, idx, gate, e,
+                                            int8_x=a8)
+        torch.cuda.synchronize()
+        launches = D.moe_ffn_decode_int4h.launches - n0
+        rel = rel_err(got, want)
+        equal = float((got == want).float().mean()) * 100
+        log(f"[K2 moe_ffn_decode_int4h top-{k} {mode}] B={b} H={h} M={m} "
+            f"E={e}: {launches} launch, rel={rel:.3e}, {equal:.4f}% "
+            f"bit-equal (A8: bit-equal; bf16: rel Frobenius <= 1e-3)")
+        ok = torch.equal(got, want) if a8 else rel <= 1e-3
+        if launches != 1 or not ok:
+            raise AssertionError(f"K2 top-{k} {mode} disagrees with plain")
+    used = [int(u) for u in torch.unique(idx).tolist()]
+    wbytes = sum(nbytes(node["kernel"][used], node["scale4h"][used])
+                 for node in experts.values())
+    ms = cuda_time(lambda: D.moe_ffn_decode_int4h(x, experts, idx, gate, e,
+                                                  int8_x=True), iters=20)
+    pms = cuda_time(lambda: D.moe_ffn_decode_int4h_plain(
+        x, experts, idx, gate, e, int8_x=True), iters=3)
+    bms, by = bound(wbytes + nbytes(x, idx, gate, got),
+                    2 * b * k * 3 * h * m, INT8_OPS)
+    log(f"[K2 moe_ffn_decode_int4h top-{k} A8] kernel {ms:.3f} ms, plain "
+        f"{pms:.3f} ms, bound {bms:.4f} ms ({by}: {len(used)} experts' "
+        f"weights; {100 * bms / ms:.1f}% of the bound)")
+    return dict(rec, experts_used=len(used), ms=ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by)
 
 
 def k2_equal_share(root: str) -> None:
@@ -1029,15 +1085,15 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _flash_inputs(gen, dev, b, t, s, h, d, lens=None):
+def _flash_inputs(gen, dev, b, t, s, h, d, lens=None, dv=None):
     """lens: the B rows' kept lengths of a right-padded mask, as a serving
     batch has; else padded tails of 10 i keys and, at T = S, a row whose
-    first queries keep no key."""
+    first queries keep no key. dv: v's head size (default d)."""
     import torch
     bf = torch.bfloat16
     q = torch.randn((b, t, h, d), generator=gen, device=dev).to(bf)
     k = torch.randn((b, s, h, d), generator=gen, device=dev).to(bf)
-    v = torch.randn((b, s, h, d), generator=gen, device=dev).to(bf)
+    v = torch.randn((b, s, h, dv or d), generator=gen, device=dev).to(bf)
     if lens is not None:
         mask = (torch.arange(s, device=dev)[None, :]
                 < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
@@ -1070,6 +1126,17 @@ def _serve_lens(b: int, t: int):
 # the main path's B=16 and B=1 calls at 623 spliced tokens, and the
 # grounded-VQA benchmark's B=16 x 687 with rows of 623-687 tokens
 FLASH_SERVE_SHAPES = ((16, 623), (16, 687), (1, 623))
+# K4 <192, 128> at DeepSeek-V2-Lite's serving prefill (16 heads of q / k
+# 192 and v 128, YaRN's softmax scale): the dsv2lite-ground-b64
+# benchmark's B=64 x 687 with rows of 623-687 tokens, and one 623-token row
+MLA_SERVE_SHAPES = ((64, 687), (1, 623))
+
+
+def mla_serve_scale() -> float:
+    """DeepSeek-V2-Lite's softmax scale: 192^-0.5 times YaRN's mscale^2."""
+    from medplib_tpu_torch.config import MlaConfig, YarnScaling
+    from medplib_tpu_torch.ops.rope import mla_softmax_scale
+    return mla_softmax_scale(MlaConfig(rope_scaling=YarnScaling()))
 
 
 def flash_phase(gen, dev, results):
@@ -1087,7 +1154,9 @@ def flash_phase(gen, dev, results):
     beside the route's plain attention (make_causal_bias +
     _plain_attention, which these prompts took below 1024 tokens before
     the route lost its length test); those times go into the kernels
-    line under flash_fwd's "serve".
+    line under flash_fwd's "serve". The same for the <192, 128>
+    instantiation at MLA_SERVE_SHAPES with the YaRN scale, each counted
+    as one launch of it.
 
     Tolerances: out, dq, dk, dv are bf16 results of f32 sums taken in
     another order, so at most a rare one-ulp rounding flip: relative
@@ -1209,46 +1278,60 @@ def flash_phase(gen, dev, results):
         torch.cuda.empty_cache()
     results["flash_fwd"]["serve"] = [
         flash_serve_case(gen, dev, b, t, h, d)
-        for b, t in FLASH_SERVE_SHAPES]
+        for b, t in FLASH_SERVE_SHAPES] + [
+        flash_serve_case(gen, dev, b, t, 16, 192, dv=128,
+                         scale=mla_serve_scale())
+        for b, t in MLA_SERVE_SHAPES]
 
 
-def flash_serve_case(gen, dev, b, t, h, d):
-    """K4 at one serving prefill shape against flash_forward_plain (rel
-    Frobenius <= 1e-3, lse max abs <= 1e-4); at B > 1 also timed with
-    CUDA events beside the route's plain attention. -> the kernels line's
-    record of the shape."""
+def flash_serve_case(gen, dev, b, t, h, d, dv=None, scale=None):
+    """K4 at one serving prefill shape (v heads of dv, default d; softmax
+    scale default d^-0.5) against flash_forward_plain (rel Frobenius
+    <= 1e-3, lse max abs <= 1e-4); at B > 1 also timed with CUDA events
+    beside the route's plain attention. -> the kernels line's record of
+    the shape."""
     import torch
     from medplib_tpu_torch.ops import attention as A
     from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    dv = dv or d
     lens = _serve_lens(b, t)
-    q, k, v, mask, _ = _flash_inputs(gen, dev, b, t, t, h, d, lens)
-    out, lse = FA.flash_forward(q, k, v, mask)
-    want_out, want_lse = FA.flash_forward_plain(q, k, v, mask)
+    q, k, v, mask, _ = _flash_inputs(gen, dev, b, t, t, h, d, lens, dv)
+    n0 = FA.flash_forward.launches_qk192
+    out, lse = FA.flash_forward(q, k, v, mask, scale)
+    want_out, want_lse = FA.flash_forward_plain(q, k, v, mask, scale)
     torch.cuda.synchronize()
+    if FA.flash_forward.launches_qk192 - n0 != int(dv != d):
+        raise AssertionError(f"K4 <{d}, {dv}>: the <192, 128> launch count "
+                             f"moved by {FA.flash_forward.launches_qk192 - n0}")
     rel = rel_err(out, want_out)
     err = float((out.float() - want_out.float()).abs().max())
     lse_err = float((lse - want_lse).abs().max())
     finite = bool(torch.isfinite(out.float()).all())
-    log(f"[flash serve B={b} T=S={t} H={h}] rows keep {lens[0]}..{lens[-1]}"
+    log(f"[flash serve B={b} T=S={t} H={h} D={d} Dv={dv}"
+        + ("" if scale is None else f" scale={scale:.6f}")
+        + f"] rows keep {lens[0]}..{lens[-1]}"
         f" keys: out max_abs_err={err:.3e} rel={rel:.3e}, lse max_abs_err="
         f"{lse_err:.3e} (rel Frobenius <= 1e-3, lse max abs <= 1e-4)")
     if not (finite and rel <= 1e-3 and lse_err <= 1e-4):
         raise AssertionError(f"flash forward disagrees with plain at the "
                              f"serving shape B={b} T=S={t}")
-    rec = dict(B=b, T=t, H=h, lens=[lens[0], lens[-1]], max_abs_err=err)
+    rec = dict(B=b, T=t, H=h, D=d, Dv=dv, lens=[lens[0], lens[-1]],
+               max_abs_err=err)
     if b == 1:
         return rec
     bias = lambda: A.make_causal_bias(mask, t, t, device=dev)  # noqa: E731
-    ms = cuda_time(lambda: FA.flash_forward(q, k, v, mask))
-    pms = cuda_time(lambda: A._plain_attention(q, k, v, bias()),
+    ms = cuda_time(lambda: FA.flash_forward(q, k, v, mask, scale))
+    pms = cuda_time(lambda: A._plain_attention(q, k, v, bias(), scale),
                     warmup=1, iters=3)
     pairs = float(FA._keep(mask, t, t).sum()) * h
-    counted, run = FLASH_FLOP_D["flash_fwd"]
-    ops = counted * d * pairs
+    # q . k over d, then P V over dv (run twice: P split hi + lo)
+    counted, run = 2 * d + 2 * dv, 2 * d + 4 * dv
+    ops = counted * pairs
     bms, by = bound(nbytes(q, k, v, mask, out, lse), ops, BF16_FLOPS)
-    log(f"[flash_fwd] serve B={b} T=S={t} H={h} D={d}: kernel {ms:.3f} ms "
-        f"({ops / ms / 1e9:.1f} TFLOP/s at {counted}·D FLOP a kept pair, "
-        f"{ops * run / counted / ms / 1e9:.1f} at the {run}·D it runs; "
+    log(f"[flash_fwd] serve B={b} T=S={t} H={h} D={d} Dv={dv}: kernel "
+        f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s at {counted} FLOP a "
+        f"kept pair, {ops * run / counted / ms / 1e9:.1f} at the {run} it "
+        f"runs; "
         f"{100 * bms / ms:.1f}% of the bound), the route's plain attention "
         f"{pms:.3f} ms ({pms / ms:.1f}x), bound {bms:.4f} ms ({by})")
     del q, k, v, out, want_out
@@ -5293,7 +5376,7 @@ def _phases(dev, card, lap, t_run, pool) -> int:
             "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
                     **{k: results[n][k] for k in keys},
-                    **{k: results[n][k] for k in ("serve",)
+                    **{k: results[n][k] for k in ("serve", "topk")
                        if k in results[n]})
                for n, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

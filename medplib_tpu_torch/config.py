@@ -57,6 +57,57 @@ class LlamaConfig:
 
 
 @dataclass(frozen=True)
+class YarnScaling:
+    """YaRN rope scaling as DeepSeek-V2's config.json states it
+    ("rope_scaling" of type "yarn"; modeling_deepseek.py's
+    DeepseekV2YarnRotaryEmbedding)."""
+    factor: float = 40.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+
+
+@dataclass(frozen=True)
+class MlaConfig(LlamaConfig):
+    """A DeepSeek-V2 decoder: LlamaConfig's widths (intermediate_size is
+    the dense MLP's) with multi-head latent attention. q has its own
+    q_proj (q_lora_rank null); k and v come from a latent of kv_lora_rank
+    values and one shared rope key of qk_rope_head_dim, so a cache holds
+    kv_lora_rank + qk_rope_head_dim values a token and layer. q / k heads
+    are qk_nope_head_dim + qk_rope_head_dim wide, v heads v_head_dim.
+    head_dim is set to the q / k head size. A port-only class: the JAX
+    package has no MLA."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_scaling: Optional[YarnScaling] = None
+
+    @property
+    def q_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "MlaConfig":
+        return MlaConfig(
+            vocab_size=vocab_size, hidden_size=128, intermediate_size=256,
+            num_layers=3, num_heads=4, num_kv_heads=4, head_dim=48,
+            max_position_embeddings=512, rms_norm_eps=1e-6, kv_lora_rank=32,
+            qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+            rope_scaling=YarnScaling(original_max_position_embeddings=64))
+
+
+def is_mla(cfg: LlamaConfig) -> bool:
+    return isinstance(cfg, MlaConfig)
+
+
+@dataclass(frozen=True)
 class MoeConfig:
     enable: bool = False
     num_experts: int = 2
@@ -85,6 +136,35 @@ class MoeConfig:
         if mode == "sparse":
             return tuple(range(0, num_layers, 2))
         raise ValueError(f"unknown moe_mode {mode!r}")
+
+
+@dataclass(frozen=True)
+class DeepseekMoeConfig(MoeConfig):
+    """DeepSeek-V2 routing: softmax in f32 over num_experts routed experts,
+    greedy top_k, no capacity (no pair is dropped), the top_k
+    probabilities times routed_scaling_factor as combine weights (or,
+    with norm_topk_prob, renormalized), plus num_shared_experts always-on
+    experts fused into one SwiGLU of moe_intermediate_size *
+    num_shared_experts; the first first_k_dense_replace layers keep a
+    dense MLP of the LlamaConfig's intermediate_size. A port-only class.
+    The capacity fields are not read."""
+    moe_intermediate_size: int = 1408
+    num_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+
+    def layer_indices(self, num_layers: int) -> Tuple[int, ...]:
+        if not self.enable:
+            return ()
+        return tuple(range(self.first_k_dense_replace, num_layers))
+
+    @staticmethod
+    def tiny() -> "DeepseekMoeConfig":
+        return DeepseekMoeConfig(enable=True, num_experts=8, top_k=3,
+                                 moe_intermediate_size=64,
+                                 num_shared_experts=1,
+                                 first_k_dense_replace=1)
 
 
 @dataclass(frozen=True)
@@ -263,7 +343,7 @@ _CONFIG_TYPES = {
     c.__name__: c
     for c in (LlamaConfig, MoeConfig, ClipVisionConfig, SamConfig,
               ProjectorConfig, SegConfig, MedplibConfig, MeshConfig,
-              TrainConfig)
+              TrainConfig, YarnScaling, MlaConfig, DeepseekMoeConfig)
 }
 
 

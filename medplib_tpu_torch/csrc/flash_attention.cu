@@ -52,6 +52,17 @@
 // non-bf16 operand (P or dS) split hi + lo: 6 D (K4), 8 D (K5) and 12 D
 // (K6) mma FLOP a kept pair against the 4 D, 6 D and 8 D counted above.
 // wgmma and TMA loads are later work.
+//
+// K4 on bf16 is a template over the q / k and v head sizes: <128, 128>,
+// and <192, 128> for DeepSeek-V2's multi-head latent attention in its
+// expanded form (q / k = 128 "nope" + 64 rope dims, v = 128; no TPU
+// kernel of the JAX package has it, which has no MLA). Rows of 192 bf16
+// are 24 chunks of 16 bytes; the swizzle XORs the chunk with the row's
+// low 3 bits, so each aligned group of 8 chunks maps onto itself and an
+// ldmatrix phase still hits 8 distinct 16-byte bank groups. What bounds
+// it at the serving shape (B = 64, T = S = 623-687, 16 heads): the bytes
+// of q and k at 192 and v and out at 128 (~0.27 ms at 3.35 TB/s) against
+// ~2·192 + 2·128 FLOP a kept pair and head (~0.1 ms on bf16 tensor cores).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -504,26 +515,45 @@ constexpr int kDkvSmem = 2 * kTileB + 2 * kDkvStage;  // + K, V
 // ptxas spills (~20 bytes at 255 registers) for a few % of speed
 constexpr int kDkvQS = 16;
 
-// smem byte offset of 16-byte chunk c of row r of a swizzled tile
+// smem byte offset of 16-byte chunk c of row r of a swizzled tile of
+// D-wide bf16 rows
+template <int D = kD>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * kRowB + ((c ^ (r & 7)) << 4);
+  return r * (2 * D) + ((c ^ (r & 7)) << 4);
 }
 
 // 64 rows [r0, r0 + 64) of a bf16 sequence (row r at g + r * stride) -> a
 // swizzled tile by cp.async; rows >= n are zero. The thread copies chunk
 // c of rows r, r + 8, ..: one source pointer stepped by 8 rows, so no
 // per-copy addresses stay live in registers across the query loop.
+// Rows of D != 128 (24 chunks at 192): the thread copies chunks
+// threadIdx.x + 128 i of the tile in row-major chunk order.
+template <int D = kD>
 __device__ __forceinline__ void copy_tile(unsigned char* tile,
                                           const __nv_bfloat16* g,
                                           size_t stride, int r0, int n) {
-  constexpr int kStep = kMmaThreads / 16;
-  const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
-  const __nv_bfloat16* src = g + (size_t)(r0 + r) * stride + 8 * c;
+  constexpr int kCpr = D / 8;  // 16-byte chunks a row
+  if constexpr (kCpr == 16) {
+    constexpr int kStep = kMmaThreads / 16;
+    const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
+    const __nv_bfloat16* src = g + (size_t)(r0 + r) * stride + 8 * c;
 #pragma unroll
-  for (int i = 0; i < 64 / kStep; ++i, src += kStep * stride) {
-    const bool ok = r0 + r + i * kStep < n;
-    mmatile::cp_async<16>(tile + swz(r + i * kStep, c), ok ? src : g,
-                          ok ? 16 : 0);
+    for (int i = 0; i < 64 / kStep; ++i, src += kStep * stride) {
+      const bool ok = r0 + r + i * kStep < n;
+      mmatile::cp_async<16>(tile + swz(r + i * kStep, c), ok ? src : g,
+                            ok ? 16 : 0);
+    }
+  } else {
+    static_assert(64 * kCpr % kMmaThreads == 0, "whole chunks a thread");
+#pragma unroll
+    for (int i = 0; i < 64 * kCpr / kMmaThreads; ++i) {
+      const int id = threadIdx.x + i * kMmaThreads;
+      const int r = id / kCpr, c = id % kCpr;
+      const bool ok = r0 + r < n;
+      mmatile::cp_async<16>(tile + swz<D>(r, c),
+                            ok ? g + (size_t)(r0 + r) * stride + 8 * c : g,
+                            ok ? 16 : 0);
+    }
   }
 }
 
@@ -532,14 +562,15 @@ __device__ __forceinline__ void copy_tile(unsigned char* tile,
 // at chunk 2 s, lanes 16-31 at 2 s + 1. Plain: the A fragment of those
 // rows, or {b0, b0', b1, b1'} of the n-tiles rows r0.., r0 + 8..; .trans
 // (rows = k): {b0, b1} of d n-tile 2 s, then of 2 s + 1.
+template <int D = kD>
 __device__ __forceinline__ uint32_t frag(int r0, int s) {
   const int lane = threadIdx.x & 31;
-  return swz(r0 + (lane & 15), 2 * s + (lane >> 4));
+  return swz<D>(r0 + (lane & 15), 2 * s + (lane >> 4));
 }
 
 // acc[j] = the warp's 16 rows of tile a (at a_r0) . tile rows b_r0 + 8 j
 // of tile b, over D: NQ n-tiles of m16n8k16.
-template <int NQ>
+template <int NQ, int D = kD>
 __device__ __forceinline__ void rows_dot(uint32_t a, int a_r0, uint32_t b,
                                          int b_r0, float (&acc)[NQ][4]) {
 #pragma unroll
@@ -547,13 +578,13 @@ __device__ __forceinline__ void rows_dot(uint32_t a, int a_r0, uint32_t b,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
-  for (int s = 0; s < kD / 16; ++s) {
+  for (int s = 0; s < D / 16; ++s) {
     uint32_t af[4];
-    mmatile::ldmatrix_x4(af, a + frag(a_r0, s));
+    mmatile::ldmatrix_x4(af, a + frag<D>(a_r0, s));
 #pragma unroll
     for (int h = 0; h < NQ / 2; ++h) {
       uint32_t bf[4];
-      mmatile::ldmatrix_x4(bf, b + frag(b_r0 + 16 * h, s));
+      mmatile::ldmatrix_x4(bf, b + frag<D>(b_r0 + 16 * h, s));
       mmatile::mma_bf16(acc[2 * h], af, bf[0], bf[2]);
       mmatile::mma_bf16(acc[2 * h + 1], af, bf[1], bf[3]);
     }
@@ -570,12 +601,13 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// acc[16 d n-tiles] += X . tile rows b_r0 .. b_r0 + 8 NQ of b ([query][d]),
-// X the warp's 16 x 8 NQ values as C fragments, split hi + lo.
-template <int NQ>
+// acc[D / 8 d n-tiles] += X . tile rows b_r0 .. b_r0 + 8 NQ of b
+// ([query][d]), X the warp's 16 x 8 NQ values as C fragments, split
+// hi + lo.
+template <int NQ, int D = kD>
 __device__ __forceinline__ void axpy_split(const float (&x)[NQ][4],
                                            uint32_t b, int b_r0,
-                                           float (&acc)[kD / 8][4]) {
+                                           float (&acc)[D / 8][4]) {
 #pragma unroll
   for (int kq = 0; kq < NQ / 2; ++kq) {
     uint32_t hi[4], lo[4];
@@ -584,9 +616,9 @@ __device__ __forceinline__ void axpy_split(const float (&x)[NQ][4],
     split2(x[2 * kq + 1][0], x[2 * kq + 1][1], hi[2], lo[2]);
     split2(x[2 * kq + 1][2], x[2 * kq + 1][3], hi[3], lo[3]);
 #pragma unroll
-    for (int p = 0; p < kD / 16; ++p) {
+    for (int p = 0; p < D / 16; ++p) {
       uint32_t bf[4];
-      mmatile::ldmatrix_x4_trans(bf, b + frag(b_r0 + 16 * kq, p));
+      mmatile::ldmatrix_x4_trans(bf, b + frag<D>(b_r0 + 16 * kq, p));
       mmatile::mma_bf16(acc[2 * p], hi, bf[0], bf[1]);
       mmatile::mma_bf16(acc[2 * p], lo, bf[0], bf[1]);
       mmatile::mma_bf16(acc[2 * p + 1], hi, bf[2], bf[3]);
@@ -740,8 +772,12 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // not stored. No atomics: deterministic.
 
 constexpr int kKvStage = 2 * kTileB + 64 * 4;        // K, V, mask[64]
-constexpr int kFwdSmem = kTileB + 2 * kKvStage;      // Q + the ring
 constexpr int kDqSmem = 2 * kTileB + 2 * kKvStage;   // Q, dO + the ring
+// K4 at q / k heads DK and v heads DV: a K tile, a V tile, the mask words
+template <int DK, int DV>
+constexpr int kFwdStage = 64 * 2 * (DK + DV) + 64 * 4;
+template <int DK, int DV>
+constexpr int kFwdSmem = 64 * 2 * DK + 2 * kFwdStage<DK, DV>;  // Q + ring
 // key n-tiles a step: a whole 64-key tile (191 / 219 registers, no spill;
 // at 32-key sub-steps one of the two spilled)
 constexpr int kNK = kBN / 8;
@@ -763,11 +799,31 @@ __device__ __forceinline__ void load_kv(unsigned char* stage,
   }
 }
 
+// K4's key tile at k0 -> the ring stage: K rows (DK wide, row stride
+// kstride), V rows (DV, vstride), then the tile's mask words
+template <int DK, int DV>
+__device__ __forceinline__ void load_kv_fwd(unsigned char* stage,
+                                            const __nv_bfloat16* kg,
+                                            const __nv_bfloat16* vg,
+                                            const int* mg, size_t kstride,
+                                            size_t vstride, int k0,
+                                            int s_len) {
+  copy_tile<DK>(stage, kg, kstride, k0, s_len);
+  copy_tile<DV>(stage + 64 * 2 * DK, vg, vstride, k0, s_len);
+  if (threadIdx.x < 64) {
+    const int col = k0 + threadIdx.x;
+    const bool ok = col < s_len;
+    mmatile::cp_async<4>(stage + 64 * 2 * (DK + DV) + 4 * threadIdx.x,
+                         ok ? mg + col : mg, ok ? 4 : 0);
+  }
+}
+
 // key tiles whose first column is <= the query tile's last row
 __device__ __forceinline__ int key_tiles(int q0, int q_off, int s_len) {
   return min((s_len + kBN - 1) / kBN, (q0 + q_off + kBM - 1) / kBN + 1);
 }
 
+template <int DK, int DV>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -778,25 +834,30 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      int heads, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t s0 = mmatile::smem_u32(smem);
+  constexpr int kQTileB = 64 * 2 * DK, kKTileB = kQTileB;
+  constexpr int kStage = kFwdStage<DK, DV>;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const int q_off = s_len - t_len;
-  const size_t stride = (size_t)heads * kD;
-  const size_t qbase = ((size_t)b * t_len * heads + h) * kD;
-  const size_t kbase = ((size_t)b * s_len * heads + h) * kD;
+  const size_t stride = (size_t)heads * DK, vstride = (size_t)heads * DV;
+  const size_t qbase = ((size_t)b * t_len * heads + h) * DK;
+  const size_t kbase = ((size_t)b * s_len * heads + h) * DK;
+  const size_t vbase = ((size_t)b * s_len * heads + h) * DV;
+  const size_t obase = ((size_t)b * t_len * heads + h) * DV;
   const int* mg = mask + (size_t)b * s_len;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int qw = 16 * warp;  // the warp's rows of the query tile
 
-  copy_tile(smem, q + qbase, stride, q0, t_len);
-  load_kv(smem + kTileB, k + kbase, v + kbase, mg, stride, 0, s_len);
+  copy_tile<DK>(smem, q + qbase, stride, q0, t_len);
+  load_kv_fwd<DK, DV>(smem + kQTileB, k + kbase, v + vbase, mg, stride,
+                      vstride, 0, s_len);
   mmatile::cp_async_commit();
 
   // the thread's rows g, g + 8 at their key positions
   int row[2];
-  float m[2], l[2], acc[kD / 8][4];
+  float m[2], l[2], acc[DV / 8][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     row[r] = q0 + q_off + qw + g + 8 * r;
@@ -804,7 +865,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] = 0.f;
   }
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -812,16 +873,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int st = kt & 1, k0 = kt * kBN;
     if (kt + 1 < n_kt)
-      load_kv(smem + kTileB + (st ^ 1) * kKvStage, k + kbase, v + kbase, mg,
-              stride, k0 + kBN, s_len);
+      load_kv_fwd<DK, DV>(smem + kQTileB + (st ^ 1) * kStage, k + kbase,
+                          v + vbase, mg, stride, vstride, k0 + kBN, s_len);
     mmatile::cp_async_commit();
     mmatile::cp_async_wait<1>();
     __syncthreads();  // Q and stage st landed
-    const uint32_t sk = s0 + kTileB + st * kKvStage, sv = sk + kTileB;
+    const uint32_t sk = s0 + kQTileB + st * kStage, sv = sk + kKTileB;
     const int* keep_col = reinterpret_cast<const int*>(
-        smem + kTileB + st * kKvStage + 2 * kTileB);
+        smem + kQTileB + st * kStage + 64 * 2 * (DK + DV));
     float s[kNK][4];
-    rows_dot<kNK>(s0, qw, sk, 0, s);
+    rows_dot<kNK, DK>(s0, qw, sk, 0, s);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < kNK; ++j) {
@@ -854,10 +915,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         l[e >> 1] += s[j][e];
       }
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-    axpy_split<kNK>(s, sv, 0, acc);  // acc += P V
+    axpy_split<kNK, DV>(s, sv, 0, acc);  // acc += P V
     __syncthreads();  // stage st is refilled by the next prefetch
   }
 
@@ -869,9 +930,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = q0 + qw + g + 8 * r;
     if (qi >= t_len) continue;
     const float lm = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* o = out + qbase + (size_t)qi * stride + 2 * t;
+    __nv_bfloat16* o = out + obase + (size_t)qi * vstride + 2 * t;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
           acc[j][2 * r] / lm, acc[j][2 * r + 1] / lm);
     if (t == 0) lse[(size_t)bh * t_len + qi] = m[r] + logf(lm);
@@ -990,6 +1051,25 @@ size_t dkv_smem() {
          (2 * kBN + kBM) * kPitch * sizeof(T);
 }
 
+// K4 on bf16 at q / k heads DK and v heads DV
+template <int DK, int DV>
+cudaError_t fwd_mma(const void* q, const void* k, const void* v,
+                    const void* mask, void* out, void* lse, int batch,
+                    int t_len, int s_len, int heads, float scale,
+                    cudaStream_t stream) {
+  dim3 grid((t_len + kBM - 1) / kBM, batch * heads);
+  using T = __nv_bfloat16;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem<DK, DV>);
+  if (e != cudaSuccess) return e;
+  flash_fwd_mma_kernel<DK, DV><<<grid, kMmaThreads, kFwdSmem<DK, DV>,
+                                 stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)mask, (T*)out,
+      (float*)lse, t_len, s_len, heads, scale);
+  return cudaGetLastError();
+}
+
 // K4, K5 and K6: the FMA kernels on f32 (a bf16 mma would round f32 q, k,
 // v), the tensor-core kernels on bf16.
 template <typename T>
@@ -998,13 +1078,8 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const void* mask,
                 int heads, float scale, cudaStream_t stream) {
   dim3 grid((t_len + kBM - 1) / kBM, batch * heads);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kFwdSmem);
-    if (e != cudaSuccess) return e;
-    flash_fwd_mma_kernel<<<grid, kMmaThreads, kFwdSmem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const int*)mask, (T*)out,
-        (float*)lse, t_len, s_len, heads, scale);
+    return fwd_mma<kD, kD>(q, k, v, mask, out, lse, batch, t_len, s_len,
+                           heads, scale, stream);
   } else {
     const size_t smem = fwd_smem<T>();
     cudaError_t e = cudaFuncSetAttribute(
@@ -1094,6 +1169,22 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return (int)fwd<__nv_bfloat16>(q, k, v, mask, out, lse, batch, t_len,
                                    s_len, heads, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4 on bf16 at q / k heads dk and v heads dv other than 128 / 128
+// (q [B, T, H, dk], k [B, S, H, dk], v [B, S, H, dv], out [B, T, H, dv]);
+// (192, 128) only. The caller checks as for flash_fwd_launch.
+extern "C" int flash_fwd_dims_launch(const void* q, const void* k,
+                                     const void* v, const void* mask,
+                                     void* out, void* lse, int batch,
+                                     int t_len, int s_len, int heads,
+                                     int dk, int dv, float scale,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dk == 192 && dv == 128)
+    return (int)fwd_mma<192, 128>(q, k, v, mask, out, lse, batch, t_len,
+                                  s_len, heads, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

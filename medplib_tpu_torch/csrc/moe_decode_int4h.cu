@@ -4,7 +4,10 @@
 // moe_ffn_decode_int4h (_kernel). For expert e and decode rows x [B, H]:
 //   g = (x[:, :H/2] @ Wg_lo) * sg[0] + (x[:, H/2:] @ Wg_hi) * sg[1]  (x row
 //       scale applied in A8 mode); u likewise
-//   act = silu(g) * u * (gate[b] if route_idx[b] == e else 0)
+//   act = silu(g) * u * (gate[b, j] if route_idx[b, j] == e for a j < topk,
+//         else 0): every row routes to topk distinct experts (top-1 for
+//         MedPLIB-7b-2e; DeepSeek-V2's top-6 of 64 sums its six experts'
+//         gated outputs in the combine below, in one pass)
 //   out = sum over the bn-column blocks c of M, in the TPU grid's order
 //         (e, j, nh), c = nh * n_j + j, from 0:  act[:, c] @ Wd[c] * sd[nh]
 // In A8 mode act is quantized to int8 per row PER BLOCK c of M (scale per
@@ -343,7 +346,7 @@ __global__ void moe_act_kernel(const float* __restrict__ gu,
                                const float* __restrict__ route_gate,
                                void* __restrict__ act_q,
                                float* __restrict__ act_s, int B, int bp,
-                               int M, int bn) {
+                               int M, int bn, int topk) {
   extern __shared__ float sact[];
   __shared__ float red[32];
   const int c = blockIdx.x, r = blockIdx.y, e = blockIdx.z;
@@ -351,7 +354,10 @@ __global__ void moe_act_kernel(const float* __restrict__ gu,
   const float* gr = gu + ((size_t)2 * e * bp + r) * M + col;
   const float* ur = gu + ((size_t)(2 * e + 1) * bp + r) * M + col;
   const size_t row = ((size_t)e * bp + r) * M + col;
-  const float mask = r < B && route_idx[r] == e ? route_gate[r] : 0.0f;
+  float mask = 0.0f;
+  if (r < B)
+    for (int j = 0; j < topk; ++j)
+      if (route_idx[r * topk + j] == e) mask = route_gate[r * topk + j];
   float amax = 0.0f;
   for (int i = threadIdx.x; i < bn; i += blockDim.x) {
     const float a = __fmul_rn(__fmul_rn(silu_f(gr[i]), ur[i]), mask);
@@ -478,7 +484,7 @@ struct Args {
   float* act_s;
   float* part;
   void* out;
-  int b, bp, h, m, e, bn;
+  int b, bp, h, m, e, bn, topk;
 };
 
 template <bool A8, typename T>
@@ -502,7 +508,7 @@ int run(const Args& a, cudaStream_t s) {
   if ((err = (int)cudaGetLastError())) return err;
   moe_act_kernel<A8><<<dim3(a.m / a.bn, a.bp, a.e), 128, smem_act, s>>>(
       a.gu, a.route_idx, a.route_gate, a.act_q, a.act_s, a.b, a.bp, a.m,
-      a.bn);
+      a.bn, a.topk);
   if ((err = (int)cudaGetLastError())) return err;
   const int nq = a.e * (a.m / a.bn);
   moe_down_kernel<A8, kDownStages>
@@ -520,7 +526,8 @@ int run(const Args& a, cudaStream_t s) {
 }  // namespace
 
 // C entry point. x [b, h] and out [b, h], f32 when f32 else bf16; b <= bp
-// rows, bp in {16, 32, 64}; route_idx [b] int32; route_gate [b] f32;
+// rows, bp in {16, 32, 64}; route_idx [b, topk] int32 (distinct experts
+// a row); route_gate [b, topk] f32;
 // gate/up packed [e, h/2, m] int8 + scale [e, 2, 1, m] f32; down packed
 // [e, m/2, h] int8 + scale [e, 2, 1, h] f32; scratch: xk [bp, h] (int8
 // when a8, else bf16), xs f32 [bp], gu f32 [e, 2, bp, m], act_q [e, bp, m]
@@ -533,7 +540,7 @@ extern "C" int moe_decode_int4h_launch(
     const void* gp, const void* gs, const void* up, const void* us,
     const void* dp, const void* ds, void* xk, void* xs, void* gu,
     void* act_q, void* act_s, void* part, void* out, int b, int bp, int h,
-    int m, int e, int bn, int a8, int f32, void* stream) {
+    int m, int e, int bn, int topk, int a8, int f32, void* stream) {
   const Args a{x,
                static_cast<const int*>(route_idx),
                static_cast<const float*>(route_gate),
@@ -550,7 +557,7 @@ extern "C" int moe_decode_int4h_launch(
                static_cast<float*>(act_s),
                static_cast<float*>(part),
                out,
-               b, bp, h, m, e, bn};
+               b, bp, h, m, e, bn, topk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a8)
     return f32 ? run<true, float>(a, s) : run<true, __nv_bfloat16>(a, s);

@@ -35,18 +35,28 @@ torch.utils.checkpoint (the counterpart of jax.checkpoint on the scan
 body): only the layer inputs stay alive, and each layer is recomputed in
 the backward. A layer re-enters the caller's LoRA-dropout and W8A8 state
 explicitly, so its recompute sees what its forward saw.
+
+The layer bodies take their attention as they take their MLP: an
+Attention (rope tables, prefill form, decode form over the layer's cache
+view) chosen once per config by attention_for. An MlaConfig (DeepSeek-V2)
+gets models/mla.py's (the expanded form at prefill, the absorbed form at
+decode) over an mla.LatentCache, with the caller's MLP
+(models/deepseek_v2.py); the chunked-prefill extend, the int8 cache and
+tensor parallelism do not cover it and raise.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from medplib_tpu_torch.config import LlamaConfig
+from medplib_tpu_torch.config import LlamaConfig, is_mla
+from medplib_tpu_torch.models import mla
 from medplib_tpu_torch.ops.moe import _silu
 from medplib_tpu_torch.ops.attention import (causal_attention,
                                              decode_attention,
@@ -56,7 +66,8 @@ from medplib_tpu_torch.ops.attention import (causal_attention,
                                              quantize_kv)
 from medplib_tpu_torch.ops.initializers import dense_init, embed_init
 from medplib_tpu_torch.ops.norms import rms_norm
-from medplib_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from medplib_tpu_torch.ops.rope import (apply_rope, mla_rope_cos_sin,
+                                        rope_cos_sin)
 from medplib_tpu_torch.parallel import tp
 from medplib_tpu_torch.train import lora
 from medplib_tpu_torch.train.lora import linear, linear_t
@@ -83,6 +94,9 @@ class KVCache:
     def init(cfg: LlamaConfig, batch: int, max_len: int,
              dtype=torch.bfloat16, device="cuda",
              quant: bool = False) -> "KVCache":
+        if is_mla(cfg):
+            raise ValueError("an MLA configuration caches latents: "
+                             "models/mla.LatentCache, not KVCache")
         cfg = tp.local_cfg(cfg)        # a model rank caches its heads
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.head_dim)
@@ -101,6 +115,13 @@ class KVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    def layer(self, i: int):
+        """Layer i's views (k, v, k_scale, v_scale), the scales None
+        unless quantized: what LLAMA_ATTENTION's forms write."""
+        if self.quantized:
+            return self.k[i], self.v[i], self.k_scale[i], self.v_scale[i]
+        return self.k[i], self.v[i], None, None
 
 
 # ---------------------------------------------------------------------------
@@ -223,76 +244,130 @@ def _qkv(p: Params, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: LlamaConfig,
-                          cos, sin, attn_mask: Optional[torch.Tensor],
-                          mlp_apply: MlpApply,
-                          attn_stacked: Optional[Params] = None,
-                          layer_idx: int = 0):
-    """-> (x', (k, v), aux). attn_stacked: the whole-stack W8A8 attention
-    projections (ops/stacked.py), addressed at layer_idx."""
-    h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
-    with profiling.span("attn"):
-        q, k, v = _qkv(p["attn"], h, cfg, cos, sin, attn_stacked, layer_idx)
-        attn = causal_attention(q, k, v, attn_mask)
-        b, t = x.shape[:2]
-        if attn_stacked is not None:
-            from medplib_tpu_torch.ops.stacked import (quantize_rows_padded,
-                                                       stacked_w8a8_linear)
-            aq, asc, rows = quantize_rows_padded(attn.reshape(b * t, -1))
-            o = stacked_w8a8_linear(attn_stacked["o_proj"], aq, asc,
-                                    layer_idx, rows)
-            x = x + o.reshape(b, t, -1).to(x.dtype)
+def _prefill_attention(p: Params, h: torch.Tensor, cfg: LlamaConfig, cos,
+                       sin, attn_mask: Optional[torch.Tensor], view=None,
+                       stacked: Optional[Params] = None) -> torch.Tensor:
+    """q / k / v, causal attention, o_proj -> [B, T, hidden]; K/V written
+    at positions [0, T) of the layer's cache view (KVCache.layer) when
+    given. stacked: the whole-stack W8A8 attention projections
+    (ops/stacked.py), addressed at p["layer_idx"]."""
+    i, (b, t) = p["layer_idx"], h.shape[:2]
+    q, k, v = _qkv(p["attn"], h, cfg, cos, sin, stacked, i)
+    if view is not None:
+        k_cache, v_cache, k_scale, v_scale = view
+        if k_scale is not None:
+            k_cache[:, :t], k_scale[:, :t] = quantize_kv(k)
+            v_cache[:, :t], v_scale[:, :t] = quantize_kv(v)
         else:
-            x = x + tp.row_linear(p["attn"]["o_proj"],
-                                  attn.reshape(b, t, -1))
-    h = rms_norm(x, p["post_attention_layernorm"]["weight"],
-                 cfg.rms_norm_eps)
-    y, aux = mlp_apply(p, h)
-    return x + y, (k, v), aux
+            k_cache[:, :t] = k.to(k_cache.dtype)
+            v_cache[:, :t] = v.to(v_cache.dtype)
+    attn = causal_attention(q, k, v, attn_mask)
+    if stacked is not None:
+        from medplib_tpu_torch.ops.stacked import (quantize_rows_padded,
+                                                   stacked_w8a8_linear)
+        aq, asc, rows = quantize_rows_padded(attn.reshape(b * t, -1))
+        o = stacked_w8a8_linear(stacked["o_proj"], aq, asc, i, rows)
+        return o.reshape(b, t, -1).to(h.dtype)
+    return tp.row_linear(p["attn"]["o_proj"], attn.reshape(b, t, -1))
 
 
-def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: LlamaConfig,
-                         cos, sin, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, length: torch.Tensor,
-                         mlp_apply: MlpApply,
-                         k_scale: Optional[torch.Tensor] = None,
-                         v_scale: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
-    """x [B, 1, H]. Writes this token's k/v at row position `length` of the
-    layer's cache views (in place; quantized with their scales when
-    k_scale / v_scale are given) and attends to the first length+1.
+def _decode_attention(p: Params, h: torch.Tensor, cfg: LlamaConfig, cos,
+                      sin, view, length: torch.Tensor) -> torch.Tensor:
+    """One token a row against the layer's cache view (KVCache.layer):
+    writes its k/v at row position `length` (in place; quantized with
+    their scales in an int8 cache) and attends to the first length + 1.
+    -> o_proj's output [B, 1, hidden].
 
     A row whose length has reached the cache's size writes nothing, as
     JAX's scatter drops an out-of-bounds update: an idle serving slot keeps
     decoding past its cache (serve/engine.py). Such a row writes back the
     value already at its clamped position, so no host sync is needed."""
+    k_cache, v_cache, k_scale, v_scale = view
+    q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
+    b = h.shape[0]
+    bidx = torch.arange(b, device=h.device)
+    pos = length.long()
+    ok = pos < k_cache.shape[1]
+    pos = pos.clamp(max=k_cache.shape[1] - 1)
+
+    def put(cache, new):
+        keep = ok.reshape((b,) + (1,) * (new.dim() - 1))
+        cache[bidx, pos] = torch.where(keep, new.to(cache.dtype),
+                                       cache[bidx, pos])
+
+    if k_scale is not None:
+        kq, ksc = quantize_kv(k[:, 0])
+        vq, vsc = quantize_kv(v[:, 0])
+        for cache, new in ((k_cache, kq), (k_scale, ksc), (v_cache, vq),
+                           (v_scale, vsc)):
+            put(cache, new)
+        attn = decode_attention_quant(q, k_cache, k_scale, v_cache,
+                                      v_scale, length + 1)
+    else:
+        put(k_cache, k[:, 0])
+        put(v_cache, v[:, 0])
+        attn = decode_attention(q, k_cache, v_cache, length + 1)
+    return tp.row_linear(p["attn"]["o_proj"], attn.reshape(b, 1, -1))
+
+
+def _mla_rope(positions: torch.Tensor, cfg):
+    if tp.model_axis() is not None:
+        raise NotImplementedError("MLA under tensor parallelism")
+    return mla_rope_cos_sin(positions, cfg)
+
+
+class Attention(NamedTuple):
+    """One kind of attention of the layer loops, chosen once per config
+    (attention_for), as mlp_apply is per model. Each form takes the
+    layer's params (with "layer_idx") and the normed input, and writes
+    the layer's cache view (`cache.layer(i)`) in place."""
+
+    rope: Callable      # (positions, cfg) -> (cos, sin)
+    prefill: Callable   # (p, h, cfg, cos, sin, attn_mask, view) -> out
+    decode: Callable    # (p, h, cfg, cos, sin, view, length) -> out
+
+
+LLAMA_ATTENTION = Attention(
+    lambda positions, cfg: rope_cos_sin(positions, cfg.head_dim,
+                                        cfg.rope_theta),
+    _prefill_attention, _decode_attention)
+# MLA (models/mla.py): the expanded form at prefill, the absorbed form at
+# decode, over a LatentCache
+MLA_ATTENTION = Attention(
+    _mla_rope,
+    lambda p, *a: mla.prefill_attention(p["attn"], *a),
+    lambda p, *a: mla.decode_attention(p["attn"], *a))
+
+
+def attention_for(cfg: LlamaConfig) -> Attention:
+    return MLA_ATTENTION if is_mla(cfg) else LLAMA_ATTENTION
+
+
+def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg: LlamaConfig,
+                          cos, sin, attn_mask: Optional[torch.Tensor],
+                          mlp_apply: MlpApply, attend: Callable,
+                          view=None):
+    """-> (x', aux). attend: an Attention's prefill form; view: the
+    layer's cache view, written in place, or None."""
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
     with profiling.span("attn"):
-        q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
-        b = x.shape[0]
-        bidx = torch.arange(b, device=x.device)
-        pos = length.long()
-        ok = pos < k_cache.shape[1]
-        pos = pos.clamp(max=k_cache.shape[1] - 1)
+        x = x + attend(p, h, cfg, cos, sin, attn_mask, view)
+    h = rms_norm(x, p["post_attention_layernorm"]["weight"],
+                 cfg.rms_norm_eps)
+    y, aux = mlp_apply(p, h)
+    return x + y, aux
 
-        def put(cache, new):
-            keep = ok.reshape((b,) + (1,) * (new.dim() - 1))
-            cache[bidx, pos] = torch.where(keep, new.to(cache.dtype),
-                                           cache[bidx, pos])
 
-        if k_scale is not None:
-            kq, ksc = quantize_kv(k[:, 0])
-            vq, vsc = quantize_kv(v[:, 0])
-            for cache, new in ((k_cache, kq), (k_scale, ksc), (v_cache, vq),
-                               (v_scale, vsc)):
-                put(cache, new)
-            attn = decode_attention_quant(q, k_cache, k_scale, v_cache,
-                                          v_scale, length + 1)
-        else:
-            put(k_cache, k[:, 0])
-            put(v_cache, v[:, 0])
-            attn = decode_attention(q, k_cache, v_cache, length + 1)
-        x = x + tp.row_linear(p["attn"]["o_proj"], attn.reshape(b, 1, -1))
+def decoder_layer_decode(p: Params, x: torch.Tensor, cfg: LlamaConfig,
+                         cos, sin, view, length: torch.Tensor,
+                         mlp_apply: MlpApply, attend: Callable
+                         ) -> torch.Tensor:
+    """x [B, 1, H] -> x'. attend: an Attention's decode form, which writes
+    this token into the layer's cache view at row position `length` and
+    attends to the first length + 1."""
+    h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
+    with profiling.span("attn"):
+        x = x + attend(p, h, cfg, cos, sin, view, length)
     h = rms_norm(x, p["post_attention_layernorm"]["weight"],
                  cfg.rms_norm_eps)
     y, _ = mlp_apply(p, h)
@@ -307,11 +382,12 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
             unroll: bool = False):
     """Prefill over the layer stack. input_embeds [B, T, H].
     -> (hidden_post_norm [B, T, H], cache|None, aux_loss). With a cache,
-    K/V land at positions [0, T) and cache.length is set from the
-    attn_mask row sums (left-aligned sequences). remat: checkpoint each
-    layer (training; no cache). unroll: the JAX package's Python-unrolled
-    layers, which the port's loop always is; as there, it turns the
-    opt-in whole-stack W8A8 knobs off."""
+    K/V (an MLA config's latents) land at positions [0, T) and
+    cache.length is set from the attn_mask row sums (left-aligned
+    sequences). remat: checkpoint each layer (training; no cache).
+    unroll: the JAX package's Python-unrolled layers, which the port's
+    loop always is; as there, it turns the opt-in whole-stack W8A8 knobs
+    off."""
     if remat and cache is not None:
         raise ValueError("remat is for training, without a KV cache")
     cfg = tp.local_cfg(cfg)
@@ -319,15 +395,19 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
     dev = input_embeds.device
     if positions is None:
         positions = torch.arange(t, device=dev)[None].expand(b, t)
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    attn = attention_for(cfg)
+    cos, sin = attn.rope(positions, cfg)
+    attend = attn.prefill
     drop, act_quant = lora.dropout_state(), act_quant_enabled()
-    attn_stacked = None
     if act_quant and not unroll:   # opt-in A/B knobs (ops/stacked.py)
         from medplib_tpu_torch.ops import stacked as st
         from medplib_tpu_torch.parallel.mesh import row_shards
         s_glob = b * t * row_shards()
         if os.environ.get("MEDPLIB_STACK_ATTN", "0") == "1":
-            attn_stacked = st.stack_attn_for_w8a8(params["layers"], s_glob)
+            stacked = st.stack_attn_for_w8a8(params["layers"], s_glob)
+            if stacked is not None:      # q / k / v / o trees alone
+                attend = functools.partial(_prefill_attention,
+                                           stacked=stacked)
         if (mlp_apply is dense_mlp_layer
                 and os.environ.get("MEDPLIB_STACK_MLP", "0") == "1"):
             mlp_stacks = st.stack_mlp_for_w8a8(params["layers"], s_glob)
@@ -340,29 +420,18 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
         with lora.dropout_scope(drop, i), dynamic_act_quant(act_quant):
             return decoder_layer_prefill(
                 dict(layer_params(params["layers"], i), layer_idx=i), x, cfg,
-                cos, sin, attn_mask, mlp_apply, attn_stacked, i)
-
-    def remat_layer(i, x):
-        x, _, a = layer(i, x)
-        return x, a
+                cos, sin, attn_mask, mlp_apply, attend,
+                None if cache is None else cache.layer(i))
 
     x = input_embeds
     aux = torch.zeros((), device=dev)
     for i in range(cfg.num_layers):
         with profiling.span("llm.layer", layer=i):
             if remat:
-                x, a = checkpoint(remat_layer, i, x, use_reentrant=False,
+                x, a = checkpoint(layer, i, x, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, (k, v), a = layer(i, x)
-                if cache is not None and cache.quantized:
-                    cache.k[i, :, :t], cache.k_scale[i, :, :t] = \
-                        quantize_kv(k)
-                    cache.v[i, :, :t], cache.v_scale[i, :, :t] = \
-                        quantize_kv(v)
-                elif cache is not None:
-                    cache.k[i, :, :t] = k.to(cache.k.dtype)
-                    cache.v[i, :, :t] = v.to(cache.v.dtype)
+                x, a = layer(i, x)
             aux = aux + a
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     if cache is not None:
@@ -377,19 +446,18 @@ def forward_decode(params: Params, cfg: LlamaConfig,
                    mlp_apply: MlpApply = dense_mlp_layer,
                    unroll: bool = False):
     """One decode step. input_embeds [B, 1, H] -> (hidden [B, 1, H],
-    cache with length + 1; K/V written in place). unroll: as in forward
-    (no effect here)."""
+    cache with length + 1; K/V (latents) written in place). unroll: as in
+    forward (no effect here)."""
     cfg = tp.local_cfg(cfg)
-    cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim,
-                            cfg.rope_theta)
+    attn = attention_for(cfg)
+    cos, sin = attn.rope(cache.length[:, None], cfg)
     x = input_embeds
     for i in range(cfg.num_layers):
-        scales = ((cache.k_scale[i], cache.v_scale[i]) if cache.quantized
-                  else (None, None))
         with profiling.span("llm.layer", layer=i):
-            x = decoder_layer_decode(layer_params(params["layers"], i), x,
-                                     cfg, cos, sin, cache.k[i], cache.v[i],
-                                     cache.length, mlp_apply, *scales)
+            x = decoder_layer_decode(
+                dict(layer_params(params["layers"], i), layer_idx=i), x, cfg,
+                cos, sin, cache.layer(i), cache.length, mlp_apply,
+                attn.decode)
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
     cache.length = cache.length + 1
     return x, cache
@@ -406,6 +474,11 @@ def forward_extend(params: Params, cfg: LlamaConfig,
     cache.length is NOT advanced: the caller sets it from the prompt mask
     after the last chunk (medplib.stream_prefill_finish).
     -> (hidden_post_norm [B, C, H], cache)."""
+    if is_mla(cfg):
+        raise NotImplementedError(
+            "chunked prefill (forward_extend, the engine's path) does not "
+            "cover MLA: serve an MLA configuration through "
+            "medplib.generate / stream_prefill")
     cfg = tp.local_cfg(cfg)
     b, c, _ = input_embeds.shape
     c0 = int(c0)

@@ -25,6 +25,11 @@ SAM stay replicated and handle the rank's rows, and the language model
 splits over the model axis (parallel/tp.py). `unroll` / `unroll_layers`
 are the JAX package's Python-unrolled layer loop: the port's loop always
 is one, so they change nothing.
+
+An MlaConfig language model (DeepSeek-V2, models/deepseek_v2.py) serves
+through generate / stream_prefill / stream_decode_chunk with a latent
+cache (models/mla.LatentCache, bf16); the chunked prefill and the int8
+cache raise for it, as does expert parallelism.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from medplib_tpu_torch.config import MedplibConfig
-from medplib_tpu_torch.models import (clip, geo_sampler, llama, losses,
-                                      moe_llama, projector, sam_med2d)
+from medplib_tpu_torch.config import MedplibConfig, is_mla
+from medplib_tpu_torch.models import (clip, deepseek_v2, geo_sampler, llama,
+                                      losses, mla, moe_llama, projector,
+                                      sam_med2d)
 from medplib_tpu_torch.ops import sampling
 from medplib_tpu_torch.ops import splice as splice_ops
 from medplib_tpu_torch.ops.initializers import dense_init
@@ -98,7 +104,10 @@ class Batch(NamedTuple):
 def init_medplib(gen: torch.Generator, cfg: MedplibConfig,
                  dtype=torch.float32, device="cuda") -> Params:
     h = cfg.llm.hidden_size
-    if cfg.moe.enable:
+    if is_mla(cfg.llm):
+        llm = deepseek_v2.init_deepseek_v2(gen, cfg.llm, cfg.moe, dtype,
+                                           cfg.vocab_size_padded, device)
+    elif cfg.moe.enable:
         llm = moe_llama.init_moe_llama(gen, cfg.llm, cfg.moe, dtype,
                                        cfg.vocab_size_padded, device)
     else:
@@ -244,8 +253,20 @@ def splice_batch(params: Params, cfg: MedplibConfig, batch: Batch,
         return embeds, labels_out, sm.attn_mask, seg_mask, sm
 
 
+def _deepseek(cfg: MedplibConfig, ep_shard: bool) -> bool:
+    if is_mla(cfg.llm) and ep_shard:
+        raise NotImplementedError("expert parallelism does not cover the "
+                                  "DeepSeek-V2 MoE")
+    return is_mla(cfg.llm)
+
+
 def _llm_forward(params, cfg: MedplibConfig, embeds, attn_mask, cache=None,
                  train=True, remat=False, ep_shard=False, unroll=False):
+    if _deepseek(cfg, ep_shard):
+        if remat:
+            raise NotImplementedError("MLA training (remat) is not ported")
+        return deepseek_v2.forward(params["llm"], cfg.llm, cfg.moe, embeds,
+                                   attn_mask, cache=cache)
     if cfg.moe.enable:
         return moe_llama.forward(params["llm"], cfg.llm, cfg.moe, embeds,
                                  attn_mask, cache=cache, remat=remat,
@@ -257,6 +278,9 @@ def _llm_forward(params, cfg: MedplibConfig, embeds, attn_mask, cache=None,
 
 def _llm_decode(params, cfg: MedplibConfig, embeds, cache, ep_shard=False,
                 unroll=False):
+    if _deepseek(cfg, ep_shard):
+        return deepseek_v2.forward_decode(params["llm"], cfg.llm, cfg.moe,
+                                          embeds, cache)
     if cfg.moe.enable:
         return moe_llama.forward_decode(params["llm"], cfg.llm, cfg.moe,
                                         embeds, cache, ep_shard=ep_shard,
@@ -498,6 +522,7 @@ def generate(params: Params, cfg: MedplibConfig, batch: Batch,
 
 class StreamState(NamedTuple):
     cache: llama.KVCache      # written in place by every decode step
+    #                           (mla.LatentCache for an MLA model)
     tok: torch.Tensor         # [B] next input token
     done: torch.Tensor        # [B] bool
     seg_emb: torch.Tensor     # [B, S, out_dim] captured SEG slots
@@ -523,9 +548,9 @@ def stream_prefill(params: Params, cfg: MedplibConfig, batch: Batch,
     dev = batch.input_ids.device
     embeds, _, attn_mask, seg_mask, _ = splice_batch(
         params, cfg, batch, need_region=rp_flag)
-    cache = llama.KVCache.init(cfg.llm, b, embeds.shape[1] + max_new_tokens,
-                               dtype=embeds.dtype, device=dev,
-                               quant=kv_quant)
+    make = mla.LatentCache.init if is_mla(cfg.llm) else llama.KVCache.init
+    cache = make(cfg.llm, b, embeds.shape[1] + max_new_tokens,
+                 dtype=embeds.dtype, device=dev, quant=kv_quant)
     hidden, cache, _ = _llm_forward(params, cfg, embeds, attn_mask, cache,
                                     train=False, ep_shard=ep_shard)
     seg_emb, seg_count = _prompt_segs(params, hidden, seg_mask, max_segs,

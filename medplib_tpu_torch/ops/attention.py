@@ -13,8 +13,8 @@ from typing import Optional
 
 import torch
 
-from medplib_tpu_torch.ops.cuda.flash_attention import (HEAD_DIM,
-                                                        flash_attention)
+from medplib_tpu_torch.ops.cuda.flash_attention import (flash_attention,
+                                                        fwd_dims_supported)
 
 NEG_INF = -2.3819763e38  # ~ -max bf16, the JAX package's mask value
 
@@ -28,11 +28,12 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, kv * n_rep, d)
 
 
-def _plain_attention(q, k, v, bias):
-    """q:[B,T,H,D] k,v:[B,S,H,D] bias:[B,1,T,S] additive or None."""
+def _plain_attention(q, k, v, bias, scale: Optional[float] = None):
+    """q:[B,T,H,D] k:[B,S,H,D] v:[B,S,H,Dv] bias:[B,1,T,S] additive or
+    None; scale default D^-0.5."""
     d = q.shape[-1]
     logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
-    logits = logits * (d ** -0.5)
+    logits = logits * (d ** -0.5 if scale is None else scale)
     if bias is not None:
         logits = logits + bias
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -58,17 +59,21 @@ def make_causal_bias(attn_mask: Optional[torch.Tensor], q_len: int,
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Prefill attention. q [B, T, H, D]; k, v [B, S, KV, D] with S >= T;
-    attn_mask optional [B, S] 1=keep.
+                     attn_mask: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Prefill attention. q [B, T, H, D]; k [B, S, KV, D], v [B, S, KV, Dv]
+    with S >= T; attn_mask optional [B, S] 1=keep; scale: the softmax
+    scale (default D^-0.5).
 
-    On a CUDA tensor with head_dim HEAD_DIM (128), the size the kernels
-    take, every prompt takes flash attention (ops/cuda/flash_attention.py,
-    kernels K4-K6), whatever its length. The JAX package sends only prompts
-    of >= 1024 tokens to its TPU kernel; on the H100 K4 is faster than the
-    plain path from 16 tokens up, forward alone and with the backward
-    (scripts/flash_crossover.py times both): below ~256 tokens the plain
-    path pays ~8 launches to K4's one, above it f32 [B, H, T, S] scores.
+    On a CUDA tensor with head sizes the kernels take (D = Dv = 128, or,
+    in bf16 and forward only, D = 192 with Dv = 128: DeepSeek-V2's latent
+    attention in its expanded form), every prompt takes flash attention
+    (ops/cuda/flash_attention.py, kernels K4-K6), whatever its length.
+    The JAX package sends only prompts of >= 1024 tokens to its TPU
+    kernel; on the H100 K4 is faster than the plain path from 16 tokens
+    up, forward alone and with the backward (scripts/flash_crossover.py
+    times both): below ~256 tokens the plain path pays ~8 launches to
+    K4's one, above it f32 [B, H, T, S] scores.
     Everything else, the CPU and other head sizes, takes the plain path,
     which computes the same function (a row that keeps no key is finite on
     both routes, but not equal: flash_attention.py) and counts its calls in
@@ -76,12 +81,13 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
-    if q.is_cuda and q.shape[-1] == HEAD_DIM:
-        return flash_attention(q, k, v, attn_mask=attn_mask, causal=True)
+    if q.is_cuda and fwd_dims_supported(q, v):
+        return flash_attention(q, k, v, attn_mask=attn_mask, causal=True,
+                               scale=scale)
     causal_attention.plain_calls += 1
     bias = make_causal_bias(attn_mask, q.shape[1], k.shape[1],
                             device=q.device)
-    return _plain_attention(q, k, v, bias)
+    return _plain_attention(q, k, v, bias, scale)
 
 
 causal_attention.plain_calls = 0

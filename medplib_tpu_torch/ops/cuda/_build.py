@@ -58,11 +58,13 @@ def _declare(lib):
     lib.gmm_int4h_launch.restype = i
     lib.gmm_launch.argtypes = [vp] * 6 + [i] * 9 + [vp]
     lib.gmm_launch.restype = i
-    lib.moe_decode_int4h_launch.argtypes = [vp] * 16 + [i] * 8 + [vp]
+    lib.moe_decode_int4h_launch.argtypes = [vp] * 16 + [i] * 9 + [vp]
     lib.moe_decode_int4h_launch.restype = i
     f = ctypes.c_float
     lib.flash_fwd_launch.argtypes = [vp] * 6 + [i] * 5 + [f, vp]
     lib.flash_fwd_launch.restype = i
+    lib.flash_fwd_dims_launch.argtypes = [vp] * 6 + [i] * 6 + [f, vp]
+    lib.flash_fwd_dims_launch.restype = i
     lib.flash_bwd_dq_launch.argtypes = [vp] * 8 + [i] * 5 + [f, vp]
     lib.flash_bwd_dq_launch.restype = i
     lib.flash_bwd_dkv_launch.argtypes = [vp] * 9 + [i] * 5 + [f, vp]

@@ -14,7 +14,10 @@ over the whole [T, S] score matrix in float32) on a CPU tensor; on a CUDA
 tensor it launches its kernel or raises. Layouts are the model's:
 q [B, T, H, D], k / v [B, S, H, D] with S >= T (queries are the last T
 key positions), mask [B, S] int32 (> 0 keeps a key), lse / delta [B, H, T]
-float32. The kernels take D = 128 in bfloat16 or float32.
+float32. The kernels take D = 128 in bfloat16 or float32; K4 also takes
+q / k heads of 192 and v heads of 128 in bfloat16 (DeepSeek-V2's latent
+attention in its expanded form; `flash_forward.launches_qk192` counts
+them), with the softmax scale passed in (default D^-0.5).
 
 What bounds the kernels on the H100, and what their design does about it,
 is noted at the top of csrc/flash_attention.cu (compute bound): on f32
@@ -38,6 +41,8 @@ from medplib_tpu_torch.ops.cuda.gmm import _check_cuda
 
 NEG_INF = -2.3819763e38   # the JAX package's finite mask value
 HEAD_DIM = 128            # the head size the CUDA kernels take
+# (q / k, v) head sizes K4 also takes on bf16 (forward only)
+FWD_DIMS = ((192, 128),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,8 +58,9 @@ def _keep(mask: torch.Tensor, t: int, s: int) -> torch.Tensor:
     return (rows >= cols)[None, None] & (mask[:, None, None, :] > 0)
 
 
-def _scaled_q(q: torch.Tensor) -> torch.Tensor:
-    return q.float() * q.shape[-1] ** -0.5
+def _scaled_q(q: torch.Tensor, scale: Optional[float] = None
+              ) -> torch.Tensor:
+    return q.float() * (q.shape[-1] ** -0.5 if scale is None else scale)
 
 
 def _probs(q, k, mask, lse):
@@ -65,10 +71,10 @@ def _probs(q, k, mask, lse):
                        torch.zeros((), device=q.device))
 
 
-def flash_forward_plain(q, k, v, mask):
-    """Plain PyTorch version of K4 -> (out [B, T, H, D] q.dtype,
+def flash_forward_plain(q, k, v, mask, scale: Optional[float] = None):
+    """Plain PyTorch version of K4 -> (out [B, T, H, Dv] q.dtype,
     lse [B, H, T] f32 of the scaled logits)."""
-    s = torch.einsum("bthd,bshd->bhts", _scaled_q(q), k.float())
+    s = torch.einsum("bthd,bshd->bhts", _scaled_q(q, scale), k.float())
     s = torch.where(_keep(mask, q.shape[1], k.shape[1]), s,
                     torch.full((), NEG_INF, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
@@ -102,8 +108,12 @@ def flash_dkv_plain(q, k, v, mask, dout, lse, delta):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_shapes(q, k, v, mask):
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+def _check_shapes(q, k, v, mask, same_dims: bool = True):
+    """same_dims=False (the forward): v's head size may differ from q's
+    and k's."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:3] != v.shape[:3] or \
+            (same_dims and k.shape != v.shape):
         raise ValueError(f"q [B, T, H, D] and k, v [B, S, H, D] expected, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
@@ -115,23 +125,33 @@ def _check_shapes(q, k, v, mask):
         raise ValueError(f"mask {tuple(mask.shape)} must be [B, S]")
 
 
-def _cuda_args(q, k, v, mask, extra=()):
+def fwd_dims_supported(q: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether K4 takes these head sizes on the card: D = 128 (bf16 or
+    f32), or (q / k, v) in FWD_DIMS (bf16)."""
+    dims = (q.shape[-1], v.shape[-1])
+    return dims == (HEAD_DIM, HEAD_DIM) or (
+        dims in FWD_DIMS and q.dtype == torch.bfloat16)
+
+
+def _cuda_args(q, k, v, mask, extra=(), fwd: bool = False):
     """Validate the kernels' inputs on the card -> (lib, dims, dtype code,
-    scale, stream)."""
+    scale, stream). fwd: K4's head sizes (fwd_dims_supported), else
+    D = 128."""
     if not q.is_cuda:
         raise ValueError(f"flash attention: unsupported device {q.device}")
     b, t, h, d = q.shape
     s = k.shape[1]
     if q.dtype not in _DTYPES:
         raise TypeError(f"the flash kernels take bf16 or f32, not {q.dtype}")
-    if d != HEAD_DIM:
-        raise ValueError(f"the flash kernels take head_dim {HEAD_DIM}, "
-                         f"got {d}")
+    if not (fwd_dims_supported(q, v) if fwd else d == HEAD_DIM):
+        raise ValueError(f"the flash kernels take head_dim {HEAD_DIM} (K4 "
+                         f"also (q / k, v) {FWD_DIMS} in bf16), got "
+                         f"({d}, {v.shape[-1]}) {q.dtype}")
     if b * h > 65535 or t < 1:
         raise ValueError(f"unsupported shape B*H={b * h}, T={t}")
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v)) + tuple(extra):
-        like = k if name in ("k", "v") else q
+        like = {"k": k, "v": v}.get(name, q)
         _check_cuda(name, x, q.dtype, like.shape, dev)
     _check_cuda("mask", mask, torch.int32, (b, s), dev)
     from medplib_tpu_torch.ops.cuda._build import load_library
@@ -139,18 +159,26 @@ def _cuda_args(q, k, v, mask, extra=()):
             torch.cuda.current_stream(dev).cuda_stream)
 
 
-def flash_forward(q, k, v, mask):
-    """Kernel K4 -> (out [B, T, H, D] q.dtype, lse [B, H, T] f32)."""
-    _check_shapes(q, k, v, mask)
+def flash_forward(q, k, v, mask, scale: Optional[float] = None):
+    """Kernel K4 -> (out [B, T, H, Dv] q.dtype, lse [B, H, T] f32). scale:
+    the softmax scale of the q . k sums (default D^-0.5)."""
+    _check_shapes(q, k, v, mask, same_dims=False)
     if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, mask)
+        return flash_forward_plain(q, k, v, mask, scale)
     from medplib_tpu_torch.ops.cuda._build import check
-    lib, (b, t, s, h), code, scale, stream = _cuda_args(q, k, v, mask)
-    out = torch.empty_like(q)
+    lib, (b, t, s, h), code, d_scale, stream = _cuda_args(q, k, v, mask,
+                                                          fwd=True)
+    scale = d_scale if scale is None else scale
+    dk, dv = q.shape[-1], v.shape[-1]
+    out = torch.empty((b, t, h, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    err = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                               b, t, s, h, code, scale, stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, t, s, h)
+    if (dk, dv) == (HEAD_DIM, HEAD_DIM):
+        err = lib.flash_fwd_launch(*ptrs, code, scale, stream)
+    else:
+        err = lib.flash_fwd_dims_launch(*ptrs, dk, dv, scale, stream)
+        flash_forward.launches_qk192 += 1
     check(err, "flash_forward")
     flash_forward.launches += 1
     return out, lse
@@ -201,6 +229,7 @@ def flash_dkv(q, k, v, mask, dout, lse, delta):
 
 
 flash_forward.launches = 0
+flash_forward.launches_qk192 = 0     # the (192, 128) instantiation alone
 flash_dq.launches = 0
 flash_dkv.launches = 0
 
@@ -215,30 +244,36 @@ class FlashAttention(torch.autograd.Function):
     saved (rounded) out, then K5 and K6. The mask gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask):
-        out, lse = flash_forward(q, k, v, mask)
+    def forward(ctx, q, k, v, mask, scale=None):
+        out, lse = flash_forward(q, k, v, mask, scale)
         ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.scale = scale
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, mask, out, lse = ctx.saved_tensors
+        if ctx.scale is not None or k.shape != v.shape:
+            raise NotImplementedError(
+                "K5 / K6 take D = 128 and the default scale only")
         dout = dout.contiguous()
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
         delta = delta.contiguous()                               # [B, H, T]
         dq = flash_dq(q, k, v, mask, dout, lse, delta)
         dk, dv = flash_dkv(q, k, v, mask, dout, lse, delta)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attn_mask: Optional[torch.Tensor] = None,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Causal attention through the flash kernels. q [B, T, H, D]; k, v
-    [B, S, H, D] (heads repeated); attn_mask [B, S] 1 = keep, or None for
-    an all-ones mask, which keeps the autograd function on the mask-less
-    path too."""
+    [B, S, H, D] (heads repeated; v's D may differ, forward only);
+    attn_mask [B, S] 1 = keep, or None for an all-ones mask, which keeps
+    the autograd function on the mask-less path too. scale: the softmax
+    scale (default D^-0.5)."""
     if not causal:
         raise NotImplementedError("only causal flash attention is ported")
     if attn_mask is None:
@@ -246,4 +281,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                device=q.device)
     return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                 v.contiguous(),
-                                attn_mask.to(torch.int32).contiguous())
+                                attn_mask.to(torch.int32).contiguous(),
+                                scale)

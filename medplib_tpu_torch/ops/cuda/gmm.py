@@ -65,10 +65,10 @@ def align_groups(xs: torch.Tensor, expert_idx: torch.Tensor,
     s = xs.shape[0]
     dev = xs.device
     idx = expert_idx.long()
-    csum = torch.cumsum(F.one_hot(idx, num_experts), dim=0)      # [S, E]
-    ranks = torch.gather(csum, 1, idx[:, None])[:, 0] - 1
-    group_sizes = csum[-1]
     if num_experts == 2:
+        csum = torch.cumsum(F.one_hot(idx, num_experts), dim=0)  # [S, 2]
+        ranks = torch.gather(csum, 1, idx[:, None])[:, 0] - 1
+        group_sizes = csum[-1]
         sp = ((s + block_m - 1) // block_m + 1) * block_m
         dest = torch.where(idx == 0, ranks, sp - 1 - ranks)
         x_al = xs.new_zeros((sp, xs.shape[1]))
@@ -76,6 +76,15 @@ def align_groups(xs: torch.Tensor, expert_idx: torch.Tensor,
         tile_end = (torch.arange(sp // block_m, device=dev) + 1) * block_m
         tile_gid = (tile_end > sp - group_sizes[1]).to(torch.int32)
         return x_al, dest, tile_gid
+    # each row's rank in its group, in row order: a stable sort by expert
+    # (the cumsum of [S, E] one-hots gives the same ranks, but as an
+    # outer-dim scan it took ~0.1 s a layer at S = 267 k rows, E = 64, on
+    # the H100)
+    group_sizes = torch.bincount(idx, minlength=num_experts)
+    order = torch.argsort(idx, stable=True)
+    first = torch.cumsum(group_sizes, 0) - group_sizes
+    ranks = torch.empty_like(idx)
+    ranks[order] = torch.arange(s, device=dev) - first[idx[order]]
     sp = (s // block_m + num_experts) * block_m
     aligned = (group_sizes + block_m - 1) // block_m * block_m
     ends = torch.cumsum(aligned, dim=0)

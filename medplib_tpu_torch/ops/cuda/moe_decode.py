@@ -76,6 +76,8 @@ def moe_ffn_decode_int4h_plain(x: torch.Tensor, experts,
     operands are exact (TF32 must be off on a GPU)."""
     b, h = x.shape
     h2 = h // 2
+    idx = route_idx.reshape(b, -1)            # [B, topk]
+    gate = route_gate.float().reshape(b, -1)
     gp, up, dp = (experts[n] for n in ("gate_proj", "up_proj", "down_proj"))
     m2 = gp["kernel"].shape[-1] // 2
     bn = _block_n(m2, block_n)
@@ -93,8 +95,7 @@ def moe_ffn_decode_int4h_plain(x: torch.Tensor, experts,
             r = xf[:, :h2] @ w[:h2] * s[0] + xf[:, h2:] @ w[h2:] * s[1]
             return r * xs if int8_x else r
         g, u = gu(gp), gu(up)
-        mask = torch.where(route_idx == e, route_gate.float(),
-                           torch.zeros_like(route_gate, dtype=torch.float32))
+        mask = torch.where(idx == e, gate, torch.zeros_like(gate)).sum(1)
         act = _silu(g) * u * mask[:, None]
         wd = unpack_pairs(dp["kernel"][e]).float()               # [M, H]
         ds = dp["scale4h"][e].float()                            # [2, 1, H]
@@ -116,8 +117,11 @@ def moe_ffn_decode_int4h(x: torch.Tensor, experts, route_idx: torch.Tensor,
                          block_n: int | None = None,
                          int8_x: bool = False) -> torch.Tensor:
     """x [B, H]; experts: one layer's int4h(G=2) nodes (kernels [E, K/2, N]
-    int8, scale4h [E, 2, 1, N] f32); route_idx [B] top-1 expert per row;
-    route_gate [B] its combine weight. -> routed MoE output [B, H] x.dtype.
+    int8, scale4h [E, 2, 1, N] f32); route_idx [B] top-1 expert per row,
+    or [B, k] k distinct experts a row; route_gate [B] / [B, k] their
+    combine weights. -> routed MoE output [B, H] x.dtype: the sum of each
+    row's experts' gated outputs (every expert is computed for every row
+    and masked, so k experts a row cost what one does).
 
     block_n: the block of M over which A8 quantizes the activation per row
     (default `_pick_bn(M/2)`; it must divide M/2), as in the reference;
@@ -156,8 +160,9 @@ def moe_ffn_decode_int4h(x: torch.Tensor, experts, route_idx: torch.Tensor,
             for i in range(0, b, 64)])
     bp = 16 if b <= 16 else 32 if b <= 32 else 64
     xin = x if x.dtype in (torch.bfloat16, torch.float32) else x.float()
-    idx = route_idx.to(torch.int32).contiguous()
-    gate = route_gate.float().contiguous()
+    idx = route_idx.to(torch.int32).reshape(b, -1).contiguous()
+    gate = route_gate.float().reshape(b, -1).contiguous()
+    topk = idx.shape[1]
     for name, node, shape in (("gate_proj", gp, (e, h // 2, m)),
                               ("up_proj", up, (e, h // 2, m)),
                               ("down_proj", dp, (e, m // 2, h))):
@@ -165,8 +170,8 @@ def moe_ffn_decode_int4h(x: torch.Tensor, experts, route_idx: torch.Tensor,
         _check_cuda(f"{name}.scale4h", node["scale4h"], torch.float32,
                     (e, 2, 1, shape[2]), dev)
     _check_cuda("x", xin, xin.dtype, (b, h), dev)
-    _check_cuda("route_idx", idx, torch.int32, (b,), dev)
-    _check_cuda("route_gate", gate, torch.float32, (b,), dev)
+    _check_cuda("route_idx", idx, torch.int32, (b, topk), dev)
+    _check_cuda("route_gate", gate, torch.float32, (b, topk), dev)
     # one scratch buffer, cut into the kernels' operands (256-byte aligned):
     # the padded x (int8 + row scales, or bf16), the gate / up sums, the
     # activation (int8 + per-row-per-block scales, or bf16) and one f32
@@ -189,7 +194,7 @@ def moe_ffn_decode_int4h(x: torch.Tensor, experts, route_idx: torch.Tensor,
         up["kernel"].data_ptr(), up["scale4h"].data_ptr(),
         dp["kernel"].data_ptr(), dp["scale4h"].data_ptr(),
         xk, xs, gu, act_q, act_s, part, out.data_ptr(), b, bp, h, m, e, bn,
-        int(int8_x), int(f32),
+        topk, int(int8_x), int(f32),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "moe_ffn_decode_int4h")
     moe_ffn_decode_int4h.launches += 1

@@ -30,6 +30,13 @@ code as each rank.
 
 A Residual-MoE layer (`residual_mlp` + `coefficient` in its params) mixes
 a dense SwiGLU copy into every dispatch's output (`_apply_residual`).
+
+DeepSeek-V2's fine-grained MoE (`topk_moe`, config.DeepseekMoeConfig; no
+counterpart in the JAX package): softmax in f32, greedy top-k with no
+capacity, every (token, expert) pair through the grouped matmuls (K1 for
+int4h experts) at prefill, or at decode through the fused kernel K2
+taking the k experts of each row in one pass; the gated outputs summed in
+f32, then the shared experts' SwiGLU added.
 """
 
 from __future__ import annotations
@@ -200,6 +207,67 @@ def _route_top1(logits: torch.Tensor):
         idx = torch.argmax(gates, dim=-1)
         gate_s = torch.gather(gates, 1, idx[:, None])[:, 0]
         return idx, gate_s, _aux_loss_rows(gates, idx, e)
+
+
+def _route_topk(xs: torch.Tensor, router: torch.Tensor, k: int,
+                scaling: float, norm_topk_prob: bool):
+    """DeepSeek-V2's MoEGate (scoring softmax, topk_method greedy) of the
+    rows xs [S, H] under the router kernel [H, E]: f32 logits, softmax,
+    the k largest probabilities and their experts; the weights are the
+    probabilities times `scaling`, or with norm_topk_prob (and k > 1)
+    renormalized to sum to 1. -> (idx [S, k], weights [S, k] f32)."""
+    with profiling.span("moe.route", S=xs.shape[0], k=k,
+                        E=router.shape[-1]):
+        scores = torch.softmax(xs.float() @ router.float(), dim=-1)
+        w, idx = torch.topk(scores, k, dim=-1)
+        if k > 1 and norm_topk_prob:
+            w = w / (w.sum(-1, keepdim=True) + 1e-20)
+        else:
+            w = w * scaling
+        return idx, w
+
+
+def topk_moe(moe_params, x: torch.Tensor, cfg, decode: bool = False,
+             block_m: int = 512) -> torch.Tensor:
+    """One DeepSeek-V2 MoE layer. moe_params: {"router": {"kernel":
+    [H, E]}, "experts": {gate_proj / up_proj: [E, H, M], down_proj:
+    [E, M, H] (int4h, int8 or float)}, "shared_mlp": a dense SwiGLU node
+    (the shared experts, fused)}; cfg a config.DeepseekMoeConfig. x
+    [B, T, H] -> [B, T, H].
+
+    Prefill: the S·k (token, expert) rows through align_groups and the
+    grouped SwiGLU (`_gmm_ffn`: K1 for int4h(G=2) experts, W4A8 under
+    dynamic_act_quant); decode (int4h experts of the fused shapes): K2
+    in A8 with the k experts of each row. Each token's k gated outputs are
+    summed in f32 (moe_infer's combine), then the shared MLP is added."""
+    from medplib_tpu_torch.models.llama import dense_mlp
+    from medplib_tpu_torch.ops.cuda.gmm import align_groups
+    from medplib_tpu_torch.ops.cuda.moe_decode import (
+        fused_decode_eligible, moe_ffn_decode_int4h)
+    b, t, h = x.shape
+    s, k = b * t, cfg.top_k
+    xs = x.reshape(s, h)
+    router = moe_params["router"]["kernel"]
+    e = router.shape[-1]
+    idx, w = _route_topk(xs, router, k, cfg.routed_scaling_factor,
+                         cfg.norm_topk_prob)
+    experts = moe_params["experts"]
+    with profiling.span("moe.experts", S=s) as sp:
+        if decode and fused_decode_eligible(experts, e):
+            y = moe_ffn_decode_int4h(xs, experts, idx.to(torch.int32), w, e,
+                                     int8_x=True)
+        else:
+            rows = torch.arange(s, device=x.device).repeat_interleave(k)
+            x_al, dest, tile_gid = align_groups(xs[rows], idx.reshape(-1),
+                                                e, block_m)
+            sp.note(Sp=x_al.shape[0])
+            out_al = _gmm_ffn(x_al, tile_gid, experts, x.dtype, block_m)
+            y = (out_al[dest].float().reshape(s, k, h)
+                 * w[..., None]).sum(1)
+        y = y.to(x.dtype)
+    with profiling.span("moe.shared"):
+        y = y + dense_mlp(moe_params["shared_mlp"], xs)
+    return y.reshape(b, t, h)
 
 
 def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,

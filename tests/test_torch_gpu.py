@@ -957,3 +957,156 @@ def test_export_path_at_two_layers(dev):
     exp = cs.export_path(dev, cs.gpu_line(), out.pop("params"), 0.0,
                          cfg=flagship_cfg(2, moe=True))
     assert exp["masks_s"] > 0 and exp["agree"] >= cs.MERGE_MIN_AGREE
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2: K4 at q / k 192, v 128; K2 with k experts a row
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(gen, b, t, dev, lens=None):
+    """bf16 q / k [B, T, 16, 192], v [B, T, 16, 128] and a right-padded
+    mask (row lengths `lens`, else T)."""
+    q, k = (torch.randn((b, t, 16, 192), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, t, 16, 128), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    mask = torch.ones((b, t), dtype=torch.int32, device=dev)
+    for r, n in enumerate(lens or ()):
+        mask[r, n:] = 0
+    return q, k, v, mask
+
+
+def _cuda_ms(fn, n=20):
+    fn()
+    torch.cuda.synchronize()
+    a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(n):
+        fn()
+    z.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(z) / n
+
+
+@pytest.mark.parametrize("b,t,spread", [(64, 687, True), (1, 623, False),
+                                        (3, 130, True)])
+def test_flash_forward_qk192_v128_matches_plain(dev, b, t, spread):
+    """K4 <192, 128> with DeepSeek-V2-Lite's YaRN softmax scale against
+    flash_forward_plain at the serving shape (B = 64 rows of 623-687 of
+    687 positions), B = 1 and a ragged T: out within rel Frobenius 1e-3
+    over the rows that keep a key (f32 sums in another order, P split
+    hi + lo, then bf16 rounding; the D = 128 kernel reads 8e-5), lse
+    within 1e-4; counted as one launch of the instantiation. Its time is
+    printed beside its bound (portbench/counts_dsv2.k4_bound_s)."""
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(b * t)
+    lens = ([round(t * 623 / 687 + (t - t * 623 / 687) * r / max(b - 1, 1))
+             for r in range(b)] if spread else None)
+    q, k, v, mask = _mla_qkv(gen, b, t, dev, lens)
+    scale = 192 ** -0.5 * (0.1 * 0.707 * __import__("math").log(40) + 1) ** 2
+    n0, n1 = FA.flash_forward.launches, FA.flash_forward.launches_qk192
+    out, lse = FA.flash_forward(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert (FA.flash_forward.launches, FA.flash_forward.launches_qk192) \
+        == (n0 + 1, n1 + 1)
+    assert out.shape == (b, t, 16, 128) and out.dtype == torch.bfloat16
+    want_out, want_lse = FA.flash_forward_plain(q, k, v, mask, scale)
+    lv = FA._keep(mask, t, t).any(-1)[:, 0][..., None].expand(-1, -1, 16)
+    rel = float((out[lv].float() - want_out[lv].float()).norm()
+                / want_out[lv].float().norm())
+    assert rel < 1e-3
+    assert float((lse.transpose(1, 2)[lv]
+                  - want_lse.transpose(1, 2)[lv]).abs().max()) < 1e-4
+    assert bool(torch.isfinite(out.float()).all())
+    ms = _cuda_ms(lambda: FA.flash_forward(q, k, v, mask, scale))
+    plain = _cuda_ms(lambda: FA.flash_forward_plain(q, k, v, mask, scale),
+                     3)
+    lens_ = lens or [t] * b
+    by = b * t * 16 * (2 * 192 + 2 * 128) * 2 + b * 16 * t * 4
+    pairs = sum(n * (n + 1) / 2 + (t - n) * n for n in lens_)
+    bound = max(by / 3.35e12, pairs * 16 * 640 / 989e12) * 1e3
+    print(f"[k4-192] B={b} T={t} rel {rel:.2e} kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, bound {bound:.3f} ms ({100 * bound / ms:.1f}%)")
+
+
+def test_causal_attention_takes_k4_qk192_on_card(dev):
+    """causal_attention at q / k 192, v 128 in bf16 goes to K4 (no plain
+    call); the D = 128 kernel on the same layout is the same kernel as
+    before (out within rel 1e-3 of plain)."""
+    from medplib_tpu_torch.ops import attention as A
+    from medplib_tpu_torch.ops.cuda import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, mask = _mla_qkv(gen, 4, 200, dev, [200, 190, 150, 101])
+    plain0, n0 = A.causal_attention.plain_calls, \
+        FA.flash_forward.launches_qk192
+    out = A.causal_attention(q, k, v, mask, scale=0.1)
+    assert A.causal_attention.plain_calls == plain0
+    assert FA.flash_forward.launches_qk192 == n0 + 1
+    want = A._plain_attention(q, k, v, A.make_causal_bias(mask, 200, 200),
+                              0.1)
+    rel = float((out.float() - want.float()).norm() / want.float().norm())
+    assert rel < 5e-3      # the plain path rounds P to bf16 (~2.6e-3)
+    q2, k2, v2 = (x[..., :128].contiguous() for x in (q, k, q))
+    o2, _ = FA.flash_forward(q2, k2, v2, mask)
+    w2, _ = FA.flash_forward_plain(q2, k2, v2, mask)
+    assert FA.flash_forward.launches_qk192 == n0 + 1
+    assert float((o2.float() - w2.float()).norm() / w2.float().norm()) < 1e-3
+
+
+@pytest.mark.parametrize("a8", [True, False])
+def test_k2_topk_rows_match_plain(dev, a8):
+    """K2 with 6 of 64 experts a row (DeepSeek-V2-Lite's decode at B = 64,
+    expert width 1536 padded) against its plain version: A8 bit-equal (the
+    integer products and the combine's order are the plain version's),
+    bf16 within rel 1e-4; top-1 rows as [B] and as [B, 1] give the same
+    bits."""
+    from medplib_tpu_torch.ops.cuda import moe_decode as D
+    gen = torch.Generator(device=dev).manual_seed(6)
+    e, h, m, b = 64, 2048, 1536, 64
+    experts = {}
+    for name, (kk, nn) in (("gate_proj", (h, m)), ("up_proj", (h, m)),
+                           ("down_proj", (m, h))):
+        p, s = _int4h(gen, e, kk, nn, dev)
+        experts[name] = {"kernel": p, "scale4h": s}
+    x = torch.randn((b, h), generator=gen, device=dev).to(torch.bfloat16)
+    idx = torch.stack([torch.randperm(e, generator=gen, device=dev)[:6]
+                       for _ in range(b)]).to(torch.int32)
+    w = torch.rand((b, 6), generator=gen, device=dev) * 0.2
+    n0 = D.moe_ffn_decode_int4h.launches
+    got = D.moe_ffn_decode_int4h(x, experts, idx, w, e, int8_x=a8)
+    torch.cuda.synchronize()
+    assert D.moe_ffn_decode_int4h.launches == n0 + 1
+    want = D.moe_ffn_decode_int4h_plain(x, experts, idx, w, e, int8_x=a8)
+    if a8:
+        assert torch.equal(got, want)
+    else:
+        assert float((got.float() - want.float()).norm()
+                     / want.float().norm()) < 1e-4
+    one = D.moe_ffn_decode_int4h(x, experts, idx[:, 0], w[:, 0], e,
+                                 int8_x=a8)
+    assert torch.equal(one, D.moe_ffn_decode_int4h(
+        x, experts, idx[:, :1], w[:, :1], e, int8_x=a8))
+
+
+def test_dsv2_tiny_cell_on_card(tmp_path):
+    """The tiny DeepSeek-V2 cell (portbench/tests/tiny_dsv2.py) traced on the
+    card: correct, K4 <192, 128> once a layer a call with no plain
+    attention, K1 at prefill and K2 at decode counted, and the new
+    per-layer metrics read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import time
+    from medplib_tpu_torch.ops.cuda import _build
+    from portbench import harness
+    from portbench.tests import tiny_dsv2 as tiny
+    _build.load_library()
+    bench = tiny.write(tmp_path)
+    out = harness.run_cell(tiny.CELL, 2 ** 31 + 77, 1.0, True,
+                           "cuda:0", time.time(), bench_path=bench,
+                           root=tmp_path)
+    assert out["correct"] is True
+    la = out["launches"]
+    assert la["plain_attention"] == 0 and la["K4_qk192"] == 3 * 2
+    assert la["K1"] > 0 and la["K2"] == 2 * 2 * 3    # 2 MoE layers
+    for name in ("k4_roofline.serve", "attn_ms.serve", "moe_ms.serve"):
+        assert name in out["metrics"], name
