@@ -518,6 +518,108 @@ def k2_topk_case(gen, dev, b=64, h=2048, m=1536, e=64, k=6):
                 bound_ms=bms, bound_by=by)
 
 
+# the MoE prefill's routed rows: (name, S tokens, k, E, H, M); Sp follows
+# from align_rows at block_m 512. dsv2lite-ground-b64: 64 rows of 687
+# (padded) tokens, top-6 of 64, expert width 1408 padded to 1536, 296,448
+# aligned rows; moe-ground-b16: 16 x 687, top-1 of 2, 11,776 aligned rows
+MOE_PREFILL_SHAPES = (("dsv2lite", 43968, 6, 64, 2048, 1536),
+                      ("flagship", 10992, 1, 2, 4096, 11264))
+
+
+def combine_order_close(got, want, y_al, dest, w):
+    """Two top-k combines of the same rows that sum the k f32 products in
+    other orders, each rounded once to bf16: within one bf16 step of the
+    larger plus both orders' f32 summation bounds, 2 (k - 1) 2^-24 sum |p|
+    (which only counts where the products cancel). -> (ok, largest error
+    over its bound, share of bit-equal elements)."""
+    import torch
+    s, k = w.shape
+    mag = (y_al[dest.long()].float().abs().reshape(s, k, -1)
+           * w.float().abs()[..., None]).sum(1)
+    gf, wf = got.float(), want.float()
+    _, ex = torch.frexp(torch.maximum(gf.abs(), wf.abs()))
+    lim = torch.ldexp(torch.ones_like(gf), ex - 8) \
+        + 2 * (k - 1) * 2.0 ** -24 * mag
+    worst = float(((gf - wf).abs() / lim).max())
+    return worst <= 1.0, worst, float((got == want).float().mean())
+
+
+def moe_prefill_phase(gen, dev, results):
+    """The MoE prefill's three int8 passes (ops/cuda/moe_prefill.py) at
+    the main paths' shapes (MOE_PREFILL_SHAPES): each against its plain
+    version (dispatch and SwiGLU-quantize bit-equal, every aligned row;
+    the top-k combine by combine_order_close, its bit-equal share
+    printed), then timed with CUDA events beside its bytes bound (each
+    input byte read once, each output byte written once) and its plain
+    version. The top-k combine runs at the top-k shape only. The first
+    shape's numbers go into the kernels line, the flagship's under
+    "flagship"."""
+    import torch
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    from medplib_tpu_torch.ops.cuda import moe_prefill as P
+    for name, s, k, e, h, m in MOE_PREFILL_SHAPES:
+        xs = (torch.randn((s, h), generator=gen, device=dev) * 0.5).to(
+            torch.bfloat16)
+        scores = torch.rand((s, e), generator=gen, device=dev)
+        idx = scores.topk(k, -1).indices.reshape(-1)
+        dest, _, sp = G.align_rows(idx, e, 512)
+        h1, h2 = ((torch.randn((sp, m), generator=gen, device=dev) * 2.0)
+                  .to(torch.bfloat16) for _ in range(2))
+        cases = [("moe_dispatch_quant",
+                  lambda: P.moe_dispatch_quant(xs, dest, sp, k),
+                  lambda: P.moe_dispatch_quant_plain(xs, dest, sp, k),
+                  nbytes(xs) + 4 * s * k + sp * h + 4 * sp),
+                 ("moe_swiglu_quant", lambda: P.moe_swiglu_quant(h1, h2),
+                  lambda: P.moe_swiglu_quant_plain(h1, h2),
+                  nbytes(h1, h2) + sp * m + 4 * sp)]
+        if k > 1:
+            y_al = (torch.randn((sp, h), generator=gen, device=dev)
+                    * 0.1).to(torch.bfloat16)
+            w = torch.softmax(torch.randn((s, k), generator=gen,
+                                          device=dev), -1)
+            cases.append((
+                "moe_topk_combine",
+                lambda: P.moe_topk_combine(y_al, dest, w, torch.bfloat16),
+                lambda: P.moe_topk_combine_plain(y_al, dest, w,
+                                                 torch.bfloat16),
+                2 * s * k * h + 8 * s * k + 2 * s * h))
+        for kern, run, plain, by in cases:
+            n0 = getattr(P, kern).launches
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            launches = getattr(P, kern).launches - n0
+            if kern == "moe_topk_combine":
+                ok, worst, eq = combine_order_close(got, want, y_al, dest, w)
+                err = float((got.float() - want.float()).abs().max())
+                what = (f"{100 * eq:.4f}% bit-equal, largest error / bound "
+                        f"{worst:.3f} (one bf16 step + the f32 sum orders' "
+                        f"bounds)")
+            else:
+                ok = all(torch.equal(a, b) for a, b in zip(got, want))
+                err = 0.0 if ok else float("nan")
+                what = "bit-equal" if ok else "NOT bit-equal"
+            del got, want
+            ms = cuda_time(run, iters=20)
+            pms = cuda_time(plain, iters=3)
+            bms, bby = bound(by, 0.0, INT8_OPS)
+            log(f"[{kern}] {name} S={s} k={k} E={e} H={h} M={m} Sp={sp}: "
+                f"{launches} launch, {what}; kernel {ms:.3f} ms, bound "
+                f"{bms:.3f} ms ({bby}: {by / 1e9:.3f} GB, "
+                f"{100 * bms / ms:.1f}% of it, {by / ms / 1e6:.0f} GB/s), "
+                f"plain {pms:.3f} ms")
+            if launches != 1 or not ok:
+                raise AssertionError(f"{kern} disagrees with its plain "
+                                     f"version at the {name} shape")
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                       bound_by=bby, library_ms=None, S=s, k=k, Sp=sp)
+            if name == "flagship":
+                results[kern]["flagship"] = rec
+            else:
+                results[kern] = rec
+        del xs, h1, h2
+        torch.cuda.empty_cache()
+
+
 def k2_equal_share(root: str) -> None:
     """`--k2-equal-share ROOT`: K2 in A8 at the flagship decode (B=16,
     the default block_n) on inputs from seed 0, from the
@@ -1423,13 +1525,17 @@ def _wrappers():
     from medplib_tpu_torch.ops.cuda import int4_matmul as I4
     from medplib_tpu_torch.ops.cuda import int8_matmul as I8
     from medplib_tpu_torch.ops.cuda import moe_decode as D
+    from medplib_tpu_torch.ops.cuda import moe_prefill as P
     return {"gmm_int4h": G.gmm_int4h,
             "moe_ffn_decode_int4h": D.moe_ffn_decode_int4h, "gmm": G.gmm,
             "flash_fwd": FA.flash_forward, "flash_bwd_dq": FA.flash_dq,
             "flash_bwd_dkv": FA.flash_dkv,
             "int8_matmul": I8.int8_matmul_2d,
             "w8a8_matmul": I8.w8a8_matmul_2d,
-            "int4h_matmul": I4.int4h_matmul_2d}
+            "int4h_matmul": I4.int4h_matmul_2d,
+            "moe_dispatch_quant": P.moe_dispatch_quant,
+            "moe_swiglu_quant": P.moe_swiglu_quant,
+            "moe_topk_combine": P.moe_topk_combine}
 
 
 def reset_counts() -> None:
@@ -1446,12 +1552,27 @@ def flash_counts():
     return (c["flash_fwd"], c["flash_bwd_dq"], c["flash_bwd_dkv"])
 
 
+# the MoE prefill's int8 passes around K1 / K3 (ops/cuda/moe_prefill.py)
+PREFILL_PASSES = ("moe_dispatch_quant", "moe_swiglu_quant",
+                  "moe_topk_combine")
+
+
 def expect_counts(where: str, got: dict, **want) -> None:
     """Fail unless every named kernel launched exactly `want` times (the
-    kernels not named: none)."""
-    want = {n: want.get(n, 0) for n in got}
-    log(f"[{where}] launches {got} (want {want})")
-    if got != want:
+    kernels not named: none). Where a site names none of the prefill
+    passes, they follow the grouped matmuls instead: dispatch and
+    SwiGLU-quantize launch together, once per act-quantized grouped
+    SwiGLU (three K1 or K3 launches), and the top-k combine not at all."""
+    if any(n in want for n in PREFILL_PASSES):
+        ok = got == {n: want.get(n, 0) for n in got}
+    else:
+        ok = {n: c for n, c in got.items() if n not in PREFILL_PASSES} == \
+            {n: want.get(n, 0) for n in got if n not in PREFILL_PASSES}
+        d, a, c = (got.get(n, 0) for n in PREFILL_PASSES)
+        ok = ok and d == a and 3 * d <= got["gmm_int4h"] + got["gmm"] \
+            and c == 0
+    log(f"[{where}] launches {got} (want {want}, others 0)")
+    if not ok:
         raise AssertionError(f"{where}: the path did not run the kernels as "
                              f"expected")
 
@@ -1535,7 +1656,8 @@ def small_check(dev):
     """int4h experts (H=512): K1 at prefill, K2 at decode."""
     cfg = tiny_serving_cfg(512, 8)
     _tiny_card_vs_cpu(dev, "small check", cfg, _tiny_moe_tree(cfg, 4),
-                      False, gmm_int4h=6, moe_ffn_decode_int4h=8)
+                      False, gmm_int4h=6, moe_ffn_decode_int4h=8,
+                      moe_dispatch_quant=2, moe_swiglu_quant=2)
 
 
 def small_int8_check(dev):
@@ -1544,7 +1666,7 @@ def small_int8_check(dev):
     decode."""
     cfg = tiny_serving_cfg(1024, 16)
     _tiny_card_vs_cpu(dev, "small int8 check", cfg, _tiny_moe_tree(cfg, 8),
-                      True, gmm=6)
+                      True, gmm=6, moe_dispatch_quant=2, moe_swiglu_quant=2)
 
 
 def small_packed_check(dev, bits):
@@ -2782,8 +2904,9 @@ def main_path(dev, results, card):
 
     masks_per_s, peak, counts = serve_batch(
         "main", lambda: run(batch), cfg, B, NEW, card,
-        gmm_int4h=3 * L, moe_ffn_decode_int4h=L * NEW, flash_fwd=L)
-    for n in ("gmm_int4h", "moe_ffn_decode_int4h"):
+        gmm_int4h=3 * L, moe_ffn_decode_int4h=L * NEW, flash_fwd=L,
+        moe_dispatch_quant=L, moe_swiglu_quant=L)
+    for n in ("gmm_int4h", "moe_ffn_decode_int4h") + PREFILL_PASSES:
         results[n]["launches"] = counts[n]
     profile_step(lambda: run(batch), always=True)
     # B=1: 623 tokens take the capacity-sort prefill; decode still K2
@@ -5235,6 +5358,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                     "medplib_tpu/ops/pallas/int8_matmul.py:234"),
     "int4h_matmul": ("medplib_tpu_torch/csrc/int4_matmul.cu",
                      "medplib_tpu/ops/pallas/int4_matmul.py:144"),
+    **{n: ("medplib_tpu_torch/csrc/moe_prefill_quant.cu",
+           "none (XLA's fusions around the Pallas gmm)")
+       for n in PREFILL_PASSES},
 }
 
 
@@ -5317,6 +5443,7 @@ def _phases(dev, card, lap, t_run, pool) -> int:
     k9_phase(gen, dev, results)
     ragged_phase(gen, dev)
     flash_phase(gen, dev, results)
+    moe_prefill_phase(gen, dev, results)
     torch.cuda.empty_cache()
     lap("kernel phases")
     small_check(dev)
@@ -5376,7 +5503,8 @@ def _phases(dev, card, lap, t_run, pool) -> int:
             "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
                     **{k: results[n][k] for k in keys},
-                    **{k: results[n][k] for k in ("serve", "topk")
+                    **{k: results[n][k] for k in ("serve", "topk",
+                                                   "flagship")
                        if k in results[n]})
                for n, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

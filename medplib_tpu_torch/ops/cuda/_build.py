@@ -60,6 +60,12 @@ def _declare(lib):
     lib.gmm_launch.restype = i
     lib.moe_decode_int4h_launch.argtypes = [vp] * 16 + [i] * 9 + [vp]
     lib.moe_decode_int4h_launch.restype = i
+    lib.moe_dispatch_quant_launch.argtypes = [vp] * 5 + [i] * 5 + [vp]
+    lib.moe_dispatch_quant_launch.restype = i
+    lib.moe_swiglu_quant_launch.argtypes = [vp] * 4 + [i] * 2 + [vp]
+    lib.moe_swiglu_quant_launch.restype = i
+    lib.moe_topk_combine_launch.argtypes = [vp] * 4 + [i] * 5 + [vp]
+    lib.moe_topk_combine_launch.restype = i
     f = ctypes.c_float
     lib.flash_fwd_launch.argtypes = [vp] * 6 + [i] * 5 + [f, vp]
     lib.flash_fwd_launch.restype = i

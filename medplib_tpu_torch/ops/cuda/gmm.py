@@ -4,8 +4,8 @@ group-aligned row layout they consume.
 Counterpart of medplib_tpu/ops/pallas/gmm.py: `gmm` (the CUDA kernel
 csrc/gmm.cu, replacing the Pallas `_kernel`: float, int8-weight and W8A8
 experts, optionally transposed), `gmm_int4h` (csrc/gmm_int4h.cu, replacing
-`_kernel_int4h`), `align_groups`, `quantize_rows` and `unpack_pairs`
-(plain torch).
+`_kernel_int4h`), `align_rows` / `align_groups`, `quantize_rows` and
+`unpack_pairs` (plain torch).
 
 On a CPU tensor `gmm` and `gmm_int4h` run their plain PyTorch versions,
 `gmm_plain` and `gmm_int4h_plain`. On a CUDA tensor they launch their
@@ -52,49 +52,59 @@ def unpack_pairs(p: torch.Tensor) -> torch.Tensor:
     return w.reshape(p.shape[:-2] + (2 * p.shape[-2], p.shape[-1]))
 
 
-def align_groups(xs: torch.Tensor, expert_idx: torch.Tensor,
-                 num_experts: int, block_m: int):
-    """Scatter top-1-routed rows into a group-ALIGNED buffer: every m-tile
-    of `block_m` rows belongs to one expert, gap rows stay zero.
-    xs [S, K]; expert_idx [S] -> (x_al [Sp, K], dest [S] row of each token,
-    tile_gid [Sp // block_m] int32).
+def align_rows(expert_idx: torch.Tensor, num_experts: int, block_m: int):
+    """The group-ALIGNED layout of routed rows: every m-tile of `block_m`
+    rows belongs to one expert, gap rows are left out. expert_idx [S] ->
+    (dest [S] row of each routed row, tile_gid [Sp // block_m] int32, Sp).
+    No host sync: Sp follows from S, E and block_m alone.
 
     E = 2 packs two-ended as the reference does: group 0 grows from row 0,
     group 1 descends from row Sp-1, with Sp = (ceil(S / bm) + 1) * bm, and a
-    tile belongs to group 1 iff tile_end > Sp - n1."""
-    s = xs.shape[0]
-    dev = xs.device
+    tile belongs to group 1 iff tile_end > Sp - n1. E > 2: groups in order,
+    each rounded up to whole tiles, Sp = (S // bm + E) * bm."""
+    s = expert_idx.shape[0]
+    dev = expert_idx.device
     idx = expert_idx.long()
     if num_experts == 2:
         csum = torch.cumsum(F.one_hot(idx, num_experts), dim=0)  # [S, 2]
         ranks = torch.gather(csum, 1, idx[:, None])[:, 0] - 1
-        group_sizes = csum[-1]
         sp = ((s + block_m - 1) // block_m + 1) * block_m
         dest = torch.where(idx == 0, ranks, sp - 1 - ranks)
-        x_al = xs.new_zeros((sp, xs.shape[1]))
-        x_al[dest] = xs
         tile_end = (torch.arange(sp // block_m, device=dev) + 1) * block_m
-        tile_gid = (tile_end > sp - group_sizes[1]).to(torch.int32)
-        return x_al, dest, tile_gid
+        tile_gid = (tile_end > sp - csum[-1, 1]).to(torch.int32)
+        return dest, tile_gid, sp
     # each row's rank in its group, in row order: a stable sort by expert
     # (the cumsum of [S, E] one-hots gives the same ranks, but as an
     # outer-dim scan it took ~0.1 s a layer at S = 267 k rows, E = 64, on
-    # the H100)
-    group_sizes = torch.bincount(idx, minlength=num_experts)
+    # the H100); the group bounds by a search of the sorted ids (bincount
+    # reads the ids' range on the host)
     order = torch.argsort(idx, stable=True)
-    first = torch.cumsum(group_sizes, 0) - group_sizes
+    sorted_idx = idx[order]
+    bounds = torch.searchsorted(
+        sorted_idx, torch.arange(num_experts + 1, device=dev))
+    first = bounds[:-1]
+    group_sizes = bounds[1:] - first
     ranks = torch.empty_like(idx)
-    ranks[order] = torch.arange(s, device=dev) - first[idx[order]]
+    ranks[order] = torch.arange(s, device=dev) - first[sorted_idx]
     sp = (s // block_m + num_experts) * block_m
     aligned = (group_sizes + block_m - 1) // block_m * block_m
     ends = torch.cumsum(aligned, dim=0)
     offs = ends - aligned
     dest = offs[idx] + ranks
-    x_al = xs.new_zeros((sp, xs.shape[1]))
-    x_al[dest] = xs
     tile_start = torch.arange(sp // block_m, device=dev) * block_m
     tile_gid = (tile_start[:, None] >= ends[None, :]).sum(1)
     tile_gid = tile_gid.clamp(max=num_experts - 1).to(torch.int32)
+    return dest, tile_gid, sp
+
+
+def align_groups(xs: torch.Tensor, expert_idx: torch.Tensor,
+                 num_experts: int, block_m: int):
+    """Scatter routed rows into the group-aligned buffer of `align_rows`,
+    gap rows zero. xs [S, K]; expert_idx [S] -> (x_al [Sp, K], dest [S]
+    row of each token, tile_gid [Sp // block_m] int32)."""
+    dest, tile_gid, sp = align_rows(expert_idx, num_experts, block_m)
+    x_al = xs.new_zeros((sp, xs.shape[1]))
+    x_al[dest] = xs
     return x_al, dest, tile_gid
 
 

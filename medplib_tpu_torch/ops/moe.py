@@ -235,15 +235,18 @@ def topk_moe(moe_params, x: torch.Tensor, cfg, decode: bool = False,
     (the shared experts, fused)}; cfg a config.DeepseekMoeConfig. x
     [B, T, H] -> [B, T, H].
 
-    Prefill: the S·k (token, expert) rows through align_groups and the
+    Prefill: the S·k (token, expert) rows through align_rows and the
     grouped SwiGLU (`_gmm_ffn`: K1 for int4h(G=2) experts, W4A8 under
-    dynamic_act_quant); decode (int4h experts of the fused shapes): K2
-    in A8 with the k experts of each row. Each token's k gated outputs are
-    summed in f32 (moe_infer's combine), then the shared MLP is added."""
+    dynamic_act_quant, each token quantized once into its k aligned rows
+    by `moe_dispatch_quant`), each token's k gated outputs summed in f32
+    (moe_infer's combine; `moe_topk_combine`); decode (int4h experts of
+    the fused shapes): K2 in A8 with the k experts of each row. Then the
+    shared MLP is added."""
     from medplib_tpu_torch.models.llama import dense_mlp
-    from medplib_tpu_torch.ops.cuda.gmm import align_groups
+    from medplib_tpu_torch.ops.cuda.gmm import align_rows
     from medplib_tpu_torch.ops.cuda.moe_decode import (
         fused_decode_eligible, moe_ffn_decode_int4h)
+    from medplib_tpu_torch.ops.cuda.moe_prefill import moe_topk_combine
     b, t, h = x.shape
     s, k = b * t, cfg.top_k
     xs = x.reshape(s, h)
@@ -257,13 +260,11 @@ def topk_moe(moe_params, x: torch.Tensor, cfg, decode: bool = False,
             y = moe_ffn_decode_int4h(xs, experts, idx.to(torch.int32), w, e,
                                      int8_x=True)
         else:
-            rows = torch.arange(s, device=x.device).repeat_interleave(k)
-            x_al, dest, tile_gid = align_groups(xs[rows], idx.reshape(-1),
-                                                e, block_m)
-            sp.note(Sp=x_al.shape[0])
-            out_al = _gmm_ffn(x_al, tile_gid, experts, x.dtype, block_m)
-            y = (out_al[dest].float().reshape(s, k, h)
-                 * w[..., None]).sum(1)
+            dest, tile_gid, s_al = align_rows(idx.reshape(-1), e, block_m)
+            sp.note(Sp=s_al)
+            out_al = _gmm_ffn(xs, dest, k, s_al, tile_gid, experts, x.dtype,
+                              block_m)
+            y = moe_topk_combine(out_al, dest, w, x.dtype)
         y = y.to(x.dtype)
     with profiling.span("moe.shared"):
         y = y + dense_mlp(moe_params["shared_mlp"], xs)
@@ -278,7 +279,7 @@ def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
     (unless MEDPLIB_DECODE_FUSED=0, which keeps the three grouped calls),
     in A8 unless MEDPLIB_DECODE_A8=0 (the JAX caller's variables and
     defaults)."""
-    from medplib_tpu_torch.ops.cuda.gmm import align_groups
+    from medplib_tpu_torch.ops.cuda.gmm import align_rows
     from medplib_tpu_torch.ops.cuda.moe_decode import (
         fused_decode_eligible, moe_ffn_decode_int4h)
 
@@ -292,9 +293,10 @@ def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
                 xs, experts, idx.to(torch.int32), gate_s, e,
                 int8_x=os.environ.get("MEDPLIB_DECODE_A8", "1") == "1")
             return y.to(dtype), aux
-        x_al, dest, tile_gid = align_groups(xs, idx, e, block_m)
-        sp.note(Sp=x_al.shape[0])
-        out_al = _gmm_ffn(x_al, tile_gid, experts, dtype, block_m, stacked)
+        dest, tile_gid, s_al = align_rows(idx, e, block_m)
+        sp.note(Sp=s_al)
+        out_al = _gmm_ffn(xs, dest, 1, s_al, tile_gid, experts, dtype,
+                          block_m, stacked)
         # gate rounded to out_al's dtype, product unrounded (as compiled)
         y = (out_al[dest].float()
              * gate_s[:, None].to(out_al.dtype).float()).to(dtype)
@@ -317,7 +319,7 @@ def _gmm_moe_ep(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
     layer's rank-local nodes (_expert_view); gid_offset addresses them
     inside a larger stack (0 for one layer's block). The aux loss comes
     from the global logits."""
-    from medplib_tpu_torch.ops.cuda.gmm import align_groups
+    from medplib_tpu_torch.ops.cuda.gmm import align_rows
 
     mesh = current_mesh()
     e_loc = num_experts // ep
@@ -331,9 +333,10 @@ def _gmm_moe_ep(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
     lidx = torch.where(sel, idxg - ep_idx * e_loc,
                        torch.full_like(idxg, e_loc))
     gm = torch.where(sel, gateg, torch.zeros_like(gateg))
-    x_al, dest, tile_gid = align_groups(xg, lidx, e_loc + 1, block_m)
+    dest, tile_gid, s_al = align_rows(lidx, e_loc + 1, block_m)
     tile_gid = tile_gid.clamp(max=e_loc - 1) + int(gid_offset)
-    out_al = _gmm_ffn(x_al, tile_gid, experts, dtype, block_m, stacked=True)
+    out_al = _gmm_ffn(xg, dest, 1, s_al, tile_gid, experts, dtype, block_m,
+                      stacked=True)
     yg = (out_al[dest].float()
           * gm[:, None].to(out_al.dtype).float()).to(dtype)
     return mesh.reduce_scatter(yg, AXIS_EXPERT), aux
@@ -369,17 +372,14 @@ def _ragged_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype):
     return y, aux
 
 
-def _gmm_ffn(x_al: torch.Tensor, tile_gid: torch.Tensor, experts, dtype,
-             block_m: int, stacked: bool = False) -> torch.Tensor:
-    """SwiGLU over a group-aligned buffer: three grouped matmuls (gate, up,
-    down) per the expert layout (JAX ops/moe.py:_gmm_ffn): int8 experts
-    through K3 with the per-channel scale at its epilogue, int4h(G=2)
-    experts through K1, any other layout ("dense": float, finer int4h)
-    dequantized to a one-layer `dtype` copy through K3's float mode (not
-    on the whole-stack path). Under dynamic_act_quant, and only when no
-    node is dense, the inputs are row-quantized (W8A8 / W4A8).
-    -> out_al [Sp, H]."""
-    from medplib_tpu_torch.ops.cuda.gmm import gmm, gmm_int4h, quantize_rows
+def _ffn_specs(experts, dtype, stacked: bool = False):
+    """The grouped SwiGLU's plan per the expert layout (JAX ops/moe.py:
+    _gmm_ffn): {name: (kind, weight, scale)} for gate / up / down, kind
+    "int8" (K3 with the per-channel scale at its epilogue), "int4h" (G=2:
+    K1) or "dense" (float, finer int4h: dequantized to a one-layer `dtype`
+    copy through K3's float mode; not on the whole-stack path); and
+    whether the inputs are row-quantized (W8A8 / W4A8: under
+    dynamic_act_quant, and only when no node is dense)."""
     from medplib_tpu_torch.train.lora import dequant_kernel
     from medplib_tpu_torch.utils.quantize import act_quant_enabled
 
@@ -397,15 +397,31 @@ def _gmm_ffn(x_al: torch.Tensor, tile_gid: torch.Tensor, experts, dtype,
 
     specs = {n: wspec(experts[n]) for n in ("gate_proj", "up_proj",
                                             "down_proj")}
-    actq = act_quant_enabled() and all(s[0] != "dense"
-                                       for s in specs.values())
+    return specs, act_quant_enabled() and all(
+        spec[0] != "dense" for spec in specs.values())
+
+
+def _gmm_ffn(xs: torch.Tensor, dest: torch.Tensor, k: int, sp: int,
+             tile_gid: torch.Tensor, experts, dtype, block_m: int,
+             stacked: bool = False) -> torch.Tensor:
+    """SwiGLU of routed rows over a group-aligned buffer of sp rows: each
+    token's row of xs [S, H] at its k aligned rows dest [S·k] (token-
+    major; gap rows zero), then three grouped matmuls (gate, up, down) per
+    `_ffn_specs`. Under act quant each token is quantized once into its
+    rows (`moe_dispatch_quant`), which gate and up both read, and the
+    activation goes to down as int8 rows and scales from one pass
+    (`moe_swiglu_quant`). -> out_al [sp, H]."""
+    from medplib_tpu_torch.ops.cuda.gmm import gmm, gmm_int4h
+    from medplib_tpu_torch.ops.cuda.moe_prefill import (moe_dispatch_quant,
+                                                        moe_swiglu_quant)
+    specs, actq = _ffn_specs(experts, dtype, stacked)
 
     def mm(xv, spec):
         kind, w, sc = spec
         if kind == "dense":
             return gmm(xv, w, tile_gid, block_m=block_m)
         if actq:
-            xq, xsc = quantize_rows(xv)
+            xq, xsc = xv
             if kind == "int4h":
                 return gmm_int4h(xq, w, sc, tile_gid, a_scale=xsc,
                                  block_m=block_m)
@@ -414,12 +430,16 @@ def _gmm_ffn(x_al: torch.Tensor, tile_gid: torch.Tensor, experts, dtype,
             return gmm_int4h(xv, w, sc, tile_gid, block_m=block_m)
         return gmm(xv, w, tile_gid, sc, block_m=block_m)
 
-    h1 = mm(x_al, specs["gate_proj"])
-    h2 = mm(x_al, specs["up_proj"])
-    g = _silu(h1)
-    # under act-quant the compiled reference keeps this product unrounded
+    if actq:
+        x_in = moe_dispatch_quant(xs, dest, sp, k)
+    else:
+        x_in = xs.new_zeros((sp, xs.shape[1]))
+        x_in[dest] = xs if k == 1 else xs.repeat_interleave(k, dim=0)
+    h1 = mm(x_in, specs["gate_proj"])
+    h2 = mm(x_in, specs["up_proj"])
+    # under act-quant the compiled reference keeps silu(h1) * h2 unrounded
     # (f32) where it feeds the activation quant; bf16 x bf16 is exact in f32
-    act = g.float() * h2.float() if actq else g * h2
+    act = moe_swiglu_quant(h1, h2) if actq else _silu(h1) * h2
     return mm(act, specs["down_proj"])
 
 

@@ -236,7 +236,5 @@ def test_whole_stack_gmm_rejects_dense_experts():
     ex, _ = _experts(rng, 16)
     view = convert.tree_from_numpy(
         jax.tree_util.tree_map(lambda a: a[0], ex), device="cpu")
-    x_al = torch.zeros((512, H))
-    gid = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(ValueError):
-        tmoe._gmm_ffn(x_al, gid, view, torch.float32, 512, stacked=True)
+        tmoe._ffn_specs(view, torch.float32, stacked=True)

@@ -790,18 +790,51 @@ def test_span_summary_puts_moe_kernels_under_moe_experts(dev):
     p = quantize_flagship_moe(p, 4, 8)
     batch = medplib.Batch(*(t.to(dev) if t is not None else None for t in
                             _batch(cfg, 16, 64, np.random.default_rng(0))))
+    # one DeepSeek-V2 top-4 of 8 MoE layer (int4h experts) beside it, for
+    # the top-k combine
+    from medplib_tpu_torch.config import DeepseekMoeConfig
+    from medplib_tpu_torch.ops import moe as M
+    from medplib_tpu_torch.ops.cuda import moe_prefill as P
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dcfg = DeepseekMoeConfig(enable=True, num_experts=8, top_k=4,
+                             moe_intermediate_size=256, num_shared_experts=1)
+    experts = {}
+    for name, (kk, nn) in (("gate_proj", (256, 256)), ("up_proj", (256, 256)),
+                           ("down_proj", (256, 256))):
+        packed, scale = _int4h(gen, 8, kk, nn, dev)
+        experts[name] = {"kernel": packed, "scale4h": scale}
+    layer = {"router": {"kernel": torch.randn((256, 8), generator=gen,
+                                              device=dev)},
+             "experts": experts,
+             "shared_mlp": {n: {"kernel": torch.randn(
+                 (256, 256), generator=gen, device=dev).to(torch.bfloat16)
+                 * 0.05} for n in ("gate_proj", "up_proj", "down_proj")}}
+    xd = torch.randn((2, 300, 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    passes = (G.gmm_int4h, P.moe_dispatch_quant, P.moe_swiglu_quant,
+              P.moe_topk_combine)
     with dynamic_act_quant(True):
         medplib.generate(p, cfg, batch, max_new_tokens=MAX_NEW)
+        M.topk_moe(layer, xd, dcfg)
         torch.cuda.synchronize()
+        n0 = [f.launches for f in passes]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof, \
                 profiling.recording() as rec:
             medplib.generate(p, cfg, batch, max_new_tokens=MAX_NEW)
+            M.topk_moe(layer, xd, dcfg)
             torch.cuda.synchronize()
+    # every grouped SwiGLU (K1 three times): dispatch and SwiGLU-quantize
+    # once; the top-k combine only in the top-k layer
+    k1, *got = [f.launches - c for f, c in zip(passes, n0)]
+    assert k1 > 3 and got == [k1 // 3, k1 // 3, 1]
     out = profiling.span_summary(prof, rec)
     spans = out["spans"]
     moe = ("s8_mma_kernel", "moe_prep_kernel", "moe_gateup_kernel",
-           "moe_act_kernel", "moe_down_kernel", "moe_combine_kernel")
+           "moe_act_kernel", "moe_down_kernel", "moe_combine_kernel",
+           "moe_dispatch_quant_kernel", "moe_swiglu_quant_kernel",
+           "moe_topk_combine_kernel")
     under = {k for k in moe
              if any(k in n for n in spans["moe.experts"]["self_kernels"])}
     assert under == set(moe)
@@ -1088,6 +1121,108 @@ def test_k2_topk_rows_match_plain(dev, a8):
         x, experts, idx[:, :1], w[:, :1], e, int8_x=a8))
 
 
+def _routes(gen, dev, s, e, k):
+    """[S·k] token-major expert ids: k distinct of e a token."""
+    if k == 1:
+        return torch.randint(0, e, (s,), generator=gen, device=dev)
+    scores = torch.rand((s, e), generator=gen, device=dev)
+    return scores.topk(k, -1).indices.reshape(-1)
+
+
+# the two cells' widths: DeepSeek-V2-Lite (H 2048, expert width 1408
+# padded to 1536, top-6 of 64) and the flagship (H 4096, M 11264, top-1
+# of 2, two-ended); S tokens at the prefill's block_m of 512
+@pytest.mark.parametrize("h,m,e,k,s", [(2048, 1536, 64, 6, 4096),
+                                       (4096, 11264, 2, 1, 2048)])
+def test_moe_prefill_kernels_match_plain(dev, h, m, e, k, s):
+    """The three int8 prefill passes against their plain versions: the
+    dispatch's int8 rows and scales (K1's input) and the SwiGLU-quantize's
+    (the down projection's input, from K1's own gate / up output) bit-equal
+    at every aligned row, gap rows included; the top-k combine within one
+    bf16 ulp, plus the f32 summation bounds of both orders where the
+    products cancel (chip_smoke.combine_order_close): the tolerance is for
+    the order of the f32 sum, which the kernel fixes in its own code and
+    PyTorch in its reduction's. One counted launch each."""
+    import chip_smoke as cs
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    from medplib_tpu_torch.ops.cuda import moe_prefill as P
+    gen = torch.Generator(device=dev).manual_seed(h + k)
+    xs = (torch.randn((s, h), generator=gen, device=dev) * 0.5).to(
+        torch.bfloat16)
+    xs[5] = 0.0
+    dest, gid, sp = G.align_rows(_routes(gen, dev, s, e, k), e, 512)
+    n0 = (P.moe_dispatch_quant.launches, P.moe_swiglu_quant.launches,
+          P.moe_topk_combine.launches)
+    xq, xsc = P.moe_dispatch_quant(xs, dest, sp, k)
+    wq, wsc = P.moe_dispatch_quant_plain(xs, dest, sp, k)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, wq) and torch.equal(xsc, wsc)
+    gp, gs = _int4h(gen, e, h, m, dev)
+    up, us = _int4h(gen, e, h, m, dev)
+    h1 = G.gmm_int4h(xq, gp, gs, gid, a_scale=xsc)
+    h2 = G.gmm_int4h(xq, up, us, gid, a_scale=xsc)
+    aq, asc = P.moe_swiglu_quant(h1, h2)
+    wq, wsc = P.moe_swiglu_quant_plain(h1, h2)
+    torch.cuda.synchronize()
+    assert torch.equal(aq, wq) and torch.equal(asc, wsc)
+    y_al = (torch.randn((sp, h), generator=gen, device=dev) * 0.1).to(
+        torch.bfloat16)
+    w = torch.softmax(torch.randn((s, k), generator=gen, device=dev), -1)
+    y = P.moe_topk_combine(y_al, dest, w, torch.bfloat16)
+    want = P.moe_topk_combine_plain(y_al, dest, w, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cs.combine_order_close(y, want, y_al, dest, w)[0]
+    assert (P.moe_dispatch_quant.launches, P.moe_swiglu_quant.launches,
+            P.moe_topk_combine.launches) == tuple(c + 1 for c in n0)
+
+
+def test_topk_moe_prefill_takes_no_host_sync(dev):
+    """One DeepSeek-V2-Lite MoE layer at prefill on the card (int4h routed
+    experts, int8 shared experts under W4A8 / W8A8, 2048 tokens) runs
+    under torch.cuda.set_sync_debug_mode("error"): the routing, the
+    aligned layout (no CUDA bincount), the three int8 passes and K1 never
+    wait on the host. It launches K1 three times and each pass once."""
+    from medplib_tpu_torch.config import DeepseekMoeConfig
+    from medplib_tpu_torch.ops import moe as M
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    from medplib_tpu_torch.ops.cuda import moe_prefill as P
+    from medplib_tpu_torch.utils.quantize import (dynamic_act_quant,
+                                                  quantize_tree)
+    h, m, e, k, ms = 2048, 1536, 64, 6, 2816
+    cfg = DeepseekMoeConfig(enable=True, num_experts=e, top_k=k,
+                            moe_intermediate_size=1408, num_shared_experts=2)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    experts = {}
+    for name, (kk, nn) in (("gate_proj", (h, m)), ("up_proj", (h, m)),
+                           ("down_proj", (m, h))):
+        packed, scale = _int4h(gen, e, kk, nn, dev)
+        experts[name] = {"kernel": packed, "scale4h": scale}
+    shared = {n: {"kernel": torch.randn(shape, generator=gen, device=dev)
+                  * 0.02} for n, shape in (("gate_proj", (h, ms)),
+                                           ("up_proj", (h, ms)),
+                                           ("down_proj", (ms, h)))}
+    params = {"router": {"kernel": torch.randn((h, e), generator=gen,
+                                               device=dev) * 0.05},
+              "experts": experts,
+              "shared_mlp": quantize_tree({"mlp": shared}, skip=())["mlp"]}
+    x = torch.randn((4, 512, h), generator=gen, device=dev).to(
+        torch.bfloat16)
+    wrappers = (G.gmm_int4h, P.moe_dispatch_quant, P.moe_swiglu_quant,
+                P.moe_topk_combine)
+    with dynamic_act_quant(True):
+        M.topk_moe(params, x, cfg)          # builds, allocates, warms up
+        torch.cuda.synchronize()
+        n0 = [f.launches for f in wrappers]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = M.topk_moe(params, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and bool(torch.isfinite(y.float()).all())
+    assert [f.launches - c for f, c in zip(wrappers, n0)] == [3, 1, 1, 1]
+
+
 def test_dsv2_tiny_cell_on_card(tmp_path):
     """The tiny DeepSeek-V2 cell (portbench/tests/tiny_dsv2.py) traced on the
     card: correct, K4 <192, 128> once a layer a call with no plain
@@ -1097,14 +1232,22 @@ def test_dsv2_tiny_cell_on_card(tmp_path):
         pytest.skip("needs a CUDA device")
     import time
     from medplib_tpu_torch.ops.cuda import _build
+    from medplib_tpu_torch.ops.cuda import gmm as G
+    from medplib_tpu_torch.ops.cuda import moe_prefill as P
     from portbench import harness
     from portbench.tests import tiny_dsv2 as tiny
     _build.load_library()
     bench = tiny.write(tmp_path)
+    wrappers = (G.gmm_int4h, P.moe_dispatch_quant, P.moe_swiglu_quant,
+                P.moe_topk_combine)
+    n0 = [f.launches for f in wrappers]
     out = harness.run_cell(tiny.CELL, 2 ** 31 + 77, 1.0, True,
                            "cuda:0", time.time(), bench_path=bench,
                            root=tmp_path)
     assert out["correct"] is True
+    # every MoE layer's prefill: K1 three times, each int8 pass once
+    k1, *passes = [f.launches - c for f, c in zip(wrappers, n0)]
+    assert k1 > 0 and passes == [k1 // 3] * 3
     la = out["launches"]
     assert la["plain_attention"] == 0 and la["K4_qk192"] == 3 * 2
     assert la["K1"] > 0 and la["K2"] == 2 * 2 * 3    # 2 MoE layers
