@@ -131,12 +131,11 @@
    CUDA IPC): after the main path, on its tree (dist_serving): EP = 2
    (mesh (1, 2, 1), ep_shard: K1 96 a rank at prefill and at every decode
    step, no K2; K4 32 a rank a prefill) generate and the streaming
-   entry points, equal to one process with MEDPLIB_DECODE_FUSED=0; TP =
-   2 (mesh (1, 1, 2)) equal to the main path's call (K1 96, K2 320, K4
-   32 a rank); NCCL at world size 1 (the main path's call under a (1, 1,
-   1) mesh, equal); then opt_in_path: MEDPLIB_STACK_ATTN=1 on a B=16
-   prefill (K3 128, K4 32), MEDPLIB_STACK_MLP=1 on a 2-layer dense int8
-   stack (K3 6, K4 2), the ragged dispatch against gmm on one MoE layer,
+   entry points, equal to one process whose decode keeps the three K1
+   calls (K2's eligibility patched off in ops/moe); TP = 2 (mesh (1, 1,
+   2)) equal to the main path's call (K1 96, K2 320, K4 32 a rank); NCCL
+   at world size 1 (the main path's call under a (1, 1, 1) mesh, equal);
+   then opt_in_path: the ragged dispatch against gmm on one MoE layer,
    the worker's device_preprocess on the 24 front-end PNGs, the native
    preprocessing library against numpy. After the stage-3 and stage-4
    phases, DP = 2 (mesh (2, 1, 1)) steps against one
@@ -4582,23 +4581,9 @@ def packed_path(dev, results, card):
 # masks of a distributed generate against one process's (the JAX package's
 # sharded-decode tolerance, tests/test_sharded_decode.py)
 DIST_MASK_TOL = dict(atol=2e-3, rtol=1e-3)
-# The opt-in paths against the default ones (norm-relative). One layer's
-# op, within OPT_IN_REL_TOL: W8A8 on K3 rounds its (acc·w_s)·a_s epilogue
-# where the default path rounds acc·a_s·w_s (a bf16 ulp on a share of the
-# elements: 1.7e-3 on the CPU rehearsal); the ragged dispatch multiplies
-# bf16-dequantized weights where K1 scales f32 sums. A whole random
-# prefill compounds these roundings at every projection of every layer
-# (act-quant steps, near-tied routers): there the knob must move the
-# output no more than OPT_IN_FLOOR_FACTOR times the default path's own
-# change under a one-ulp move of every input element (its noise floor,
-# same run; the card read 6.995e-02 against a floor of 8.384e-02 for the
-# stacked attention, 1.215e-02 against 1.985e-02 for the stacked MLP).
+# The ragged dispatch against the gmm one on one layer (norm-relative):
+# it multiplies bf16-dequantized weights where K1 scales f32 sums.
 OPT_IN_REL_TOL = 1e-2
-OPT_IN_FLOOR_FACTOR = 1.0
-# The stacked MLP re-quantizes silu(g)·u unrounded where the default path
-# rounds it to bf16 first (as the JAX package's two paths do), so some
-# act-quant steps flip: 8.5e-3 on one layer in the CPU rehearsal.
-OPT_IN_MLP_TOL = 3e-2
 
 
 def start_rank_pair():
@@ -4900,15 +4885,19 @@ def dist_serving(pool, dev, card, params):
     row count changes cuBLAS's bf16 results (logged here: one process's
     two B=8 calls against its B=16 call, and row_count_gemm_witness), so
     the arithmetic EP must reproduce is one process's on the same row blocks:
-    two B=8 calls with MEDPLIB_DECODE_FUSED=0; EP must equal them (tokens,
+    two B=8 calls with K2's eligibility patched off in ops/moe (three K1
+    calls a layer at decode); EP must equal them (tokens,
     masks within DIST_MASK_TOL). Its agreement with the B=16 one-process
     calls (three-call and K2 decode, the main path's) is logged: random
     weights leave near-tied greedy choices that a last-bit change flips.
     TP and NCCL hold the main path's call. Every check runs before the
     first failure is raised."""
+    from unittest import mock
+
     import torch
     from medplib_tpu_torch.config import MeshConfig, flagship_cfg
     from medplib_tpu_torch.models import medplib
+    from medplib_tpu_torch.ops import moe
     from medplib_tpu_torch.parallel import mesh as pm
     from medplib_tpu_torch.utils.quantize import dynamic_act_quant
 
@@ -4917,13 +4906,12 @@ def dist_serving(pool, dev, card, params):
     batch = make_batch(cfg, 16, 48, np.random.default_rng(0), dev)
 
     def one(b, fused, p=params):
-        os.environ["MEDPLIB_DECODE_FUSED"] = "1" if fused else "0"
-        try:
-            with dynamic_act_quant(True):
-                r = medplib.generate(p, cfg, b, max_new_tokens=NEW)
-            torch.cuda.synchronize()
-        finally:
-            del os.environ["MEDPLIB_DECODE_FUSED"]
+        off = mock.patch.object(moe, "fused_decode_eligible",
+                                lambda *a: False)
+        with contextlib.nullcontext() if fused else off, \
+                dynamic_act_quant(True):
+            r = medplib.generate(p, cfg, b, max_new_tokens=NEW)
+        torch.cuda.synchronize()
         return r
 
     main_ref, k1_ref = one(batch, True), one(batch, False)
@@ -5138,130 +5126,25 @@ def dist_train_stage4(pool, dev, card, trained):
 
 
 def opt_in_path(dev, card, params):
-    """The opt-in modules on the card: MEDPLIB_STACK_ATTN=1 on one B=16
-    prefill of the int4h flagship (K3 W8A8 for q / k / v / o, 4 a layer)
-    against the default W8A8 path; MEDPLIB_STACK_MLP=1 on a dense int8
-    stack (2 layers at 7B width, M padded to 11264; K3 3 a layer);
-    dispatch_mode="ragged" against "gmm" (K1) on one full-width MoE layer;
-    the serving worker with device_preprocess=True on the front end's 24
-    PNG images against the host path (<= 2/255 before normalize); the
-    native preprocessing library built and loaded here, against the numpy
-    path (<= 1/255)."""
+    """The opt-in modules on the card: dispatch_mode="ragged" against
+    "gmm" (K1) on one full-width MoE layer; the serving worker with
+    device_preprocess=True on the front end's 24 PNG images against the
+    host path (<= 2/255 before normalize); the native preprocessing
+    library built and loaded here, against the numpy path (<= 1/255)."""
     import torch
     from medplib_tpu_torch import native
     from medplib_tpu_torch.config import flagship_cfg
     from medplib_tpu_torch.data import preprocess as pp
-    from medplib_tpu_torch.models import llama, medplib, moe_llama
+    from medplib_tpu_torch.models import llama, medplib
     from medplib_tpu_torch.ops import moe
     from medplib_tpu_torch.serve import protocol
     from medplib_tpu_torch.serve import worker as wk
-    from medplib_tpu_torch.utils import quantize as qz
-    from medplib_tpu_torch.utils.quantize import dynamic_act_quant
 
     cfg = flagship_cfg(32, moe=True)
-    L = cfg.llm.num_layers
     res = {}
-
-    def knob_pair(name, run, x, **want):
-        """Hold run(x) with the knob against run(x) without it within
-        OPT_IN_FLOOR_FACTOR times the default path's change under
-        ulp_moved(x); the knob's launches checked."""
-        reset_counts()
-        base = run(x)
-        torch.cuda.synchronize()
-        base_counts = kernel_counts()
-        floor = rel_err(run(ulp_moved(x)), base)
-        os.environ[name] = "1"
-        try:
-            t0 = time.time()
-            reset_counts()
-            got = run(x)
-            torch.cuda.synchronize()
-            secs = time.time() - t0
-        finally:
-            del os.environ[name]
-        counts = kernel_counts()
-        rel = rel_err(got, base)
-        log(f"[opt-in {name}=1] whole forward: rel err vs the default path "
-            f"{rel:.3e} (<= {OPT_IN_FLOOR_FACTOR:g} x the default path's "
-            f"move under a one-ulp move of its input, {floor:.3e}); "
-            f"launches "
-            f"{counts}, default {base_counts}; {secs:.2f} s")
-        expect_counts(f"opt-in {name}", counts, **want)
-        if rel > OPT_IN_FLOOR_FACTOR * floor:
-            raise AssertionError(f"{name}=1 disagrees with the default path")
-        return rel, floor
-
     batch = make_batch(cfg, 16, 48, np.random.default_rng(0), dev)
     with torch.no_grad():
-        emb, _, mask, _, _ = medplib.splice_batch(params, cfg, batch)
-        # one projection first: layer 0's q / o on the prefill's rows
-        from medplib_tpu_torch.ops import stacked
-        from medplib_tpu_torch.ops.norms import rms_norm
-        from medplib_tpu_torch.train.lora import linear, linear_t
-        lay0 = llama.layer_params(params["llm"]["layers"], 0)
-        h0 = rms_norm(emb, lay0["input_layernorm"]["weight"],
-                      cfg.llm.rms_norm_eps)
-        stacks = stacked.stack_attn_for_w8a8(params["llm"]["layers"],
-                                             h0.shape[0] * h0.shape[1])
-        if stacks is None:
-            raise AssertionError("the flagship's attention stacks are not "
-                                 "eligible for the stacked W8A8 path")
-        xq, xsc, rows = stacked.quantize_rows_padded(
-            h0.reshape(-1, h0.shape[-1]))
-        proj = {}
-        with dynamic_act_quant(True):
-            for n, fn in (("q_proj", linear_t), ("o_proj", linear)):
-                want_p = fn(lay0["attn"][n], h0).reshape(rows, -1)
-                got_p = stacked.stacked_w8a8_linear(stacks[n], xq, xsc, 0,
-                                                    rows)
-                proj[n] = rel_err(got_p, want_p)
-        log(f"[opt-in MEDPLIB_STACK_ATTN=1] layer 0 on the B=16 prefill's "
-            f"rows, K3 W8A8 vs the default W8A8: q_proj rel "
-            f"{proj['q_proj']:.3e}, o_proj rel {proj['o_proj']:.3e} (<= "
-            f"{OPT_IN_REL_TOL:g})")
-        if max(proj.values()) > OPT_IN_REL_TOL:
-            raise AssertionError("stacked W8A8 projection disagrees")
-
-        def prefill(e):
-            with dynamic_act_quant(True):
-                return moe_llama.forward(params["llm"], cfg.llm, cfg.moe,
-                                         e, mask, train=False)[0]
-        res["stack_attn"] = knob_pair("MEDPLIB_STACK_ATTN", prefill, emb,
-                                      gmm=4 * L, gmm_int4h=3 * L,
-                                      flash_fwd=L)
-
-        dcfg = flagship_cfg(2, moe=False).llm
-        gen = torch.Generator(device=dev).manual_seed(5)
-        dense = llama.init_llama(gen, dcfg, torch.bfloat16, device=dev)
-        dense = qz.quantize_tree(dense, bits=8)
-        dense["layers"]["mlp"] = qz.pad_dense_mlp_for_gmm(
-            dense["layers"]["mlp"])
-        x = torch.randn((4, 512, dcfg.hidden_size), generator=gen,
-                        device=dev).to(torch.bfloat16)
-        mstacks = stacked.stack_mlp_for_w8a8(dense["layers"], 4 * 512)
-        if mstacks is None:
-            raise AssertionError("the padded dense MLP stacks are not "
-                                 "eligible for the stacked W8A8 path")
-        with dynamic_act_quant(True):
-            want_m = llama.dense_mlp(
-                llama.layer_params(dense["layers"], 0)["mlp"], x)
-        got_m = stacked.stacked_dense_mlp(mstacks, x, 0)
-        mlp_rel = rel_err(got_m, want_m)
-        log(f"[opt-in MEDPLIB_STACK_MLP=1] layer 0, B=4 x 512 rows: K3 W8A8 "
-            f"SwiGLU vs the default W8A8 rel {mlp_rel:.3e} (<= "
-            f"{OPT_IN_MLP_TOL:g})")
-        if mlp_rel > OPT_IN_MLP_TOL:
-            raise AssertionError("stacked W8A8 MLP disagrees")
-
-        def dense_prefill(e):
-            with dynamic_act_quant(True):
-                return llama.forward(dense, dcfg, e)[0]
-        res["stack_mlp"] = knob_pair("MEDPLIB_STACK_MLP", dense_prefill, x,
-                                     gmm=3 * dcfg.num_layers,
-                                     flash_fwd=dcfg.num_layers)
-        del dense
-
+        emb = medplib.splice_batch(params, cfg, batch)[0]
         mp = llama.layer_params(params["llm"]["layers"], 0)["moe"]
         xs, outs, times = emb, {}, {}
         for mode in ("gmm", "ragged"):
@@ -5552,11 +5435,8 @@ def _phases(dev, card, lap, t_run, pool) -> int:
           f"(two gloo ranks on one card, no speed claim): EP=2 "
           f"{dist['ep_s']:.1f} s, TP=2 {dist['tp_s']:.1f} s, NCCL world 1 "
           f"{dist['nccl']:.1f} s, DP=2 steps {dist['dp3_s']:.2f} / "
-          f"{dist['dp4_s']:.2f} s; opt-in rel err (noise floor) "
-          f"stack-attn {optin['stack_attn'][0]:.2e} "
-          f"({optin['stack_attn'][1]:.2e}), stack-mlp "
-          f"{optin['stack_mlp'][0]:.2e} ({optin['stack_mlp'][1]:.2e}), "
-          f"ragged {optin['ragged']:.2e}; run "
+          f"{dist['dp4_s']:.2f} s; opt-in ragged rel err "
+          f"{optin['ragged']:.2e}; run "
           f"{time.time() - t_run:.1f} s; {card}",
           flush=True)
     print(card, flush=True)

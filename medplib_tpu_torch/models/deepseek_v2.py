@@ -2,8 +2,9 @@
 DeepseekV2ForCausalLM with q_lora_rank null): llama.py's layer loops with
 multi-head latent attention (models/mla.py) and DeepSeek's MLP, dense in
 the first `first_k_dense_replace` layers and a fine-grained MoE with
-shared experts after them (ops/moe.topk_moe). The JAX package has no such
-model; configs are config.MlaConfig + config.DeepseekMoeConfig.
+shared experts after them (`moe_layer`: ops/moe.topk_moe's routed experts
+plus the shared ones). The JAX package has no such model; configs are
+config.MlaConfig + config.DeepseekMoeConfig.
 
 Params: llama.py's tree ("embed_tokens", "layers" with the norms and the
 MLA "attn" stacked over all L layers, "norm", "lm_head"), plus
@@ -22,6 +23,7 @@ from medplib_tpu_torch.config import DeepseekMoeConfig, MlaConfig
 from medplib_tpu_torch.models import llama, mla
 from medplib_tpu_torch.ops.initializers import dense_init, embed_init, normal
 from medplib_tpu_torch.ops.moe import topk_moe
+from medplib_tpu_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -70,10 +72,19 @@ def init_deepseek_v2(gen: torch.Generator, cfg: MlaConfig,
     }
 
 
+def moe_layer(moe_p: Params, h: torch.Tensor, moe_cfg: DeepseekMoeConfig,
+              decode: bool = False) -> torch.Tensor:
+    """One MoE layer: the routed experts (ops/moe.topk_moe, routed for
+    the phase) plus the shared experts' SwiGLU ("shared_mlp")."""
+    y = topk_moe(moe_p, h, moe_cfg, decode=decode)
+    with profiling.span("moe.shared"):
+        return y + llama.dense_mlp(moe_p["shared_mlp"], h)
+
+
 def make_mlp_apply(params: Params, moe_cfg: DeepseekMoeConfig,
                    decode: bool = False):
     """llama's MlpApply for this stack: layer i (layer_p["layer_idx"])
-    runs the dense MLP below first_k_dense_replace, the MoE after."""
+    runs the dense MLP below first_k_dense_replace, `moe_layer` after."""
     kd = moe_cfg.first_k_dense_replace
 
     def apply(layer_p: Params, h: torch.Tensor):
@@ -82,9 +93,8 @@ def make_mlp_apply(params: Params, moe_cfg: DeepseekMoeConfig,
         if i < kd:
             return llama.dense_mlp(
                 llama.layer_params(params["dense_mlp"], i), h), zero
-        return topk_moe(llama.layer_params(params["moe"], i - kd), h,
-                        moe_cfg, decode=decode,
-                        block_m=32 if decode else 512), zero
+        return moe_layer(llama.layer_params(params["moe"], i - kd), h,
+                         moe_cfg, decode), zero
 
     return apply
 

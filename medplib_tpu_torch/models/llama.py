@@ -19,11 +19,6 @@ and gate / up column-parallel, o / down row-parallel with a sum over
 `model`, the embedding and lm_head split on the vocabulary; the cache holds
 the rank's heads.
 
-Opt-in whole-stack W8A8 prefill (ops/stacked.py, MEDPLIB_STACK_ATTN=1 /
-MEDPLIB_STACK_MLP=1, both 0 by default as in the JAX package): under
-dynamic_act_quant at S >= 1024, the attention projections or the dense MLP
-of an int8 tree run on K3 with the layer index as the group id.
-
 KV cache: prefill, decode and the chunked-prefill extend write the cache
 IN PLACE (the JAX package returns a new cache), so a decode loop never
 copies it. With quant=True it holds int8 k / v and f32
@@ -47,8 +42,6 @@ tensor parallelism do not cover it and raise.
 
 from __future__ import annotations
 
-import functools
-import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -57,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from medplib_tpu_torch.config import LlamaConfig, is_mla
 from medplib_tpu_torch.models import mla
-from medplib_tpu_torch.ops.moe import _silu
+from medplib_tpu_torch.ops.activations import silu
 from medplib_tpu_torch.ops.attention import (causal_attention,
                                              decode_attention,
                                              decode_attention_quant,
@@ -208,7 +201,7 @@ def dense_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         gate = tp.column_linear(p["gate_proj"], x)
         up = tp.column_linear(p["up_proj"], x)
-    return tp.row_linear(p["down_proj"], _silu(gate) * up)
+    return tp.row_linear(p["down_proj"], silu(gate) * up)
 
 
 def dense_mlp_layer(layer_p: Params, x: torch.Tensor):
@@ -218,18 +211,11 @@ def dense_mlp_layer(layer_p: Params, x: torch.Tensor):
 MlpApply = Callable[[Params, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
-         stacked: Optional[Params] = None, layer_idx: int = 0):
+def _qkv(p: Params, x: torch.Tensor, cfg: LlamaConfig, cos, sin):
     b, t, _ = x.shape
     qd = cfg.num_heads * cfg.head_dim
     kd = cfg.num_kv_heads * cfg.head_dim
-    if stacked is not None:    # ops/stacked: one quant pass, three K3 calls
-        from medplib_tpu_torch.ops.stacked import (quantize_rows_padded,
-                                                   stacked_w8a8_linear)
-        xq, xsc, rows = quantize_rows_padded(x.reshape(b * t, -1))
-        q, k, v = (stacked_w8a8_linear(stacked[n], xq, xsc, layer_idx, rows)
-                   .to(x.dtype) for n in ("q_proj", "k_proj", "v_proj"))
-    elif "qkv_proj" in p:        # packed: one wide product, split on columns
+    if "qkv_proj" in p:        # packed: one wide product, split on columns
         node = p["qkv_proj"]
         if tp.model_axis() is not None:   # cfg is the rank's (local_cfg)
             m = tp.model_axis()[1]
@@ -245,14 +231,13 @@ def _qkv(p: Params, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
 
 
 def _prefill_attention(p: Params, h: torch.Tensor, cfg: LlamaConfig, cos,
-                       sin, attn_mask: Optional[torch.Tensor], view=None,
-                       stacked: Optional[Params] = None) -> torch.Tensor:
+                       sin, attn_mask: Optional[torch.Tensor],
+                       view=None) -> torch.Tensor:
     """q / k / v, causal attention, o_proj -> [B, T, hidden]; K/V written
     at positions [0, T) of the layer's cache view (KVCache.layer) when
-    given. stacked: the whole-stack W8A8 attention projections
-    (ops/stacked.py), addressed at p["layer_idx"]."""
-    i, (b, t) = p["layer_idx"], h.shape[:2]
-    q, k, v = _qkv(p["attn"], h, cfg, cos, sin, stacked, i)
+    given."""
+    b, t = h.shape[:2]
+    q, k, v = _qkv(p["attn"], h, cfg, cos, sin)
     if view is not None:
         k_cache, v_cache, k_scale, v_scale = view
         if k_scale is not None:
@@ -262,12 +247,6 @@ def _prefill_attention(p: Params, h: torch.Tensor, cfg: LlamaConfig, cos,
             k_cache[:, :t] = k.to(k_cache.dtype)
             v_cache[:, :t] = v.to(v_cache.dtype)
     attn = causal_attention(q, k, v, attn_mask)
-    if stacked is not None:
-        from medplib_tpu_torch.ops.stacked import (quantize_rows_padded,
-                                                   stacked_w8a8_linear)
-        aq, asc, rows = quantize_rows_padded(attn.reshape(b * t, -1))
-        o = stacked_w8a8_linear(stacked["o_proj"], aq, asc, i, rows)
-        return o.reshape(b, t, -1).to(h.dtype)
     return tp.row_linear(p["attn"]["o_proj"], attn.reshape(b, t, -1))
 
 
@@ -378,16 +357,12 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             mlp_apply: MlpApply = dense_mlp_layer,
-            cache: Optional[KVCache] = None, remat: bool = False,
-            unroll: bool = False):
+            cache: Optional[KVCache] = None, remat: bool = False):
     """Prefill over the layer stack. input_embeds [B, T, H].
     -> (hidden_post_norm [B, T, H], cache|None, aux_loss). With a cache,
     K/V (an MLA config's latents) land at positions [0, T) and
     cache.length is set from the attn_mask row sums (left-aligned
-    sequences). remat: checkpoint each layer (training; no cache).
-    unroll: the JAX package's Python-unrolled layers, which the port's
-    loop always is; as there, it turns the opt-in whole-stack W8A8 knobs
-    off."""
+    sequences). remat: checkpoint each layer (training; no cache)."""
     if remat and cache is not None:
         raise ValueError("remat is for training, without a KV cache")
     cfg = tp.local_cfg(cfg)
@@ -397,30 +372,13 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
         positions = torch.arange(t, device=dev)[None].expand(b, t)
     attn = attention_for(cfg)
     cos, sin = attn.rope(positions, cfg)
-    attend = attn.prefill
     drop, act_quant = lora.dropout_state(), act_quant_enabled()
-    if act_quant and not unroll:   # opt-in A/B knobs (ops/stacked.py)
-        from medplib_tpu_torch.ops import stacked as st
-        from medplib_tpu_torch.parallel.mesh import row_shards
-        s_glob = b * t * row_shards()
-        if os.environ.get("MEDPLIB_STACK_ATTN", "0") == "1":
-            stacked = st.stack_attn_for_w8a8(params["layers"], s_glob)
-            if stacked is not None:      # q / k / v / o trees alone
-                attend = functools.partial(_prefill_attention,
-                                           stacked=stacked)
-        if (mlp_apply is dense_mlp_layer
-                and os.environ.get("MEDPLIB_STACK_MLP", "0") == "1"):
-            mlp_stacks = st.stack_mlp_for_w8a8(params["layers"], s_glob)
-            if mlp_stacks is not None:
-                def mlp_apply(layer_p, h, _s=mlp_stacks):  # noqa: F811
-                    return (st.stacked_dense_mlp(_s, h, layer_p["layer_idx"]),
-                            torch.zeros((), device=h.device))
 
     def layer(i, x):
         with lora.dropout_scope(drop, i), dynamic_act_quant(act_quant):
             return decoder_layer_prefill(
                 dict(layer_params(params["layers"], i), layer_idx=i), x, cfg,
-                cos, sin, attn_mask, mlp_apply, attend,
+                cos, sin, attn_mask, mlp_apply, attn.prefill,
                 None if cache is None else cache.layer(i))
 
     x = input_embeds
@@ -443,11 +401,9 @@ def forward(params: Params, cfg: LlamaConfig, input_embeds: torch.Tensor,
 
 def forward_decode(params: Params, cfg: LlamaConfig,
                    input_embeds: torch.Tensor, cache: KVCache,
-                   mlp_apply: MlpApply = dense_mlp_layer,
-                   unroll: bool = False):
+                   mlp_apply: MlpApply = dense_mlp_layer):
     """One decode step. input_embeds [B, 1, H] -> (hidden [B, 1, H],
-    cache with length + 1; K/V (latents) written in place). unroll: as in
-    forward (no effect here)."""
+    cache with length + 1; K/V (latents) written in place)."""
     cfg = tp.local_cfg(cfg)
     attn = attention_for(cfg)
     cos, sin = attn.rope(cache.length[:, None], cfg)

@@ -22,9 +22,7 @@ rows of the global batch and its shards of the params; the losses are the
 global masked means (models/losses), `ep_shard` runs the MoE experts
 expert-parallel over the mesh's expert axis (models/moe_llama), CLIP and
 SAM stay replicated and handle the rank's rows, and the language model
-splits over the model axis (parallel/tp.py). `unroll` / `unroll_layers`
-are the JAX package's Python-unrolled layer loop: the port's loop always
-is one, so they change nothing.
+splits over the model axis (parallel/tp.py).
 
 An MlaConfig language model (DeepSeek-V2, models/deepseek_v2.py) serves
 through generate / stream_prefill / stream_decode_chunk with a latent
@@ -261,7 +259,7 @@ def _deepseek(cfg: MedplibConfig, ep_shard: bool) -> bool:
 
 
 def _llm_forward(params, cfg: MedplibConfig, embeds, attn_mask, cache=None,
-                 train=True, remat=False, ep_shard=False, unroll=False):
+                 train=True, remat=False, ep_shard=False):
     if _deepseek(cfg, ep_shard):
         if remat:
             raise NotImplementedError("MLA training (remat) is not ported")
@@ -270,23 +268,19 @@ def _llm_forward(params, cfg: MedplibConfig, embeds, attn_mask, cache=None,
     if cfg.moe.enable:
         return moe_llama.forward(params["llm"], cfg.llm, cfg.moe, embeds,
                                  attn_mask, cache=cache, remat=remat,
-                                 train=train, ep_shard=ep_shard,
-                                 unroll=unroll)
+                                 train=train, ep_shard=ep_shard)
     return llama.forward(params["llm"], cfg.llm, embeds, attn_mask,
-                         cache=cache, remat=remat, unroll=unroll)
+                         cache=cache, remat=remat)
 
 
-def _llm_decode(params, cfg: MedplibConfig, embeds, cache, ep_shard=False,
-                unroll=False):
+def _llm_decode(params, cfg: MedplibConfig, embeds, cache, ep_shard=False):
     if _deepseek(cfg, ep_shard):
         return deepseek_v2.forward_decode(params["llm"], cfg.llm, cfg.moe,
                                           embeds, cache)
     if cfg.moe.enable:
         return moe_llama.forward_decode(params["llm"], cfg.llm, cfg.moe,
-                                        embeds, cache, ep_shard=ep_shard,
-                                        unroll=unroll)
-    return llama.forward_decode(params["llm"], cfg.llm, embeds, cache,
-                                unroll=unroll)
+                                        embeds, cache, ep_shard=ep_shard)
+    return llama.forward_decode(params["llm"], cfg.llm, embeds, cache)
 
 
 @profiling.span("sam.decode")
@@ -413,7 +407,7 @@ def _first_token(params, cfg: MedplibConfig, last_hidden, seg_emb,
 
 def _make_decode_step(params, cfg: MedplibConfig, eos_id: int,
                       do_sample: bool, temperature, top_p, dev,
-                      ep_shard: bool = False, unroll: bool = False):
+                      ep_shard: bool = False):
     """The decode step shared by generate and stream_decode_chunk.
 
     carry = (cache, tok, done, seg_emb [B, S, D], seg_count [B],
@@ -429,8 +423,7 @@ def _make_decode_step(params, cfg: MedplibConfig, eos_id: int,
     def step(carry):
         cache, tok, done, seg_emb, seg_count, last_cap, key = carry
         emb = llama.embed(params["llm"], tok[:, None])
-        hidden, cache = _llm_decode(params, cfg, emb, cache, ep_shard,
-                                    unroll)
+        hidden, cache = _llm_decode(params, cfg, emb, cache, ep_shard)
         logits = llama.logits(params["llm"], hidden)[:, 0]
         with profiling.span("sample"):
             sub = None
@@ -477,8 +470,8 @@ def generate(params: Params, cfg: MedplibConfig, batch: Batch,
              ground: bool = True, max_segs: int = 1,
              do_sample: bool = False, temperature=1.0, top_p=1.0,
              rng: sampling.Seed = None,
-             kv_quant: bool = False, ep_shard: bool = False,
-             unroll_layers: bool = False) -> GenerateResult:
+             kv_quant: bool = False,
+             ep_shard: bool = False) -> GenerateResult:
     """Decode + pixel grounding. SEG hidden states are captured inside the
     loop (prompt SEGs first, then generated ones, up to max_segs); a row
     with no SEG grounds the last step's projected hidden in slot 0.

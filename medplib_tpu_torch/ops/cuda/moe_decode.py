@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from medplib_tpu_torch.ops.cuda.gmm import quantize_rows, unpack_pairs
-from medplib_tpu_torch.ops.moe import _silu
+from medplib_tpu_torch.ops.activations import silu
 
 
 def _pick_bn(m2: int, cap: int = 512) -> int:
@@ -96,7 +96,7 @@ def moe_ffn_decode_int4h_plain(x: torch.Tensor, experts,
             return r * xs if int8_x else r
         g, u = gu(gp), gu(up)
         mask = torch.where(idx == e, gate, torch.zeros_like(gate)).sum(1)
-        act = _silu(g) * u * mask[:, None]
+        act = silu(g) * u * mask[:, None]
         wd = unpack_pairs(dp["kernel"][e]).float()               # [M, H]
         ds = dp["scale4h"][e].float()                            # [2, 1, H]
         for j in range(n_j):

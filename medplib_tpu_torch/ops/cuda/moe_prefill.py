@@ -6,7 +6,7 @@
   its k rows of the group-aligned buffer; gap rows are zeros, as
   quantizing the zero-filled buffer gives. Gate and up read the result.
 - `moe_swiglu_quant`: the bf16 gate and up products to the down
-  projection's int8 rows and scales in one pass (`_silu` rounded op by op,
+  projection's int8 rows and scales in one pass (`silu` rounded op by op,
   the product unrounded in f32, then the row quantization).
 - `moe_topk_combine`: each token's k output rows, weighted in f32 and
   summed in a fixed order, rounded once.
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from medplib_tpu_torch.ops.activations import silu
 from medplib_tpu_torch.ops.cuda.gmm import _check_cuda, quantize_rows
 
 
@@ -83,11 +84,10 @@ moe_dispatch_quant.launches = 0
 
 
 def moe_swiglu_quant_plain(h1: torch.Tensor, h2: torch.Tensor):
-    """Plain version: _silu(h1) in h1's dtype, its product with h2 in f32
+    """Plain version: silu(h1) in h1's dtype, its product with h2 in f32
     (unrounded, as the compiled reference feeds its activation quant),
     then quantize_rows."""
-    from medplib_tpu_torch.ops.moe import _silu
-    return quantize_rows(_silu(h1).float() * h2.float())
+    return quantize_rows(silu(h1).float() * h2.float())
 
 
 def moe_swiglu_quant(h1: torch.Tensor, h2: torch.Tensor):

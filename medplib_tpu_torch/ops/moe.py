@@ -7,17 +7,24 @@ and its dispatches (medplib_tpu/ops/moe.py).
   combine tensors (the GShard form; `top1_gate` / `top2_gate`);
 - "gmm": the zero-drop grouped-matmul dispatch, top-1 only: rows in a
   group-aligned buffer through three grouped matmuls (gate, up, down):
-  kernel K3 for int8 and float experts, K1 for int4h(G=2) experts; or, at
-  decode on the whole-stack path, the fused int4h kernel K2; exactly
-  equivalent to "sort" when capacity >= S;
+  kernel K3 for int8 and float experts, K1 for int4h(G=2) experts; or, on
+  a decode route, the fused int4h kernel K2; exactly equivalent to "sort"
+  when capacity >= S;
 - "ragged": top-1 with no capacity, each expert contracting only its own
   tokens (`_ragged_moe`, the JAX package's jax.lax.ragged_dot dispatch);
-- "auto": gmm for inference, top-1, capacity >= S and S >= 1024 tokens,
-  else sort (the JAX gates, moe.py:481-486).
+- "auto": the route `plan_route` gives the layer call.
+
+`plan_route` is the one place a layer call's route is decided: sort,
+the grouped matmuls, K2 or the expert-parallel grouped matmuls, their
+tile and the kind of each expert weight, from the phase, train or
+inference, top-k, E, the global S and capacity, the expert layout, the
+mesh's expert axis and whether every layer of the stack is MoE. It holds
+the JAX package's gates (moe_llama.stack_experts_for_gmm, moe_mlp's auto
+branch, forward_decode's int4h test and _gmm_moe's decode-tile test).
 
 Under a mesh (parallel/mesh.set_mesh) the tokens are this rank's rows of
 a global batch, and every dispatch returns what one process returns on the
-global batch: S, the capacity, the `auto` switch and the aux loss are the
+global batch: S, the capacity, the route and the aux loss are the
 global ones, and the capacity dispatches route on the all-gathered router
 logits (slot positions in global token order; top-2 second choices after
 every first choice of the batch). With ep_shard and an expert axis, each
@@ -28,37 +35,37 @@ all-gathered. Outside a mesh the capacity dispatches run on a 1-rank mesh
 (local_mesh, every collective an identity): one process takes the same
 code as each rank.
 
-A Residual-MoE layer (`residual_mlp` + `coefficient` in its params) mixes
-a dense SwiGLU copy into every dispatch's output (`_apply_residual`).
-
 DeepSeek-V2's fine-grained MoE (`topk_moe`, config.DeepseekMoeConfig; no
 counterpart in the JAX package): softmax in f32, greedy top-k with no
 capacity, every (token, expert) pair through the grouped matmuls (K1 for
 int4h experts) at prefill, or at decode through the fused kernel K2
 taking the k experts of each row in one pass; the gated outputs summed in
-f32, then the shared experts' SwiGLU added.
+f32. The caller (models/deepseek_v2.py) adds the shared experts.
 """
 
 from __future__ import annotations
 
 import math
-import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from medplib_tpu_torch.config import MoeConfig
+from medplib_tpu_torch.ops.activations import silu
+from medplib_tpu_torch.ops.cuda.gmm import align_rows, gmm, gmm_int4h
+from medplib_tpu_torch.ops.cuda.moe_decode import (fused_decode_eligible,
+                                                   moe_ffn_decode_int4h)
+from medplib_tpu_torch.ops.cuda.moe_prefill import (moe_dispatch_quant,
+                                                    moe_swiglu_quant,
+                                                    moe_topk_combine)
 from medplib_tpu_torch.parallel.mesh import (AXIS_EXPERT, ROWS,
                                              current_mesh, local_mesh,
                                              row_shards, row_sum)
+from medplib_tpu_torch.train.lora import dequant_kernel
 from medplib_tpu_torch.utils import profiling
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.silu's exact op sequence, x * (1 / (1 + exp(-x))), each op
-    rounded in x.dtype (F.silu rounds once, which flips bf16 results)."""
-    return x * (1 / (1 + torch.exp(-x)))
+from medplib_tpu_torch.utils.quantize import (act_quant_enabled,
+                                              int4h_expert_einsum)
 
 
 def capacity_for(num_tokens: int, num_experts: int, capacity_factor: float,
@@ -227,26 +234,154 @@ def _route_topk(xs: torch.Tensor, router: torch.Tensor, k: int,
         return idx, w
 
 
-def topk_moe(moe_params, x: torch.Tensor, cfg, decode: bool = False,
-             block_m: int = 512) -> torch.Tensor:
-    """One DeepSeek-V2 MoE layer. moe_params: {"router": {"kernel":
-    [H, E]}, "experts": {gate_proj / up_proj: [E, H, M], down_proj:
-    [E, M, H] (int4h, int8 or float)}, "shared_mlp": a dense SwiGLU node
-    (the shared experts, fused)}; cfg a config.DeepseekMoeConfig. x
-    [B, T, H] -> [B, T, H].
+# ---------------------------------------------------------------------------
+# the route of one layer call
+# ---------------------------------------------------------------------------
 
-    Prefill: the S·k (token, expert) rows through align_rows and the
-    grouped SwiGLU (`_gmm_ffn`: K1 for int4h(G=2) experts, W4A8 under
-    dynamic_act_quant, each token quantized once into its k aligned rows
-    by `moe_dispatch_quant`), each token's k gated outputs summed in f32
+# The gates tuned on the TPU, each with its one home here: the grouped
+# matmuls take a prefill from GMM_MIN_ROWS global rows, and a decode step
+# runs at the decode tile, which is what selects K2 (the JAX package's
+# block_m <= 64 test).
+GMM_MIN_ROWS = 1024
+PREFILL_BLOCK_M = 512
+DECODE_BLOCK_M = 32
+_FFN = ("gate_proj", "up_proj", "down_proj")
+
+
+class Route(NamedTuple):
+    """How one MoE layer call runs (`plan_route`): the dispatch ("sort",
+    "einsum", "ragged", "gmm", "gmm_ep" the expert-parallel gmm, or
+    "fused_decode", K2 in A8), the group-aligned buffer's tile on the
+    grouped routes (None on the others) and the kind of the gate / up /
+    down weights (`_weight_kind`)."""
+    dispatch: str
+    block_m: Optional[int]
+    kinds: Tuple[str, ...]
+
+
+def _weight_kind(node) -> str:
+    """How the grouped matmuls take one expert weight: "int8" (K3 with
+    the per-channel scale at its epilogue), "int4h" (G=2: K1) or "dense"
+    (float, finer int4h: a dequantized copy through K3's float mode)."""
+    k = node["kernel"]
+    if "scale" in node and k.dtype == torch.int8:
+        return "int8"
+    if ("scale4h" in node and node["scale4h"].shape[-3] == 2
+            and k.shape[-2] % 128 == 0):
+        return "int4h"
+    return "dense"
+
+
+def _best_k_block(k: int, cap: int = 2048) -> int:
+    """Largest multiple of 128 <= cap dividing k (k if none): the JAX gmm
+    pads K (a copy) when this is below 1024 (gmm.py:_pick_bk)."""
+    for mult in range(min(cap, k) // 128, 0, -1):
+        if k % (128 * mult) == 0:
+            return 128 * mult
+    return k
+
+
+def _whole_stack_shapes(experts, kinds, e: int) -> bool:
+    """The expert shapes JAX's whole-stack gate admits (moe_llama.py:
+    stack_experts_for_gmm): [E, K, N] int8 or int4h(G=2) nodes that its
+    kernels stream with no padding copy (N % 512; int8 also a K block of
+    at least 1024)."""
+    for n, kind in zip(_FFN, kinds):
+        k = experts[n]["kernel"]
+        if (k.dim() != 3 or k.shape[0] != e or kind == "dense"
+                or k.shape[-1] % 512
+                or kind == "int8" and _best_k_block(k.shape[-2]) < 1024):
+            return False
+    return True
+
+
+def plan_route(experts, num_experts: int, top_k: int, s_glob: int, *,
+               decode: bool, train: bool = False,
+               capacity: Optional[int] = None, all_moe: bool = False,
+               ep_shard: bool = False, ep: int = 1,
+               mode: str = "auto") -> Route:
+    """The route of one MoE layer call over the layer's expert nodes as
+    the caller holds them ([E, ...] leaves).
+
+    decode: the call is one decode step. capacity: the DeepSpeed capacity
+    at the global S (s_glob) of a top-1 / top-2 layer; None for a greedy
+    top-k layer with no capacity (DeepSeek-V2), whose every (token,
+    expert) pair is computed, so the grouped matmuls are exact at any S.
+    all_moe: every layer of the caller's stack is MoE. ep: the ranks of
+    the mesh's expert axis that ep_shard splits the experts over (1
+    without one). mode: "auto", or the dispatch the caller names ("gmm"
+    still takes the expert-parallel form under ep_shard and K2 at
+    decode).
+
+    Under a capacity, "auto" holds the JAX gates. The grouped matmuls
+    equal the capacity dispatch only in inference at top-1 with capacity
+    >= S. A decode step takes them at the decode tile only on the
+    whole-stack path: an all-MoE stack of int4h experts whose shapes the
+    kernels stream, and under ep_shard an expert axis that divides E. A
+    prefill takes them from GMM_MIN_ROWS rows, and under ep_shard only on
+    the whole-stack path (any quantized kind). A decode step off that
+    path is routed as a prefill. On the grouped route under ep_shard the
+    experts are expert-parallel, and otherwise a decode tile selects K2
+    where its shapes allow."""
+    if mode not in ("auto", "gmm", "sort", "einsum", "ragged"):
+        raise ValueError(f"unknown dispatch_mode {mode!r}")
+    kinds = tuple(_weight_kind(experts[n]) for n in _FFN)
+    if mode not in ("auto", "gmm"):
+        return Route(mode, None, kinds)
+    if mode == "auto" and capacity is not None:
+        exact = not train and top_k == 1 and capacity >= s_glob
+        whole = (all_moe and (kinds[0] == "int4h" or not decode)
+                 and (not ep_shard or ep > 1 and num_experts % ep == 0)
+                 and _whole_stack_shapes(experts, kinds, num_experts))
+        if not exact or ep_shard and not whole:
+            return Route("sort", None, kinds)
+        if not (decode and whole):
+            if s_glob < GMM_MIN_ROWS:
+                return Route("sort", None, kinds)
+            decode = False                  # the prefill's tile
+    block_m = DECODE_BLOCK_M if decode else PREFILL_BLOCK_M
+    if ep_shard and ep > 1:
+        return Route("gmm_ep", block_m, kinds)
+    if decode and fused_decode_eligible(experts, num_experts):
+        return Route("fused_decode", block_m, kinds)
+    return Route("gmm", block_m, kinds)
+
+
+def _routed_experts(xs: torch.Tensor, idx: torch.Tensor, gate, experts,
+                    e: int, route: Route, combine) -> torch.Tensor:
+    """The routed SwiGLU of the rows xs [S, H] over one layer's experts,
+    idx / gate [S] or [S, k] each row's experts and combine weights, under
+    the span moe.experts. On a "fused_decode" route K2 in A8, which sums
+    each row's gated outputs itself; else each (token, expert) row
+    through the grouped matmuls at route.block_m (`_gmm_ffn`), the
+    outputs combined by the caller's combine(out_al, dest). -> [S, H]."""
+    with profiling.span("moe.experts", S=xs.shape[0]) as sp:
+        if route.dispatch == "fused_decode":
+            return moe_ffn_decode_int4h(xs, experts, idx.to(torch.int32),
+                                        gate, e, int8_x=True)
+        dest, tile_gid, s_al = align_rows(idx.reshape(-1), e, route.block_m)
+        sp.note(Sp=s_al)
+        k = idx.shape[1] if idx.dim() == 2 else 1
+        out_al = _gmm_ffn(xs, dest, k, s_al, tile_gid, experts, route.kinds,
+                          xs.dtype, route.block_m)
+        return combine(out_al, dest)
+
+
+def topk_moe(moe_params, x: torch.Tensor, cfg,
+             decode: bool = False) -> torch.Tensor:
+    """The routed experts of one DeepSeek-V2 MoE layer. moe_params:
+    {"router": {"kernel": [H, E]}, "experts": {gate_proj / up_proj:
+    [E, H, M], down_proj: [E, M, H] (int4h, int8 or float)}}; the caller
+    adds the shared experts ("shared_mlp"). cfg a
+    config.DeepseekMoeConfig. x [B, T, H] -> [B, T, H].
+
+    The route is `plan_route`'s with no capacity. Prefill: the S·k
+    (token, expert) rows through align_rows and the grouped SwiGLU
+    (`_gmm_ffn`: K1 for int4h(G=2) experts, W4A8 under dynamic_act_quant,
+    each token quantized once into its k aligned rows by
+    `moe_dispatch_quant`), each token's k gated outputs summed in f32
     (moe_infer's combine; `moe_topk_combine`); decode (int4h experts of
-    the fused shapes): K2 in A8 with the k experts of each row. Then the
-    shared MLP is added."""
-    from medplib_tpu_torch.models.llama import dense_mlp
-    from medplib_tpu_torch.ops.cuda.gmm import align_rows
-    from medplib_tpu_torch.ops.cuda.moe_decode import (
-        fused_decode_eligible, moe_ffn_decode_int4h)
-    from medplib_tpu_torch.ops.cuda.moe_prefill import moe_topk_combine
+    the fused shapes): K2 in A8 with the k experts of each row."""
     b, t, h = x.shape
     s, k = b * t, cfg.top_k
     xs = x.reshape(s, h)
@@ -255,72 +390,44 @@ def topk_moe(moe_params, x: torch.Tensor, cfg, decode: bool = False,
     idx, w = _route_topk(xs, router, k, cfg.routed_scaling_factor,
                          cfg.norm_topk_prob)
     experts = moe_params["experts"]
-    with profiling.span("moe.experts", S=s) as sp:
-        if decode and fused_decode_eligible(experts, e):
-            y = moe_ffn_decode_int4h(xs, experts, idx.to(torch.int32), w, e,
-                                     int8_x=True)
-        else:
-            dest, tile_gid, s_al = align_rows(idx.reshape(-1), e, block_m)
-            sp.note(Sp=s_al)
-            out_al = _gmm_ffn(xs, dest, k, s_al, tile_gid, experts, x.dtype,
-                              block_m)
-            y = moe_topk_combine(out_al, dest, w, x.dtype)
-        y = y.to(x.dtype)
-    with profiling.span("moe.shared"):
-        y = y + dense_mlp(moe_params["shared_mlp"], xs)
-    return y.reshape(b, t, h)
+    route = plan_route(experts, e, k, s, decode=decode)
+    y = _routed_experts(
+        xs, idx, w, experts, e, route,
+        lambda out_al, dest: moe_topk_combine(out_al, dest, w, x.dtype))
+    return y.to(x.dtype).reshape(b, t, h)
 
 
 def _gmm_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
-             block_m: int = 512, stacked: bool = False):
-    """Top-1 expert MLP via the grouped matmuls (K3 / K1) over a
-    group-aligned buffer, or, for decode tiles (block_m <= 64) on the
-    whole-stack path with int4h experts, the fused decode kernel K2
-    (unless MEDPLIB_DECODE_FUSED=0, which keeps the three grouped calls),
-    in A8 unless MEDPLIB_DECODE_A8=0 (the JAX caller's variables and
-    defaults)."""
-    from medplib_tpu_torch.ops.cuda.gmm import align_rows
-    from medplib_tpu_torch.ops.cuda.moe_decode import (
-        fused_decode_eligible, moe_ffn_decode_int4h)
-
-    e = logits.shape[-1]
+             route: Route):
+    """Top-1 expert MLP on a "gmm" or "fused_decode" route
+    (`_routed_experts`): the grouped matmuls (K3 / K1) over a
+    group-aligned buffer, or K2."""
     idx, gate_s, aux = _route_top1(logits)
-    with profiling.span("moe.experts", S=xs.shape[0]) as sp:
-        if stacked and block_m <= 64 and fused_decode_eligible(experts, e) \
-                and os.environ.get("MEDPLIB_DECODE_FUSED", "1") == "1":
-            # A8 unless MEDPLIB_DECODE_A8=0, as the JAX caller reads it
-            y = moe_ffn_decode_int4h(
-                xs, experts, idx.to(torch.int32), gate_s, e,
-                int8_x=os.environ.get("MEDPLIB_DECODE_A8", "1") == "1")
-            return y.to(dtype), aux
-        dest, tile_gid, s_al = align_rows(idx, e, block_m)
-        sp.note(Sp=s_al)
-        out_al = _gmm_ffn(xs, dest, 1, s_al, tile_gid, experts, dtype,
-                          block_m, stacked)
+
+    def combine(out_al, dest):
         # gate rounded to out_al's dtype, product unrounded (as compiled)
-        y = (out_al[dest].float()
-             * gate_s[:, None].to(out_al.dtype).float()).to(dtype)
-        return y, aux
+        return (out_al[dest].float()
+                * gate_s[:, None].to(out_al.dtype).float()).to(dtype)
+
+    y = _routed_experts(xs, idx, gate_s, experts, logits.shape[-1], route,
+                        combine)
+    return y.to(dtype), aux
 
 
 def _gmm_moe_ep(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
-                num_experts: int, ep: int, gid_offset: int = 0,
-                block_m: int = 512):
+                num_experts: int, ep: int, route: Route):
     """Expert-parallel grouped-matmul dispatch, top-1 (JAX _gmm_moe_ep).
 
     The rank all-gathers the tokens, expert ids and gates of its expert
     group (the ranks that share its data index), routes them to ITS
     experts (remote tokens go to the dummy group e_loc with a zero gate,
     computed against expert e_loc - 1's weights and dropped by the gate),
-    runs one _gmm_ffn over its [E/ep, ...] expert block (K1 for int4h(G=2)
-    experts, K3 for int8, three calls at any tile size: never the fused
-    decode kernel), and reduce-scatters the rows back to their home ranks,
-    where each token holds one nonzero contribution. `experts` are the
-    layer's rank-local nodes (_expert_view); gid_offset addresses them
-    inside a larger stack (0 for one layer's block). The aux loss comes
-    from the global logits."""
-    from medplib_tpu_torch.ops.cuda.gmm import align_rows
-
+    runs one _gmm_ffn over its [E/ep, ...] expert block at route.block_m
+    (K1 for int4h(G=2) experts, K3 for int8, three calls at any tile
+    size: never the fused decode kernel), and reduce-scatters the rows
+    back to their home ranks, where each token holds one nonzero
+    contribution. `experts` are the layer's rank-local nodes
+    (_expert_view). The aux loss comes from the global logits."""
     mesh = current_mesh()
     e_loc = num_experts // ep
     idx, gate_s, aux = _route_top1(logits)
@@ -333,10 +440,10 @@ def _gmm_moe_ep(xs: torch.Tensor, logits: torch.Tensor, experts, dtype,
     lidx = torch.where(sel, idxg - ep_idx * e_loc,
                        torch.full_like(idxg, e_loc))
     gm = torch.where(sel, gateg, torch.zeros_like(gateg))
-    dest, tile_gid, s_al = align_rows(lidx, e_loc + 1, block_m)
-    tile_gid = tile_gid.clamp(max=e_loc - 1) + int(gid_offset)
-    out_al = _gmm_ffn(xg, dest, 1, s_al, tile_gid, experts, dtype, block_m,
-                      stacked=True)
+    dest, tile_gid, s_al = align_rows(lidx, e_loc + 1, route.block_m)
+    tile_gid = tile_gid.clamp(max=e_loc - 1)
+    out_al = _gmm_ffn(xg, dest, 1, s_al, tile_gid, experts, route.kinds,
+                      dtype, route.block_m)
     yg = (out_al[dest].float()
           * gm[:, None].to(out_al.dtype).float()).to(dtype)
     return mesh.reduce_scatter(yg, AXIS_EXPERT), aux
@@ -350,7 +457,6 @@ def _ragged_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype):
     kernel port: one torch.matmul per expert over its group of the sorted
     rows, against the expert's weights dequantized to the activation
     dtype. Exactly the capacity dispatch when capacity >= S."""
-    from medplib_tpu_torch.train.lora import dequant_kernel
     s, h = xs.shape
     e = logits.shape[-1]
     idx, gate_s, aux = _route_top1(logits)
@@ -365,45 +471,32 @@ def _ragged_moe(xs: torch.Tensor, logits: torch.Tensor, experts, dtype):
 
     h1 = rag(experts["gate_proj"], xs_sorted)
     h2 = rag(experts["up_proj"], xs_sorted)
-    out = rag(experts["down_proj"], _silu(h1) * h2)
+    out = rag(experts["down_proj"], silu(h1) * h2)
     y_sorted = out * gate_s[order][:, None].to(out.dtype)
     y = xs.new_zeros((s, h), dtype=dtype)
     y[order] = y_sorted.to(dtype)
     return y, aux
 
 
-def _ffn_specs(experts, dtype, stacked: bool = False):
-    """The grouped SwiGLU's plan per the expert layout (JAX ops/moe.py:
-    _gmm_ffn): {name: (kind, weight, scale)} for gate / up / down, kind
-    "int8" (K3 with the per-channel scale at its epilogue), "int4h" (G=2:
-    K1) or "dense" (float, finer int4h: dequantized to a one-layer `dtype`
-    copy through K3's float mode; not on the whole-stack path); and
-    whether the inputs are row-quantized (W8A8 / W4A8: under
-    dynamic_act_quant, and only when no node is dense)."""
-    from medplib_tpu_torch.train.lora import dequant_kernel
-    from medplib_tpu_torch.utils.quantize import act_quant_enabled
+def _ffn_specs(experts, kinds, dtype):
+    """The grouped SwiGLU's plan (JAX ops/moe.py:_gmm_ffn): {name: (kind,
+    weight, scale)} for gate / up / down of `kinds` (`_weight_kind`), a
+    "dense" weight dequantized to a one-layer `dtype` copy; and whether
+    the inputs are row-quantized (W8A8 / W4A8: under dynamic_act_quant,
+    and only when no node is dense)."""
+    def spec(node, kind):
+        if kind == "dense":
+            return kind, dequant_kernel(node, dtype), None
+        return kind, node["kernel"], node[
+            "scale" if kind == "int8" else "scale4h"].float()
 
-    def wspec(node):
-        k = node["kernel"]
-        if "scale" in node and k.dtype == torch.int8:
-            return "int8", k, node["scale"].float()
-        if ("scale4h" in node and node["scale4h"].shape[-3] == 2
-                and k.shape[-2] % 128 == 0):
-            return "int4h", k, node["scale4h"].float()
-        if stacked:
-            raise ValueError("whole-stack gmm requires int8 / int4h(G=2) "
-                             "experts")
-        return "dense", dequant_kernel(node, dtype), None
-
-    specs = {n: wspec(experts[n]) for n in ("gate_proj", "up_proj",
-                                            "down_proj")}
-    return specs, act_quant_enabled() and all(
-        spec[0] != "dense" for spec in specs.values())
+    specs = {n: spec(experts[n], kind) for n, kind in zip(_FFN, kinds)}
+    return specs, act_quant_enabled() and "dense" not in kinds
 
 
 def _gmm_ffn(xs: torch.Tensor, dest: torch.Tensor, k: int, sp: int,
-             tile_gid: torch.Tensor, experts, dtype, block_m: int,
-             stacked: bool = False) -> torch.Tensor:
+             tile_gid: torch.Tensor, experts, kinds, dtype,
+             block_m: int) -> torch.Tensor:
     """SwiGLU of routed rows over a group-aligned buffer of sp rows: each
     token's row of xs [S, H] at its k aligned rows dest [S·k] (token-
     major; gap rows zero), then three grouped matmuls (gate, up, down) per
@@ -411,10 +504,7 @@ def _gmm_ffn(xs: torch.Tensor, dest: torch.Tensor, k: int, sp: int,
     rows (`moe_dispatch_quant`), which gate and up both read, and the
     activation goes to down as int8 rows and scales from one pass
     (`moe_swiglu_quant`). -> out_al [sp, H]."""
-    from medplib_tpu_torch.ops.cuda.gmm import gmm, gmm_int4h
-    from medplib_tpu_torch.ops.cuda.moe_prefill import (moe_dispatch_quant,
-                                                        moe_swiglu_quant)
-    specs, actq = _ffn_specs(experts, dtype, stacked)
+    specs, actq = _ffn_specs(experts, kinds, dtype)
 
     def mm(xv, spec):
         kind, w, sc = spec
@@ -439,7 +529,7 @@ def _gmm_ffn(xs: torch.Tensor, dest: torch.Tensor, k: int, sp: int,
     h2 = mm(x_in, specs["up_proj"])
     # under act-quant the compiled reference keeps silu(h1) * h2 unrounded
     # (f32) where it feeds the activation quant; bf16 x bf16 is exact in f32
-    act = moe_swiglu_quant(h1, h2) if actq else _silu(h1) * h2
+    act = moe_swiglu_quant(h1, h2) if actq else silu(h1) * h2
     return mm(act, specs["down_proj"])
 
 
@@ -447,32 +537,15 @@ def _expert_mm(node, xin: torch.Tensor) -> torch.Tensor:
     """einsum('ech,ehm->ecm') for the sort dispatch: int4h experts through
     the nibble-plane products, int8 / float through a dequantized copy."""
     if "scale4h" in node and node["kernel"].dim() == 3:
-        from medplib_tpu_torch.utils.quantize import int4h_expert_einsum
         return int4h_expert_einsum(xin, node["kernel"], node["scale4h"])
-    from medplib_tpu_torch.train.lora import dequant_kernel
     return torch.bmm(xin, dequant_kernel(node, xin.dtype))
-
-
-def _apply_residual(moe_params, xs: torch.Tensor, y: torch.Tensor,
-                    dtype) -> torch.Tensor:
-    """Residual-MoE (deepspeed MoE(use_residual=True)): a dense SwiGLU MLP
-    beside the experts, the two mixed by a learned 2-way softmax of the
-    token. The coefficient is taken in f32 (f32 kernel, f32 bias, f32
-    softmax), then cast to `dtype`; y·c0 + r·c1 is formed in `dtype`."""
-    from medplib_tpu_torch.models.llama import dense_mlp
-    from medplib_tpu_torch.train.lora import dequant_kernel
-    r_out = dense_mlp(moe_params["residual_mlp"], xs)   # TP-aware
-    ck = moe_params["coefficient"]
-    coef = xs.float() @ dequant_kernel(ck, torch.float32).float()
-    coef = torch.softmax(coef + ck["bias"].float(), dim=-1).to(dtype)
-    return y.to(dtype) * coef[:, 0:1] + r_out.to(dtype) * coef[:, 1:2]
 
 
 def _expert_ffn(ek, expert_in: torch.Tensor) -> torch.Tensor:
     """SwiGLU over [E, C, H] expert buffers."""
     h1 = _expert_mm(ek["gate_proj"], expert_in)
     h2 = _expert_mm(ek["up_proj"], expert_in)
-    return _expert_mm(ek["down_proj"], _silu(h1) * h2)
+    return _expert_mm(ek["down_proj"], silu(h1) * h2)
 
 
 def _expert_view(experts, e: int, ep: int):
@@ -588,18 +661,18 @@ def _einsum_moe(mesh, xs, logits, experts, k: int, capacity: int, e: int,
 
 def moe_mlp(moe_params, x: torch.Tensor, cfg: MoeConfig, train: bool = True,
             ep_shard: bool = False, dispatch_mode: str = "auto",
-            block_m: int = 512, stacked: bool = False):
+            decode: bool = False, all_moe: bool = False):
     """SwiGLU MoE MLP of one layer.
 
     moe_params: {"router": {"kernel": [H, E]}, "experts": {gate_proj|up_proj:
-    {"kernel": [E, H, M] (or int4h [E, H/2, M] + scale4h)}, down_proj: ...},
-    optionally "residual_mlp" (a dense MLP node) and "coefficient"
-    ({"kernel": [H, 2], "bias": [2]})}. x [B, T, H] -> ([B, T, H],
-    aux_loss). dispatch_mode: "sort", "einsum", "gmm", "ragged" or "auto"
-    (module docstring). `stacked` marks the whole-stack eligibility of
-    models/moe_llama (it enables the fused decode kernel). ep_shard: run
-    the experts expert-parallel over the ambient mesh's expert axis (with
-    dispatch_mode="gmm": _gmm_moe_ep)."""
+    {"kernel": [E, H, M] (or int4h [E, H/2, M] + scale4h)}, down_proj: ...}}
+    (a Residual-MoE layer's dense copy is mixed in by the caller,
+    models/moe_llama.residual_mix). x [B, T, H] -> ([B, T, H], aux_loss).
+    dispatch_mode: "sort", "einsum", "gmm", "ragged" or "auto" (module
+    docstring); with decode (one decode step) and all_moe (the caller's
+    stack is MoE in every layer) the layer's route is `plan_route`'s.
+    ep_shard: run the experts expert-parallel over the ambient mesh's
+    expert axis (on the grouped route: _gmm_moe_ep)."""
     b, t, h = x.shape
     s = b * t
     xs = x.reshape(s, h)
@@ -610,30 +683,22 @@ def moe_mlp(moe_params, x: torch.Tensor, cfg: MoeConfig, train: bool = True,
     cf = cfg.capacity_factor if train else cfg.eval_capacity_factor
     capacity = capacity_for(s_glob, e, cf, cfg.min_capacity)
     logits = xs.float() @ moe_params["router"]["kernel"].float()
-
-    if dispatch_mode == "auto":
-        zero_drop = (not train) and cfg.top_k == 1 and capacity >= s_glob \
-            and not ep_shard
-        dispatch_mode = "gmm" if zero_drop and s_glob >= 1024 else "sort"
+    route = plan_route(moe_params["experts"], e, cfg.top_k, s_glob,
+                       decode=decode, train=train, capacity=capacity,
+                       all_moe=all_moe, ep_shard=ep_shard, ep=ep,
+                       mode=dispatch_mode)
     # ragged contracts every expert on the rank's own rows
     experts = _expert_view(moe_params["experts"], e,
-                           1 if dispatch_mode == "ragged" else ep)
+                           1 if route.dispatch == "ragged" else ep)
 
-    if dispatch_mode == "gmm" and ep > 1:
-        y, aux = _gmm_moe_ep(xs, logits, experts, x.dtype, e, ep,
-                             block_m=block_m)
-    elif dispatch_mode == "gmm":
-        y, aux = _gmm_moe(xs, logits, experts, x.dtype,
-                          block_m=block_m, stacked=stacked)
-    elif dispatch_mode == "ragged":
+    if route.dispatch == "gmm_ep":
+        y, aux = _gmm_moe_ep(xs, logits, experts, x.dtype, e, ep, route)
+    elif route.dispatch in ("gmm", "fused_decode"):
+        y, aux = _gmm_moe(xs, logits, experts, x.dtype, route)
+    elif route.dispatch == "ragged":
         y, aux = _ragged_moe(xs, logits, experts, x.dtype)
-    elif dispatch_mode in ("sort", "einsum"):
-        fn = _sort_moe if dispatch_mode == "sort" else _einsum_moe
+    else:
+        fn = _sort_moe if route.dispatch == "sort" else _einsum_moe
         y, aux = fn(mesh or local_mesh(), xs, logits, experts, cfg.top_k,
                     capacity, e, ep, x.dtype)
-    else:
-        raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
-
-    if "residual_mlp" in moe_params:
-        y = _apply_residual(moe_params, xs, y, x.dtype)
     return y.reshape(b, t, h), aux

@@ -25,10 +25,12 @@ test process, on the same params carried over through numpy
   (--coordinator, --mesh-data 2) against one process; dryrun_multichip(4).
 """
 
+import contextlib
 import dataclasses
 import multiprocessing
 import os
 import queue
+from unittest import mock
 
 import jax
 import numpy as np
@@ -39,6 +41,7 @@ import _torch_dist_jobs as jobs
 import medplib_tpu.config as jc
 from medplib_tpu.models import medplib as jm
 from medplib_tpu_torch.models import medplib as tm
+from medplib_tpu_torch.ops import moe as tmoe
 from medplib_tpu_torch.parallel import dryrun
 from medplib_tpu_torch.parallel.dryrun import RankPool
 from medplib_tpu_torch.utils import convert
@@ -78,18 +81,17 @@ def int4h_model():
 
 def _one_process_generate(cfg, host, bnp, actq, fused=True):
     """The port's generate in this process; fused=False keeps the three
-    grouped K1 calls at decode (MEDPLIB_DECODE_FUSED=0), the expert-
-    parallel decode's numerics (K2 quantizes its intermediate per row and
-    block, K1's three calls per row)."""
-    os.environ["MEDPLIB_DECODE_FUSED"] = "1" if fused else "0"
-    try:
-        with dynamic_act_quant(actq):
-            r = tm.generate(convert.tree_from_numpy(host, "cpu"), cfg,
-                            jobs.batch_from_numpy(bnp),
-                            max_new_tokens=MAX_NEW)
-    finally:
-        del os.environ["MEDPLIB_DECODE_FUSED"]
-    return r
+    grouped K1 calls at decode (K2's eligibility patched off where
+    ops/moe.plan_route reads it), the expert-parallel decode's numerics
+    (K2 quantizes its intermediate per row and block, K1's three calls
+    per row)."""
+    off = mock.patch.object(tmoe, "fused_decode_eligible",
+                            lambda *a: False)
+    with contextlib.nullcontext() if fused else off, \
+            dynamic_act_quant(actq):
+        return tm.generate(convert.tree_from_numpy(host, "cpu"), cfg,
+                           jobs.batch_from_numpy(bnp),
+                           max_new_tokens=MAX_NEW)
 
 
 def _check_against_jax(got, want):
@@ -136,9 +138,10 @@ def test_ep_stream_matches_ep_generate(pool2, int4h_model):
 
 
 def test_ep_shard_without_expert_axis_takes_sort(pool2, int4h_model):
-    """ep_shard on a mesh with no expert axis: stack_experts_for_gmm is
-    not eligible (JAX returns None), so prefill and decode take the sort
-    dispatch: no K1, no K2; tokens as one process."""
+    """ep_shard on a mesh with no expert axis: plan_route keeps the
+    whole-stack path off (JAX's stack_experts_for_gmm returns None), so
+    prefill and decode take the sort dispatch: no K1, no K2; tokens as
+    one process."""
     cfg, host, bnp, want = int4h_model
     out = pool2.run(jobs.generate_job, (2, 1, 1), host, cfg, bnp, MAX_NEW,
                     False, True)
@@ -259,7 +262,6 @@ def test_capacity_dispatch_matches_one_process(pool2, mode, k, shape):
     factor 1: tokens drop) return one process's output for the global
     batch, its aux loss and its dropped entries; with ep_shard each rank
     runs its own expert of 2."""
-    from medplib_tpu_torch.ops import moe as tmoe
     rng = np.random.default_rng(10 + k)
     e, h, m = 2, 32, 64
     moe = {"router": {"kernel": rng.normal(size=(h, e)).astype(np.float32)},

@@ -219,9 +219,10 @@ def test_llm_prefill_and_cached_decode_match_reference():
 
 
 def test_topk_moe_with_shared_experts_matches_reference():
-    """ops/moe.topk_moe (float experts: the grouped path at prefill and
-    at decode) against the reference's MoE block; the route span carries
-    k and E."""
+    """deepseek_v2.moe_layer, ops/moe.topk_moe's routed experts (float
+    experts: the grouped path at prefill and at decode) plus the shared
+    experts, against the reference's MoE block; the route span carries k
+    and E."""
     p = _params()
     gen = torch.Generator().manual_seed(6)
     y = torch.randn((2, 13, CFG.hidden_size), generator=gen)
@@ -229,8 +230,8 @@ def test_topk_moe_with_shared_experts_matches_reference():
     moe_p = llama.layer_params(p["moe"], layer - 1)
     m = _model_dict()
     with profiling.recording() as rec:
-        got = M.topk_moe(moe_p, y, MOE)
-        dec = M.topk_moe(moe_p, y[:, :1], MOE, decode=True, block_m=32)
+        got = deepseek_v2.moe_layer(moe_p, y, MOE)
+        dec = deepseek_v2.moe_layer(moe_p, y[:, :1], MOE, decode=True)
     want = ref._moe(TreeWeights(p), m, y.reshape(-1, CFG.hidden_size), layer,
                     MOE.num_experts, MOE.top_k, MOE.moe_intermediate_size,
                     m["serving"], lambda w, axis: w)

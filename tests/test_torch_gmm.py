@@ -195,8 +195,9 @@ def _experts(rng, bits):
 
 # (experts, act quant, stacked): int8 weight-only and W8A8, per layer and
 # on the whole-stack path (JAX: the [L*E] stack addressed with a gid
-# offset; the port: the layer's [E] view); float experts per layer (the
-# "dense" kind, act quant off by the JAX rule since a node is dense)
+# offset; the port: the layer's [E] view, routed by plan_route for an
+# all-MoE stack); float experts per layer (the "dense" kind, act quant
+# off by the JAX rule since a node is dense)
 @pytest.mark.parametrize("bits,actq,stacked", [
     (8, False, False), (8, True, False), (8, False, True), (8, True, True),
     (16, True, False)])
@@ -222,19 +223,33 @@ def test_moe_mlp_gmm_int8_and_float_experts(bits, actq, stacked):
             m, v, MCFG, train=False, dispatch_mode="gmm"))(jmp, jnp.asarray(x))
     tmp = {"router": {"kernel": _t(router[layer])},
            "experts": convert.tree_from_numpy(view, device="cpu")}
+    if stacked:
+        assert tmoe.plan_route(tmp["experts"], E, 1, x.shape[0] * x.shape[1],
+                               decode=False, capacity=2 * 520,
+                               all_moe=True) == ("gmm", 512, ("int8",) * 3)
     with tq.dynamic_act_quant(actq):
         got, aux_t = tmoe.moe_mlp(tmp, _t(x), tc.MoeConfig(
             enable=True, num_experts=E, top_k=1), train=False,
-            dispatch_mode="gmm", stacked=stacked)
+            dispatch_mode="auto" if stacked else "gmm", all_moe=stacked)
     np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-5)
     tol = 1e-3 if (actq and bits == 8) else 1e-4
     assert _rel(got.numpy(), want) < tol
 
 
 def test_whole_stack_gmm_rejects_dense_experts():
+    """Float experts of an all-MoE stack never take the whole-stack route:
+    a decode step sorts (no decode tile, no K2) and an expert-parallel
+    prefill sorts; a prefill without ep_shard takes the per-layer grouped
+    matmuls on the "dense" kind (a dequantized copy, K3's float mode)."""
     rng = np.random.default_rng(0)
     ex, _ = _experts(rng, 16)
     view = convert.tree_from_numpy(
         jax.tree_util.tree_map(lambda a: a[0], ex), device="cpu")
-    with pytest.raises(ValueError):
-        tmoe._ffn_specs(view, torch.float32, stacked=True)
+    dense = ("dense",) * 3
+    assert tmoe.plan_route(view, E, 1, 16, decode=True, capacity=16,
+                           all_moe=True) == ("sort", None, dense)
+    assert tmoe.plan_route(view, E, 1, 2048, decode=False, capacity=2048,
+                           all_moe=True, ep_shard=True,
+                           ep=2) == ("sort", None, dense)
+    assert tmoe.plan_route(view, E, 1, 2048, decode=False, capacity=2048,
+                           all_moe=True) == ("gmm", 512, dense)

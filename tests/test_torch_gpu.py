@@ -793,7 +793,7 @@ def test_span_summary_puts_moe_kernels_under_moe_experts(dev):
     # one DeepSeek-V2 top-4 of 8 MoE layer (int4h experts) beside it, for
     # the top-k combine
     from medplib_tpu_torch.config import DeepseekMoeConfig
-    from medplib_tpu_torch.ops import moe as M
+    from medplib_tpu_torch.models import deepseek_v2
     from medplib_tpu_torch.ops.cuda import moe_prefill as P
     gen = torch.Generator(device=dev).manual_seed(1)
     dcfg = DeepseekMoeConfig(enable=True, num_experts=8, top_k=4,
@@ -816,14 +816,14 @@ def test_span_summary_puts_moe_kernels_under_moe_experts(dev):
               P.moe_topk_combine)
     with dynamic_act_quant(True):
         medplib.generate(p, cfg, batch, max_new_tokens=MAX_NEW)
-        M.topk_moe(layer, xd, dcfg)
+        deepseek_v2.moe_layer(layer, xd, dcfg)
         torch.cuda.synchronize()
         n0 = [f.launches for f in passes]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof, \
                 profiling.recording() as rec:
             medplib.generate(p, cfg, batch, max_new_tokens=MAX_NEW)
-            M.topk_moe(layer, xd, dcfg)
+            deepseek_v2.moe_layer(layer, xd, dcfg)
             torch.cuda.synchronize()
     # every grouped SwiGLU (K1 three times): dispatch and SwiGLU-quantize
     # once; the top-k combine only in the top-k layer
@@ -1183,7 +1183,7 @@ def test_topk_moe_prefill_takes_no_host_sync(dev):
     aligned layout (no CUDA bincount), the three int8 passes and K1 never
     wait on the host. It launches K1 three times and each pass once."""
     from medplib_tpu_torch.config import DeepseekMoeConfig
-    from medplib_tpu_torch.ops import moe as M
+    from medplib_tpu_torch.models import deepseek_v2
     from medplib_tpu_torch.ops.cuda import gmm as G
     from medplib_tpu_torch.ops.cuda import moe_prefill as P
     from medplib_tpu_torch.utils.quantize import (dynamic_act_quant,
@@ -1210,12 +1210,12 @@ def test_topk_moe_prefill_takes_no_host_sync(dev):
     wrappers = (G.gmm_int4h, P.moe_dispatch_quant, P.moe_swiglu_quant,
                 P.moe_topk_combine)
     with dynamic_act_quant(True):
-        M.topk_moe(params, x, cfg)          # builds, allocates, warms up
+        deepseek_v2.moe_layer(params, x, cfg)          # builds, allocates, warms up
         torch.cuda.synchronize()
         n0 = [f.launches for f in wrappers]
         torch.cuda.set_sync_debug_mode("error")
         try:
-            y = M.topk_moe(params, x, cfg)
+            y = deepseek_v2.moe_layer(params, x, cfg)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()

@@ -29,9 +29,9 @@ import numpy as np
 import pytest
 import torch
 
+from medplib_tpu_torch.ops.activations import silu
 from medplib_tpu_torch.ops.cuda import gmm as tg
 from medplib_tpu_torch.ops.cuda import moe_decode as td
-from medplib_tpu_torch.ops.moe import _silu
 from test_torch_s8_int4h_fragments import _packed, pairs_offset, pairs_tile
 
 torch.set_num_threads(1)
@@ -83,7 +83,7 @@ def split_model(x, ex, idx, gate, e_n, bn, order="ejn"):
             hi = _int_mm(xq[:, h // 2:], w[h // 2:])
             return (lo * s[0] + hi * s[1]) * xs
         mask = torch.where(idx == e, gate, torch.zeros_like(gate))
-        act = _silu(gu(gp)) * gu(up) * mask[:, None]
+        act = silu(gu(gp)) * gu(up) * mask[:, None]
         wd = tg.unpack_pairs(dp["kernel"][e])
         for c in range(2 * n_j):
             q, a_s = tg.quantize_rows(act[:, c * bn:(c + 1) * bn])

@@ -6,6 +6,7 @@ Unless a test says otherwise the tolerance is 1e-5 (relative and
 absolute): the same math in float32, summed in another order."""
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -549,18 +550,138 @@ def test_moe_mlp_dispatch(mode, actq):
         assert rel < 1e-3, rel
 
 
-def test_moe_gates_match_reference():
-    """The auto dispatch and whole-stack eligibility gates."""
+ROUTE_MOE = jc.MoeConfig(enable=True, num_experts=2, top_k=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _route_experts(kind):
+    """(the JAX experts, one layer's JAX MoE params, that layer's port
+    experts): a 2-layer MoE LLM's [L, E, ...] stack of 2 experts at H =
+    1024 (shapes the whole-stack gate admits in both kinds: N % 512, an
+    int8 K block of 1024), padded to M = 1024 and quantized by
+    quantize_flagship_moe ("int4h", "int8"), or
+    one layer of 8 DeepSeek-like int4h(G=2) experts at H = M = 256
+    ("dsv2", no layer params)."""
+    if kind == "dsv2":
+        rng = np.random.default_rng(3)
+        ex = {n: {"kernel": jnp.asarray(rng.normal(size=(8, 256, 256))
+                                        .astype(np.float32) * 0.06)}
+              for n in ("gate_proj", "up_proj", "down_proj")}
+        ex = jq.quantize_tree(ex, skip=(), bits=4, int4_groups=2)
+        return ex, None, bridge(ex)
+    from medplib_tpu.models import moe_llama
+    llm = jc.LlamaConfig(vocab_size=128, hidden_size=1024,
+                         intermediate_size=200, num_layers=2, num_heads=16,
+                         num_kv_heads=4, head_dim=64)
+    p = moe_llama.init_moe_llama(jax.random.PRNGKey(1), llm, ROUTE_MOE,
+                                 jnp.float32, 128)
+    p = jq.quantize_flagship_moe({"llm": p}, 4 if kind == "int4h" else 8,
+                                 8)["llm"]
+    lp = jax.tree_util.tree_map(lambda a: a[0], p["layers"]["moe"])
+    return p["layers"]["moe"]["experts"], lp, bridge(lp["experts"])
+
+
+def _jax_route(ex, lp, mcfg, s, decode, train, all_moe, ep_shard, ep,
+               monkeypatch):
+    """The route the JAX package takes for one layer call at global S = s:
+    the whole-stack gate of moe_llama.forward / forward_decode
+    (stack_experts_for_gmm over the stack, at decode only for int4h
+    trees), on it _gmm_moe's decode tile (gmm_block_m 32 <= 64) with
+    fused_decode_eligible; off it moe_mlp's auto branch, observed on the
+    layer's params."""
     from medplib_tpu.models import moe_llama as jml
-    from medplib_tpu_torch.models import moe_llama as tml
-    _, mcfg, p = _tiny_moe_llm()
-    p = jq.quantize_flagship_moe({"llm": p}, 4, 8)["llm"]
-    ex = p["layers"]["moe"]["experts"]
-    tex = bridge(ex)
-    for s, decode in ((2000, False), (600, False), (16, True), (3, True)):
-        want = jml.stack_experts_for_gmm(ex, mcfg, s, False, False,
-                                         decode=decode) is not None
-        assert tml.stack_experts_for_gmm(tex, port_cfg(mcfg), s, False,
-                                         decode=decode) == want
-    assert tmoe.capacity_for(623, 2, 2.0, 0) == jmoe.capacity_for(623, 2,
-                                                                  2.0, 0)
+    from medplib_tpu.ops.pallas import moe_decode as jd
+    g = ex["gate_proj"]
+    int4h = "scale4h" in g and g["scale4h"].shape[-3] == 2
+    if all_moe and (int4h or not decode):
+        st = jml.stack_experts_for_gmm(ex, mcfg, s, train, ep_shard,
+                                       decode=decode, ep=ep, row_shards=ep)
+        if st is not None:
+            bm = 32 if decode else 512
+            if ep_shard and ep > 1:
+                return "gmm_ep", bm
+            if bm <= 64 and jd.fused_decode_eligible(st, mcfg.num_experts):
+                return "fused_decode", bm
+            return "gmm", bm
+
+    class Took(Exception):
+        pass
+
+    def took(name):
+        def f(*a, **k):
+            raise Took(name)
+        return f
+
+    monkeypatch.setattr(jmoe, "_gmm_moe", took("gmm"))
+    monkeypatch.setattr(jmoe, "sort_dispatch", took("sort"))
+    with pytest.raises(Took) as info:
+        jmoe.moe_mlp(lp, jnp.zeros((1, s, 1024)), mcfg, train=train,
+                     ep_shard=ep_shard)
+    name = info.value.args[0]
+    return name, 512 if name == "gmm" else None
+
+
+# id: (experts, S, decode, top_k, train, all_moe, ep_shard, ep) -> the
+# route's (dispatch, tile)
+ROUTES = {
+    "int4h-prefill-600": (("int4h", 600, False, 1, False, True, False, 1),
+                          ("sort", None)),
+    "int4h-prefill-2000": (("int4h", 2000, False, 1, False, True, False, 1),
+                           ("gmm", 512)),
+    "int4h-decode-16": (("int4h", 16, True, 1, False, True, False, 1),
+                        ("fused_decode", 32)),
+    "int4h-decode-2048": (("int4h", 2048, True, 1, False, True, False, 1),
+                          ("fused_decode", 32)),
+    "int8-prefill-2000": (("int8", 2000, False, 1, False, True, False, 1),
+                          ("gmm", 512)),
+    "int8-decode-16": (("int8", 16, True, 1, False, True, False, 1),
+                       ("sort", None)),
+    "top2-prefill-2000": (("int4h", 2000, False, 2, False, True, False, 1),
+                          ("sort", None)),
+    "train-prefill-2000": (("int4h", 2000, False, 1, True, True, False, 1),
+                           ("sort", None)),
+    "mixed-prefill-2000": (("int4h", 2000, False, 1, False, False, False,
+                            1), ("gmm", 512)),
+    "mixed-decode-16": (("int4h", 16, True, 1, False, False, False, 1),
+                        ("sort", None)),
+    "ep-prefill-2000": (("int4h", 2000, False, 1, False, True, True, 2),
+                        ("gmm_ep", 512)),
+    "ep-decode-16": (("int4h", 16, True, 1, False, True, True, 2),
+                     ("gmm_ep", 32)),
+    "ep-no-axis-2000": (("int4h", 2000, False, 1, False, True, True, 1),
+                        ("sort", None)),
+    "dsv2-top6-prefill-40": (("dsv2", 40, False, 6, False, True, False, 1),
+                             ("gmm", 512)),
+    "dsv2-top6-decode-4": (("dsv2", 4, True, 6, False, True, False, 1),
+                           ("fused_decode", 32)),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_moe_gates_match_reference(case, monkeypatch):
+    """ops/moe.plan_route against the JAX package's gates, one layer call
+    a case: the whole-stack gate (moe_llama.stack_experts_for_gmm and
+    forward_decode's int4h test), moe_mlp's auto branch and the block_m
+    <= 64 decode gate with fused_decode_eligible. DeepSeek's top-k layer
+    has no JAX counterpart: its decode tile is held to the reference's
+    fused_decode_eligible, and its prefill takes the grouped matmuls at
+    any S."""
+    from medplib_tpu.ops.pallas import moe_decode as jd
+    (kind, s, decode, k, train, all_moe, ep_shard, ep), want = ROUTES[case]
+    ex, lp, tex = _route_experts(kind)
+    if kind == "dsv2":
+        got = tmoe.plan_route(tex, 8, k, s, decode=decode)
+        ref = (("fused_decode" if jd.fused_decode_eligible(ex, 8) else "gmm",
+                32) if decode else ("gmm", 512))
+    else:
+        mcfg = dataclasses.replace(ROUTE_MOE, top_k=k)
+        cf = mcfg.capacity_factor if train else mcfg.eval_capacity_factor
+        cap = tmoe.capacity_for(s, 2, cf, mcfg.min_capacity)
+        assert cap == jmoe.capacity_for(s, 2, cf, mcfg.min_capacity)
+        got = tmoe.plan_route(tex, 2, k, s, decode=decode, train=train,
+                              capacity=cap, all_moe=all_moe,
+                              ep_shard=ep_shard, ep=ep)
+        ref = _jax_route(ex, lp, mcfg, s, decode, train, all_moe, ep_shard,
+                         ep, monkeypatch)
+    assert (got.dispatch, got.block_m) == ref == want
+    assert got.kinds == (("int8",) if kind == "int8" else ("int4h",)) * 3

@@ -1,7 +1,7 @@
 """The MoE prefill's int8 activation passes (ops/cuda/moe_prefill.py) on
 the CPU, where each wrapper runs its plain version: quantizing each token
 once and writing it to its k aligned rows gives the bits of quantizing
-the aligned buffer; the fused SwiGLU-quantize gives _silu then
+the aligned buffer; the fused SwiGLU-quantize gives silu then
 quantize_rows; the grouped SwiGLU through them gives the bits of the
 sequence they replace; the combine's fixed order stays within one bf16
 step of PyTorch's (plus the f32 summation bounds where products cancel).
@@ -13,6 +13,7 @@ import torch
 
 import chip_smoke as cs
 from medplib_tpu_torch.ops import moe as M
+from medplib_tpu_torch.ops.activations import silu
 from medplib_tpu_torch.ops.cuda import gmm as G
 from medplib_tpu_torch.ops.cuda import moe_prefill as P
 from medplib_tpu_torch.utils.quantize import dynamic_act_quant
@@ -68,10 +69,12 @@ def test_prefill_int8_passes(e, k, kind):
     # replace: x_al quantized for gate and for up, silu then the product in
     # f32, quantize_rows, down
     experts = _experts(gen, kind, e)
+    kinds = M.plan_route(experts, e, k, S, decode=False).kinds
+    assert kinds == (kind,) * 3
     with dynamic_act_quant(True):
-        assert M._ffn_specs(experts, torch.bfloat16)[1]
-        got = M._gmm_ffn(xs, dest, k, sp, tile_gid, experts, torch.bfloat16,
-                         BM)
+        assert M._ffn_specs(experts, kinds, torch.bfloat16)[1]
+        got = M._gmm_ffn(xs, dest, k, sp, tile_gid, experts, kinds,
+                         torch.bfloat16, BM)
 
     def mm(xin, name):
         xq_, xs_ = G.quantize_rows(xin)
@@ -83,12 +86,12 @@ def test_prefill_int8_passes(e, k, kind):
                      a_scale=xs_, block_m=BM)
 
     h1, h2 = mm(x_al, "gate_proj"), mm(x_al, "up_proj")
-    want = mm(M._silu(h1).float() * h2.float(), "down_proj")
+    want = mm(silu(h1).float() * h2.float(), "down_proj")
     assert torch.equal(got, want)
 
-    # SwiGLU-quantize: the fused plain version is _silu, then quantize_rows
+    # SwiGLU-quantize: the fused plain version is silu, then quantize_rows
     aq, asc = P.moe_swiglu_quant(h1, h2)
-    wq, ws = G.quantize_rows(M._silu(h1).float() * h2.float())
+    wq, ws = G.quantize_rows(silu(h1).float() * h2.float())
     assert torch.equal(aq, wq) and torch.equal(asc, ws)
     assert aq.dtype == torch.int8 and asc.shape == (sp, 1)
 

@@ -190,8 +190,9 @@ def test_einsum_dispatch_matches_jax_and_sort(k, cf, drops):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["sort", "einsum", "gmm"])
 def test_residual_moe_matches_jax(mode, dtype):
-    """Residual-MoE after each dispatch (gmm: the plain K3 against the
-    Pallas kernel in interpret mode, at 1040 rows). f32: 1e-5 (gmm 2e-5:
+    """Residual-MoE (moe_llama.residual_mix of moe_mlp's output) after
+    each dispatch (gmm: the plain K3 against the Pallas kernel in
+    interpret mode, at 1040 rows). f32: 1e-5 (gmm 2e-5:
     f32 sums of K = 32 and 64 in another order). bf16 experts, residual
     and inputs: the coefficient in f32 then cast, y·c0 + r·c1 in bf16;
     2e-2 abs on outputs of size ~1 (two bf16 steps: the compiled JAX keeps
@@ -208,8 +209,10 @@ def test_residual_moe_matches_jax(mode, dtype):
     xj = jnp.asarray(x).astype(jd)
     want, aux_j = jax.jit(lambda q, v: jmoe.moe_mlp(
         q, v, mcfg, train=False, dispatch_mode=mode))(p, xj)
-    got, aux_t = tmoe.moe_mlp(bridge(p), bridge(xj), port_cfg(mcfg),
-                              train=False, dispatch_mode=mode)
+    tp, tx = bridge(p), bridge(xj)
+    y, aux_t = tmoe.moe_mlp(tp, tx, port_cfg(mcfg), train=False,
+                            dispatch_mode=mode)
+    got = tml.residual_mix(tp, tx, y)
     assert got.dtype == getattr(torch, dtype)
     close(aux_t, aux_j, rtol=1e-5, atol=1e-6)
     if dtype == "float32":
@@ -247,8 +250,9 @@ def test_residual_moe_after_fused_decode():
         pp, cfg, mcfg, v, c))(q, jnp.asarray(e), cj)
     tq_ = bridge(q)
     tcfg, tmcfg = port_cfg(cfg), port_cfg(mcfg)
-    assert tml.stack_experts_for_gmm(tq_["layers"]["moe"]["experts"], tmcfg,
-                                     3, False, decode=True)
+    layer0 = tllama.layer_params(tq_["layers"]["moe"]["experts"], 0)
+    assert tmoe.plan_route(layer0, 2, 1, 3, decode=True, capacity=3,
+                           all_moe=True).dispatch == "fused_decode"
     tcache = tllama.KVCache.init(tcfg, 3, 8, torch.float32, device="cpu")
     _, tcache, _ = tml.forward(tq_, tcfg, tmcfg, _t(x), cache=tcache,
                                train=False)

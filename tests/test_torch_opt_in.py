@@ -1,9 +1,6 @@
-"""The opt-in modules of the port against the JAX package: the
-whole-stack W8A8 linears (ops/stacked.py, K3's plain version on the CPU
-against the Pallas gmm in interpret mode) and their MEDPLIB_STACK_ATTN /
-MEDPLIB_STACK_MLP hooks in llama.forward, the ragged MoE dispatch, the
-device preprocess and the native preprocessing library (the serving
-worker with device_preprocess=True: tests/test_torch_serve.py)."""
+"""The opt-in modules of the port against the JAX package: the ragged MoE
+dispatch, the device preprocess and the native preprocessing library (the
+serving worker with device_preprocess=True: tests/test_torch_serve.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -13,113 +10,17 @@ import torch
 
 import medplib_tpu.config as jc
 from medplib_tpu.data import preprocess as jpp
-from medplib_tpu.models import llama as jllama
 from medplib_tpu.ops import device_preprocess as jdev
 from medplib_tpu.ops import moe as jmoe
-from medplib_tpu.ops import stacked as jst
 from medplib_tpu.utils import quantize as jq
 from medplib_tpu_torch import native
 from medplib_tpu_torch.data import preprocess as tpp
-from medplib_tpu_torch.models import llama as tllama
 from medplib_tpu_torch.ops import device_preprocess as tdev
 from medplib_tpu_torch.ops import moe as tmoe
-from medplib_tpu_torch.ops import stacked as tst
 from medplib_tpu_torch.utils import convert
-from medplib_tpu_torch.utils.quantize import dynamic_act_quant
 from test_torch_slice import port_cfg
 
 torch.set_num_threads(1)
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-def _llama(layers=2, h=1024, m=1024):
-    cfg = jc.LlamaConfig(vocab_size=256, hidden_size=h, intermediate_size=m,
-                         num_layers=layers, num_heads=8, num_kv_heads=8,
-                         head_dim=h // 8, max_position_embeddings=1200)
-    p = jllama.init_llama(jax.random.PRNGKey(0), cfg)
-    p["embed_tokens"]["embedding"] = p["embed_tokens"]["embedding"] * 50.0
-    p = jq.quantize_tree(p, bits=8)
-    return cfg, p, jax.tree_util.tree_map(np.asarray, p)
-
-
-def test_stacked_linears_match_jax():
-    """stacked_w8a8_linear (q_proj transposed, o_proj normal) and
-    stacked_dense_mlp at 1040 rows (padded to 1536) bit-equal to JAX's on
-    the same stacks and rows."""
-    _, _, host = _llama()
-    rng = np.random.default_rng(0)
-    x = rng.normal(size=(1040, 1024)).astype(np.float32)
-    xb = jnp.asarray(x, jnp.bfloat16)
-    jat = jst.stack_attn_for_w8a8(jax.tree_util.tree_map(
-        jnp.asarray, host["layers"]), 1040)
-    tat = tst.stack_attn_for_w8a8(convert.tree_from_numpy(
-        host["layers"], "cpu"), 1040)
-    assert jat is not None and tat is not None
-    jxq, jxs, rows = jax.jit(jst.quantize_rows_padded)(xb)
-    txq, txs, rows_t = tst.quantize_rows_padded(
-        torch.from_numpy(x).to(torch.bfloat16))
-    assert rows == rows_t == 1040
-    np.testing.assert_array_equal(txq.numpy(), np.asarray(jxq))
-    for name in ("q_proj", "o_proj"):
-        want = jax.jit(lambda a, s, n=name: jst.stacked_w8a8_linear(
-            jat[n], a, s, 1, 1040))(jxq, jxs)
-        got = tst.stacked_w8a8_linear(tat[name], txq, txs, 1, 1040)
-        np.testing.assert_array_equal(got.float().numpy(),
-                                      np.asarray(want, np.float32))
-    jm = jst.stack_mlp_for_w8a8(jax.tree_util.tree_map(jnp.asarray,
-                                                       host["layers"]), 1040)
-    tmm = tst.stack_mlp_for_w8a8(convert.tree_from_numpy(host["layers"],
-                                                         "cpu"), 1040)
-    xs = xb.reshape(2, 520, 1024)
-    want = jax.jit(lambda v: jst.stacked_dense_mlp(jm, v, 0))(xs)
-    got = tst.stacked_dense_mlp(tmm, torch.from_numpy(x).to(
-        torch.bfloat16).reshape(2, 520, 1024), 0)
-    g, w = got.float().numpy(), np.asarray(want, np.float32)
-    # a last-bit difference in silu(g) * u can move one act-quant step
-    assert np.linalg.norm(g - w) / np.linalg.norm(w) < 1e-2
-    assert np.mean(g == w) > 0.9
-    # eligibility: under 1024 rows, or with LoRA, the default path runs
-    assert tst.stack_attn_for_w8a8(convert.tree_from_numpy(
-        host["layers"], "cpu"), 1000) is None
-
-
-@pytest.mark.parametrize("knob", ["MEDPLIB_STACK_ATTN", "MEDPLIB_STACK_MLP"])
-def test_stack_knobs_in_forward(knob, monkeypatch):
-    """llama.forward under dynamic_act_quant with the knob set: each layer
-    runs K3 (plain here) with its layer id, and the hidden state follows
-    JAX's forward with the same knob (norm-relative 2e-2: W8A8 act-quant
-    flips); with the knob unset the default W8A8 path runs (no K3)."""
-    from medplib_tpu_torch.ops.cuda import gmm as G
-    cfg, jp, host = _llama()
-    rng = np.random.default_rng(1)
-    emb = rng.normal(size=(2, 520, 1024)).astype(np.float32)
-    calls = []
-    real = G.gmm_plain
-
-    def counting(*a, **k):
-        calls.append(int(a[2][0]))
-        return real(*a, **k)
-
-    monkeypatch.setattr(G, "gmm_plain", counting)
-    tp = convert.tree_from_numpy(host, "cpu")
-    with dynamic_act_quant(True):
-        base, _, _ = tllama.forward(tp, port_cfg(cfg), torch.from_numpy(emb))
-    assert calls == []
-    monkeypatch.setenv(knob, "1")
-    with dynamic_act_quant(True):
-        got, _, _ = tllama.forward(tp, port_cfg(cfg), torch.from_numpy(emb))
-    per = 4 if knob == "MEDPLIB_STACK_ATTN" else 3
-    assert calls == [i for i in range(2) for _ in range(per)]
-    with jq.dynamic_act_quant(True):
-        want, _, _ = jax.jit(lambda p, e: jllama.forward(p, cfg, e))(
-            jp, jnp.asarray(emb))
-    w = np.asarray(want, np.float32)
-    for out in (got, base):
-        g = out.float().numpy()
-        assert np.linalg.norm(g - w) / np.linalg.norm(w) < 2e-2
 
 
 @pytest.mark.parametrize("bits", [None, 4])

@@ -11,8 +11,8 @@
   a_scale is ones; out_dtype; block_n, allow_pad and block_k, which tile
   and change no A8 result) and K2 `moe_ffn_decode_int4h` its defaults
   (bf16 x unless int8_x; block_n, the A8 act-quant block), held against
-  the Pallas kernels in interpret mode; the port's MoE caller takes K2's
-  mode from MEDPLIB_DECODE_A8 as the JAX caller does.
+  the Pallas kernels in interpret mode; the port's MoE caller takes K2 in
+  A8, the JAX caller's default (MEDPLIB_DECODE_A8 unset).
 """
 
 import inspect
@@ -346,10 +346,12 @@ def test_moe_decode_block_n_matches_pallas(block_n):
 
 @pytest.mark.parametrize("a8_env", [None, "1", "0"])
 def test_moe_mlp_decode_mode_reads_medplib_decode_a8(monkeypatch, a8_env):
-    """moe_mlp at a decode tile (block_m 16) on the whole-stack path takes
-    the fused decode kernel on both sides; MEDPLIB_DECODE_A8 (unset: A8)
-    picks its mode alike. Each side is also held to K2 called directly in
-    the mode the variable names (rel 1e-3, as above)."""
+    """A decode call of moe_mlp on the grouped route takes the fused
+    decode kernel in A8 on the port whatever MEDPLIB_DECODE_A8 says; the
+    JAX caller (a decode tile, block_m 16, on the whole-stack path) reads
+    the variable (unset: A8). The port's output is K2 called directly in
+    A8, bit for bit; JAX's is within rel 1e-3 (as above) of K2 called
+    directly in the mode the variable names, and not of the other."""
     if a8_env is None:
         monkeypatch.delenv("MEDPLIB_DECODE_A8", raising=False)
     else:
@@ -369,21 +371,19 @@ def test_moe_mlp_decode_mode_reads_medplib_decode_a8(monkeypatch, a8_env):
     n0 = D.moe_ffn_decode_int4h.launches
     got, _ = tmoe.moe_mlp(tmp, _t(x), tc.MoeConfig(
         enable=True, num_experts=e, top_k=1), train=False,
-        dispatch_mode="gmm", block_m=16, stacked=True)
+        dispatch_mode="gmm", decode=True)
     assert D.moe_ffn_decode_int4h.launches == n0   # CPU: the plain version
-    want = np.asarray(want)
-    assert _rel(_np(got), want) < 1e-3
-    # the mode both took: the direct K2 call in that mode, routed alike
+    want = np.asarray(want).reshape(4, h)
+    # the mode each took: the direct K2 call in that mode, routed alike
     logits = _t(x.reshape(4, h)) @ _t(router)
     gates = torch.softmax(logits, -1)
     idx = gates.argmax(-1)
     g = gates.gather(1, idx[:, None])[:, 0]
-    a8 = a8_env != "0"
-    direct = D.moe_ffn_decode_int4h(_t(x.reshape(4, h)), tex,
-                                    idx.to(torch.int32), g, e,
-                                    int8_x=a8)
-    other = D.moe_ffn_decode_int4h(_t(x.reshape(4, h)), tex,
-                                   idx.to(torch.int32), g, e,
-                                   int8_x=not a8)
-    assert torch.equal(got.reshape(4, h), direct)
-    assert _rel(_np(other), want) > 1e-3
+    direct = {a8: D.moe_ffn_decode_int4h(_t(x.reshape(4, h)), tex,
+                                         idx.to(torch.int32), g, e,
+                                         int8_x=a8)
+              for a8 in (True, False)}
+    assert torch.equal(got.reshape(4, h), direct[True])
+    jax_a8 = a8_env != "0"
+    assert _rel(_np(direct[jax_a8]), want) < 1e-3
+    assert _rel(_np(direct[not jax_a8]), want) > 1e-3
